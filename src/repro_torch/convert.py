@@ -1,0 +1,55 @@
+"""Carry state built elsewhere (e.g. by the JAX package) across as numpy
+arrays, so both packages can serve the same index and cascade."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.cascade import Cascade
+from repro_torch.device import resolve_device
+from repro_torch.retrieval.index import InvertedIndex, TermStats
+
+__all__ = ["index_from_numpy", "cascade_from_numpy"]
+
+_FOREST_TABLES = {"feature": np.int32, "thresh": np.float32,
+                  "left": np.int32, "right": np.int32, "leaf": np.float32}
+
+
+def _put(a, dtype, dev) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=dtype)).to(dev)
+
+
+def index_from_numpy(*, offsets, postings_doc, postings_impact,
+                     postings_score, doc_len, stats, ctf, df,
+                     device=None) -> InvertedIndex:
+    """An ``InvertedIndex`` from the arrays of an impact-ordered index:
+    CSR ``offsets`` (vocab+1,), postings doc ids / uint8 impacts /
+    (nnz, 3) scores, ``doc_len`` (n_docs,), and the term statistics
+    ``stats`` (vocab, 3, 9), ``ctf`` and ``df`` (vocab,)."""
+    dev = resolve_device(device)
+    return InvertedIndex(
+        offsets=_put(offsets, np.int64, dev),
+        postings_doc=_put(postings_doc, np.int32, dev),
+        postings_score=_put(postings_score, np.float32, dev),
+        postings_impact=_put(postings_impact, np.uint8, dev),
+        term_stats=TermStats(stats=_put(stats, np.float32, dev),
+                             ctf=_put(ctf, np.float32, dev),
+                             df=_put(df, np.float32, dev)),
+        doc_len=_put(doc_len, np.int32, dev))
+
+
+def cascade_from_numpy(kind: str, node_params, max_depth: int,
+                       n_cutoffs: int, *, device=None) -> Cascade:
+    """A ``Cascade`` from per-node forest tables (dicts of arrays keyed
+    feature/thresh/left/right/leaf).  Only the forest kind is ported."""
+    if kind != "forest":
+        raise ValueError(f"node kind {kind!r} is not ported (forest only)")
+    if len(node_params) != n_cutoffs:
+        raise ValueError(f"{len(node_params)} node tables for "
+                         f"{n_cutoffs} cutoffs")
+    dev = resolve_device(device)
+    params = [{k: _put(p[k], dt, dev) for k, dt in _FOREST_TABLES.items()}
+              for p in node_params]
+    return Cascade(kind=kind, nodes=[], node_params=params,
+                   max_depth=max_depth, n_cutoffs=n_cutoffs)

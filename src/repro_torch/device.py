@@ -1,0 +1,19 @@
+"""Device resolution for every entry point of the port."""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means ``"cuda"``.  A CUDA device without a card raises
+    ``RuntimeError``; the CPU is honoured only when asked for by name.
+    There is no silent fallback to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: pass device='cpu' to run on the CPU "
+            "(the port never falls back to it on its own)")
+    return dev

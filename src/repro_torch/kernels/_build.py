@@ -1,0 +1,116 @@
+"""Build the CUDA kernels at first use and bind them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C launcher (no PyTorch headers),
+so ``nvcc`` takes seconds, not minutes.  Libraries go to
+``<repo>/build/repro_torch/`` (listed in ``.gitignore``), named by a hash
+of their source so an edited kernel is rebuilt.  Pointers and the stream
+cross as ``c_void_p``; every launcher returns ``cudaGetLastError()`` and
+``check`` raises when it is not 0.
+
+Nothing here runs at import: the CPU tests import every module, so
+``nvcc`` and the card stay out of import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+__all__ = ["KERNELS", "build_all", "check", "library", "nvcc_path"]
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: launcher symbol and argtypes of each kernel source
+KERNELS = {
+    "impact_scan": ("impact_scan_launch",
+                    [_P, _P, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _I, _I, _I, _I, _P]),
+    "topk": ("block_topk_launch",
+             [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels are built at "
+                       "first use on a machine with the CUDA toolkit")
+
+
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def _nvcc_cmd(name: str, out: Path) -> list[str]:
+    return [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v", "-o", str(out), str(CSRC / f"{name}.cu")]
+
+
+def _build_missing(names) -> dict[str, str]:
+    """Compile the libraries of ``names`` that are not built yet (caller
+    holds ``_lock``)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (subprocess.Popen(
+            _nvcc_cmd(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), tmp, out)
+    # wait for every compiler before reporting any failure, so no nvcc
+    # outlives this call
+    logs = {name: proc.communicate()[0]
+            for name, (proc, _, _) in procs.items()}
+    for name, (proc, tmp, out) in procs.items():
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{logs[name]}")
+        os.replace(tmp, out)
+    return logs
+
+
+def build_all() -> dict[str, str]:
+    """Compile every missing library, one ``nvcc`` per source, all
+    started together.  Returns each built kernel's ``-Xptxas -v`` report
+    (registers, shared memory, spills); raises if any build fails."""
+    with _lock:
+        return _build_missing(KERNELS)
+
+
+def library(name: str):
+    """The C launcher of kernel ``name``, built and loaded on first use."""
+    symbol, argtypes = KERNELS[name]
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            _build_missing([name])
+            lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return getattr(lib, symbol)
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a launch the runtime refused (``cudaGetLastError``)."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")

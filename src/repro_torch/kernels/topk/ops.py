@@ -1,0 +1,31 @@
+"""Two-stage top-k: the blocked kernel, then a stable-sort merge."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.topk import kernel as _kernel_mod
+from repro_torch.kernels.topk.kernel import KP_MAX
+from repro_torch.kernels.topk.ref import topk_ref
+
+__all__ = ["topk_select"]
+
+
+def topk_select(scores: torch.Tensor, k: int, *, block_n: int = 4096,
+                use_kernel: bool = True):
+    """Exact top-k of (Q, N) scores; ties broken toward lower index.
+
+    The kernel covers k <= KP_MAX.  Wider k runs ``topk_ref``, a plain
+    stable sort: that is the JAX package's contract
+    (``kernels/topk/ops.py`` sends k > 128 to its jnp oracle), not a
+    fallback from a failed kernel.
+    """
+    if not use_kernel or k > KP_MAX:
+        return topk_ref(scores, k)
+    vals, idxs = _kernel_mod.block_topk(scores, kp=k, block_n=block_n)
+    # merge the per-block survivors: lexsort((idx, -val)) is a stable
+    # sort on idx, then a stable sort on -val
+    by_idx = torch.sort(idxs, dim=1, stable=True).indices
+    v, i = vals.gather(1, by_idx), idxs.gather(1, by_idx)
+    order = torch.sort(-v, dim=1, stable=True).indices[:, :k]
+    return v.gather(1, order), i.gather(1, order)

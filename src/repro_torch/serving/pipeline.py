@@ -1,0 +1,356 @@
+"""The multi-stage retrieval pipeline with dynamic trade-off prediction.
+
+    query -> static features (core.features, precomputed term stats)
+          -> LR cascade -> predicted class (a k or rho bucket)
+          -> batch-once candidate generation (per-query k/rho as data)
+          -> second-stage reranker -> final ranked list
+
+Everything after the class prediction runs through the batch-once
+``ServingEngine``.  ``serve_batch_reference`` keeps the per-bucket
+execution model (one static parameter per class) as the oracle.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core import cascade as cascade_lib
+from repro_torch.core import features as feat_lib
+from repro_torch.core import forest as forest_lib
+from repro_torch.core import knobs as knobs_lib
+from repro_torch.device import resolve_device
+from repro_torch.retrieval import gold, jass
+from repro_torch.serving import bucketing
+from repro_torch.serving.engine import ServingEngine, _pad_ranked
+
+__all__ = ["ServingConfig", "RetrievalServer"]
+
+
+@dataclasses.dataclass
+class ServingConfig:
+    knob: str                      # "k" | "rho"
+    cutoffs: tuple[int, ...]       # the 9 parameter values
+    threshold: float = 0.75        # cascade confidence t
+    rerank_depth: int = 100        # final list depth
+    stream_cap: int = 4096         # postings stream length P
+    pad_multiple: int = 8
+    kernel_block_p: int = 512       # impact_scan posting-block size
+    kernel_block_d: int = 2048      # impact_scan doc-tile size
+    depth_cutoffs: tuple[int, ...] | None = None  # reranking-depth grid
+    #                               (third knob); None = depth knob off.
+    #                               Must end at depth_pool_width.
+
+    def __post_init__(self):
+        if self.knob not in ("rho", "k"):
+            raise ValueError(f"knob must be 'rho' or 'k', got "
+                             f"{self.knob!r}")
+        knobs_lib.KnobSpec(self.knob, tuple(self.cutoffs))  # grid checks
+        if self.knob == "k" and self.rerank_depth > max(self.cutoffs):
+            raise ValueError(
+                f"rerank_depth={self.rerank_depth} exceeds the widest "
+                f"candidate pool max(cutoffs)={max(self.cutoffs)}: every "
+                "ranked list would be -1-padded past the pool width")
+        if self.depth_cutoffs is not None:
+            spec = knobs_lib.KnobSpec("depth", tuple(self.depth_cutoffs))
+            if spec.reference() != self.depth_pool_width:
+                raise ValueError(
+                    f"depth grid must end at the candidate-pool width "
+                    f"{self.depth_pool_width} (its reference: masking at "
+                    f"it is a no-op), got max {spec.reference()}")
+
+    @property
+    def depth_pool_width(self) -> int:
+        """Static width of the pool the depth knob masks: rerank_depth
+        under rho, max(cutoffs) under k."""
+        return (self.rerank_depth if self.knob == "rho"
+                else max(self.cutoffs))
+
+
+def _same_layout(new, old) -> None:
+    """Swapped node params must match the live ones in structure, shapes
+    and dtypes."""
+    if len(new) != len(old):
+        raise ValueError(f"swapped predictor has {len(new)} nodes, the "
+                         f"live one {len(old)}")
+    for a, b in zip(new, old):
+        if set(a) != set(b):
+            raise ValueError("swapped predictor tables differ from the "
+                             f"live ones ({sorted(a)} vs {sorted(b)})")
+        for k in b:
+            if a[k].shape != b[k].shape or a[k].dtype != b[k].dtype:
+                raise ValueError(
+                    f"swapped predictor table {k!r} mismatch: "
+                    f"{tuple(a[k].shape)}/{a[k].dtype} vs live "
+                    f"{tuple(b[k].shape)}/{b[k].dtype} -- pad retrained "
+                    "params to the template")
+
+
+class RetrievalServer:
+    """Owns the index-derived tensors + trained cascade; serves batches
+    on one device."""
+
+    def __init__(self, index, casc: cascade_lib.Cascade | None,
+                 cfg: ServingConfig, *,
+                 depth_cascade: cascade_lib.Cascade | None = None,
+                 device=None, warmup_batch_sizes: tuple[int, ...] = (),
+                 warmup_query_len: int = 0):
+        self.device = resolve_device(device)
+        self.cascade = casc
+        self.depth_cascade = depth_cascade
+        self.cfg = cfg
+        self.knobs = {cfg.knob: knobs_lib.KnobSpec(cfg.knob,
+                                                   tuple(cfg.cutoffs))}
+        if cfg.depth_cutoffs is not None:
+            self.knobs["depth"] = knobs_lib.KnobSpec(
+                "depth", tuple(cfg.depth_cutoffs))
+        elif depth_cascade is not None:
+            raise ValueError(
+                "depth_cascade given but cfg.depth_cutoffs is None -- "
+                "declare the depth grid in ServingConfig")
+        self.engine = ServingEngine(index, cfg, device=self.device)
+        ts = index.term_stats
+        self.stats = ts.stats.to(self.device)
+        self.ctf = ts.ctf.to(self.device)
+        self.df = ts.df.to(self.device)
+        self.n_docs = index.n_docs
+        self._depths = {}              # knob -> forest max_depth
+        self._live = {}                # knob -> (node_params, thresholds)
+        self._swap_lock = threading.Lock()
+        self.predictor_version = 0
+        self.fallback = False          # serve every knob at its reference
+        if casc is not None:
+            self._boot_knob(cfg.knob, casc)
+        if depth_cascade is not None:
+            self._boot_knob("depth", depth_cascade)
+        if warmup_batch_sizes and warmup_query_len:
+            self.engine.warmup(warmup_batch_sizes, warmup_query_len,
+                               with_depth=self.has_depth_knob)
+
+    def _boot_knob(self, knob: str, casc: cascade_lib.Cascade) -> None:
+        """Install a knob's boot cascade: node tables padded to the
+        depth-derived capacity (so same-depth retrains swap in) on the
+        server's device."""
+        if knob not in self.knobs:
+            raise ValueError(f"no cutoff grid declared for knob {knob!r}")
+        if casc.n_cutoffs != self.knobs[knob].n_cutoffs:
+            raise ValueError(
+                f"knob {knob!r}: cascade has {casc.n_cutoffs} nodes but "
+                f"the grid has {self.knobs[knob].n_cutoffs} cutoffs")
+        if casc.kind != "forest":
+            raise ValueError(f"node kind {casc.kind!r} is not ported")
+        cap = forest_lib.node_capacity(casc.max_depth)
+        node_params = [
+            forest_lib.pad_forest_params(
+                {k: v.to(self.device) for k, v in p.items()}, cap)
+            for p in casc.node_params]
+        thresholds = torch.full((casc.n_cutoffs,), self.cfg.threshold,
+                                dtype=torch.float32, device=self.device)
+        self._depths[knob] = casc.max_depth
+        with self._swap_lock:
+            self._live = {**self._live, knob: (node_params, thresholds)}
+
+    @property
+    def has_depth_knob(self) -> bool:
+        return "depth" in self.knobs
+
+    def _padded_terms(self, query_terms: np.ndarray) -> torch.Tensor:
+        qt = bucketing.pad_rows(query_terms, self.engine.batch_multiple,
+                                fill=-1)
+        return torch.from_numpy(qt.astype(np.int32)).to(self.device)
+
+    def _proba0(self, knob: str, node_params, qt: torch.Tensor):
+        x = feat_lib.query_features(qt, self.stats, self.ctf, self.df)
+        return cascade_lib.proba0_from_params("forest", node_params, x,
+                                              self._depths[knob])
+
+    # stage 0: prediction ------------------------------------------------
+    def predict_classes(self, query_terms: np.ndarray,
+                        knob: str | None = None) -> np.ndarray:
+        """Featurize + cascade on the device: (n,) classes.
+
+        A declared knob with no cascade installed predicts the
+        no-envelope class for every query, which ``params_of`` maps to
+        the knob's reference."""
+        knob = self.cfg.knob if knob is None else knob
+        n = query_terms.shape[0]
+        with self._swap_lock:
+            live = self._live.get(knob)
+        if live is None:
+            return np.full(n, self.knobs[knob].n_cutoffs, np.int32)
+        node_params, thresholds = live
+        p0 = self._proba0(knob, node_params, self._padded_terms(query_terms))
+        return cascade_lib.classes_from_proba(
+            p0, thresholds)[:n].cpu().numpy()
+
+    def predict_margin(self, query_terms: np.ndarray,
+                       knob: str | None = None) -> np.ndarray:
+        """Per-query cascade uncertainty: min over nodes of |p0 - t|.
+        Knobs with no cascade report zero margin."""
+        knob = self.cfg.knob if knob is None else knob
+        n = query_terms.shape[0]
+        with self._swap_lock:
+            live = self._live.get(knob)
+        if live is None:
+            return np.zeros(n, np.float32)
+        node_params, thresholds = live
+        p0 = self._proba0(knob, node_params, self._padded_terms(query_terms))
+        margin = (p0 - thresholds[None, :]).abs().amin(dim=1)
+        return margin[:n].cpu().numpy()
+
+    def swap_predictor(self, node_params, thresholds=None, *,
+                       version: int | None = None,
+                       knob: str | None = None) -> int:
+        """Atomically replace a knob's live cascade tables (and optionally
+        its per-node thresholds).  The new tables must match the live
+        ones in structure, shapes and dtypes."""
+        knob = self.cfg.knob if knob is None else knob
+        if knob not in self._depths:
+            raise RuntimeError(
+                f"server has no cascade predict path for knob {knob!r} "
+                "to swap (no boot cascade was installed for it)")
+        new_params = [{k: torch.as_tensor(v).to(self.device)
+                       for k, v in p.items()} for p in node_params]
+        with self._swap_lock:
+            old_params, old_thr = self._live[knob]
+            _same_layout(new_params, old_params)
+            if thresholds is None:
+                thresholds = old_thr
+            else:
+                thresholds = torch.as_tensor(
+                    thresholds, dtype=torch.float32).to(self.device)
+                if thresholds.shape != old_thr.shape:
+                    raise ValueError(
+                        f"thresholds shape {tuple(thresholds.shape)} != "
+                        f"live {tuple(old_thr.shape)}")
+            self._live = {**self._live, knob: (new_params, thresholds)}
+            self.predictor_version = (self.predictor_version + 1
+                                      if version is None else int(version))
+            return self.predictor_version
+
+    def params_of(self, classes: np.ndarray,
+                  knob: str | None = None) -> np.ndarray:
+        """Predicted class -> engine parameter (k, rho, or depth) via the
+        knob's grid; ``fallback`` pins every query to the reference."""
+        knob = self.cfg.knob if knob is None else knob
+        p = self.knobs[knob].params_of(classes, fallback=self.fallback)
+        if knob == "rho":
+            p = np.minimum(p, self.cfg.stream_cap)
+        return p.astype(np.int64)
+
+    def predict_depths(self, query_terms: np.ndarray):
+        """(depth classes, depth vector), or (None, None) when the depth
+        knob is off."""
+        if not self.has_depth_knob:
+            return None, None
+        dclasses = self.predict_classes(query_terms, knob="depth")
+        return dclasses, self.params_of(dclasses, knob="depth")
+
+    def _rows_scored(self, widths: np.ndarray, depths: np.ndarray):
+        """Per-query pool rows admitted into the rerank under the depth
+        knob, and the depth-free pool rows."""
+        full = (widths if self.cfg.knob == "k"
+                else np.full_like(widths, self.cfg.rerank_depth))
+        return np.minimum(depths, full), full
+
+    def serve_batch(self, query_terms: np.ndarray) -> dict:
+        """Full dynamic pipeline over a query batch, batch-once."""
+        t0 = time.perf_counter()
+        classes = self.predict_classes(query_terms)
+        dclasses, depths = self.predict_depths(query_terms)
+        predict_ms = (time.perf_counter() - t0) * 1e3
+        widths = self.params_of(classes)
+        ranked, timings = self.engine.serve(query_terms, widths,
+                                            depth_vec=depths)
+        timings["predict_ms"] = predict_ms
+        timings["total_ms"] = (time.perf_counter() - t0) * 1e3
+        out = {
+            "ranked": ranked,
+            "classes": classes,
+            "mean_param": float(widths.mean()),
+            "widths": widths.astype(np.float64),
+            "timings": timings,
+            "n_compiles": self.engine.n_compiles,
+        }
+        if depths is not None:
+            rows, full = self._rows_scored(widths, depths)
+            out["depth_classes"] = dclasses
+            out["depths"] = depths.astype(np.float64)
+            out["stage2_rows_scored"] = int(rows.sum())
+            out["stage2_rows_full"] = int(full.sum())
+        return out
+
+    def serve_fixed(self, query_terms: np.ndarray, param: int, *,
+                    depth: int | None = None) -> dict:
+        """Fixed-global-parameter baseline through the same engine."""
+        t0 = time.perf_counter()
+        n = query_terms.shape[0]
+        pool_width = None
+        if self.cfg.knob == "rho":
+            param = min(param, self.cfg.stream_cap)
+        elif param > self.engine.max_k:
+            pool_width = param       # wider than the shared pool
+        widths = np.full(n, param, np.int64)
+        dvec = None if depth is None else np.full(n, int(depth), np.int64)
+        ranked, timings = self.engine.serve(query_terms, widths,
+                                            pool_width=pool_width,
+                                            depth_vec=dvec)
+        timings["predict_ms"] = 0.0
+        timings["total_ms"] = (time.perf_counter() - t0) * 1e3
+        return {"ranked": ranked, "mean_param": float(param),
+                "widths": widths.astype(np.float64), "timings": timings,
+                "n_compiles": self.engine.n_compiles}
+
+    # ------------------------------------------- reference (per-bucket) --
+    def _serve_bucket(self, query_terms: np.ndarray, param: int,
+                      qids: np.ndarray):
+        """Per-bucket path at one static parameter: re-gathers streams and
+        re-materializes the stage-2 accumulators on every call."""
+        eng = self.engine
+        qt = torch.from_numpy(query_terms.astype(np.int32)).to(self.device)
+        ds, im = jass.gather_streams(eng.offsets, eng.pdoc, eng.pimp, qt,
+                                     cap=self.cfg.stream_cap)
+        if self.cfg.knob == "rho":
+            rho = min(param, self.cfg.stream_cap)
+            acc = jass.saat_scores(ds, im, self.n_docs, rho)
+            pool = jass.rank_from_scores(acc, self.cfg.rerank_depth)
+            width = rho
+        else:
+            acc = jass.saat_scores(ds, im, self.n_docs, ds.shape[-1])
+            pool = jass.rank_from_scores(acc, param)
+            width = param
+        sdocs, s3 = jass.gather_score_streams(eng.offsets, eng.pdoc,
+                                              eng.pscore, qt,
+                                              cap=self.cfg.stream_cap)
+        a_bm25, a_lm, a_tfidf = jass.scorer_accumulators(
+            sdocs, s3, self.n_docs, n_terms=qt.shape[1])
+        stage2 = gold.second_stage_scores(
+            a_bm25, a_lm, a_tfidf, eng.doc_len,
+            torch.from_numpy(qids).to(self.device))
+        ranked = gold.rerank_pool(stage2, pool, self.cfg.rerank_depth)
+        return _pad_ranked(ranked.cpu().numpy(), self.cfg.rerank_depth), width
+
+    def serve_batch_reference(self, query_terms: np.ndarray) -> dict:
+        """Per-bucket execution model: one static-parameter pass per
+        predicted class."""
+        n = query_terms.shape[0]
+        classes = self.predict_classes(query_terms)
+        buckets = bucketing.bucketize(classes, len(self.cfg.cutoffs),
+                                      self.cfg.pad_multiple)
+        results, widths = {}, np.zeros(n)
+        for c, b in buckets.items():
+            param = self.cfg.cutoffs[min(c, len(self.cfg.cutoffs) - 1)]
+            ranked, width = self._serve_bucket(query_terms[b["pad_idx"]],
+                                               int(param), b["pad_idx"])
+            results[c] = ranked
+            widths[b["idx"]] = width
+        return {
+            "ranked": bucketing.scatter_back(n, buckets, results),
+            "classes": classes,
+            "mean_param": float(widths.mean()),
+            "widths": widths,
+        }

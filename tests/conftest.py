@@ -2,6 +2,11 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips (in a fixture) without one")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(1234)

@@ -1,0 +1,61 @@
+"""The port stands alone: no file of ``src/repro_torch/`` or
+``chip_smoke.py`` imports JAX or the JAX package, and entry points with
+no device ask for CUDA and raise without it."""
+
+import ast
+import os
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    pkg = os.path.join(ROOT, "src", "repro_torch")
+    for base, _, names in os.walk(pkg):
+        files += [os.path.join(base, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def test_port_imports_neither_jax_nor_repro():
+    files = _port_files()
+    assert len(files) > 20 and os.path.exists(files[0])
+    bad = {(os.path.relpath(f, ROOT), m) for f in files
+           for m in _imported_roots(f) if m in FORBIDDEN}
+    assert not bad, sorted(bad)
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from repro_torch.core import experiment
+    from repro_torch.device import resolve_device
+    from repro_torch.serving import pipeline
+    from repro_torch.serving.engine import ServingEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert resolve_device("cpu").type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    cfg = pipeline.ServingConfig(knob="rho", cutoffs=(8, 16))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingEngine(None, cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        experiment.build_system(experiment.ExperimentConfig(
+            n_docs=50, vocab=80, n_queries=4))
