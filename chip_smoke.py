@@ -4,29 +4,43 @@
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
-  0. the card's name and power limit; build both CUDA kernels from
+  0. the card's name and power limit; build the four CUDA kernels from
      ``src/repro_torch/csrc`` (one nvcc per source, started together).
   1. each kernel against its plain torch version on the card, at the
-     main path's shapes and at edge shapes, bit-equal; CUDA-event times
-     of the kernel, the plain version and one library call.
-  2. the main path at the repo's paper-validation scale ("paperish":
-     50 000 docs, 60 000 terms, 8 000 queries, streams of 4096): build
-     the system, MED tables and envelope labels, train the forest
-     cascades, and serve 4 batches of 128 queries per knob through
+     main paths' shapes and at edge shapes (impact_scan and topk
+     bit-equal; flash_attention within 2e-5 in float32 and 2e-2 in
+     bfloat16; embedding_bag within rtol 1e-5 / atol 1e-6, and whether
+     it was bit-equal); CUDA-event times of the kernel, the plain version
+     and one library call.
+  2. the batch-once serving path at the repo's paper-validation scale
+     ("paperish": 50 000 docs, 60 000 terms, 8 000 queries, streams of
+     4096): build the system, MED tables and envelope labels, train the
+     forest cascades, and serve 4 batches of 128 queries per knob through
      ``RetrievalServer(device="cuda")``, with the kernel launch counters
      zeroed just before and read just after.  The ranked lists are held
      against the per-bucket reference on the card and, for one batch,
      against the same server on the CPU.
-  3. one JSON line with every kernel's launches, error and times.
-  4. the last line: {"ok": true, "device": {...}}.
+  3. the recsys funnel at full width (BST ``model_config``, two towers
+     over 1 M candidates, pool 1000): label 1024 synthetic requests on
+     the card in batches of 128 (gold and per-cutoff runs, MED_RBP,
+     envelope labels), train the forest cascade on the host, and serve 4
+     held-out batches of 128 through ``Funnel(device="cuda").serve``
+     with the launch counters zeroed just before and read just after; a
+     few requests of one batch are held against the same funnel on the
+     CPU.  Then one more held-out batch, its classes spread over every
+     cutoff (k from 10 to the pool of 1000), is executed on the card and
+     held against each of its requests executed alone on the card and
+     against the same batch executed on the CPU.
+  4. one JSON line with every kernel's launches, error and times.
+  5. the last line: {"ok": true, "device": {...}}.
 
-With ``--profile DIR``, after phase 2 each knob's server serves its
-steady batches again, once on the host clock and once under
-``torch.profiler``, and one ``profile:`` line per knob gives the wall ms
+With ``--profile DIR``, after phase 3 each knob's server and the funnel
+serve their steady batches again, once on the host clock and once under
+``torch.profiler``, and one ``profile:`` line each gives the wall ms
 per batch, the device-busy ms per batch (the union of the CUDA activity
 intervals), the idle share ``1 - busy / wall``, CUDA activities per
-batch and the five items with the most device time; the Chrome trace of
-each knob goes to ``DIR/trace_serving_<knob>.json``.
+batch and the five items with the most device time; the Chrome traces
+go to ``DIR/trace_serving_<name>.json``.
 
 Without a CUDA card, or run outside the repository, it fails before
 printing any result.
@@ -54,6 +68,12 @@ PAPERISH = dict(n_docs=50_000, vocab=60_000, n_queries=8_000,
 BATCH, N_BATCHES, RERANK_DEPTH, TAU = 128, 4, 100, 0.05
 #: stage-2 tolerance: log/divide in float32 on two devices
 STAGE2_RTOL = 1e-6
+#: the funnel: requests labelled for training, re-served on the CPU
+FUNNEL_TRAIN, FUNNEL_CPU = 1024, 8
+#: funnel stage-2 tolerance (absolute; scores lie in about [0, 1.6]):
+#: the BST's float32 products add in another order on the card than on
+#: the CPU, or at another batch size
+FUNNEL_ATOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -225,6 +245,149 @@ def check_topk(dev, stage1_acc):
         shape=f"Q={q} N={n} kp={k} block_n=4096", bytes=n_bytes)
 
 
+def check_flash_attention(dev, bst_cfg, pool: int):
+    """The funnel's attention shape at the full pool, as its labelling
+    runs give it (BH = batch x pool x heads, S = seq_len + 1, hd =
+    head_dim, non-causal), and the LM shapes of the JAX package's kernel
+    tests, causal and windowed, GQA folded by ops."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ops
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def hold(got, want, what):
+        tol = 2e-5 if got.dtype == torch.float32 else 2e-2
+        g, w = got.float(), want.float()
+        name = str(got.dtype).split(".")[-1]
+        errs[name] = max(errs[name], float((g - w).abs().max()))
+        if not torch.allclose(g, w, rtol=tol, atol=tol):
+            raise AssertionError(f"flash_attention differs from its plain "
+                                 f"version beyond {tol} at {what}")
+
+    bh = BATCH * pool * bst_cfg.n_heads
+    s, hd = bst_cfg.seq_len + 1, bst_cfg.head_dim
+    q, k, v = (randn(bh, s, hd) for _ in range(3))
+    hold(K.flash_attention_fwd(q, k, v, causal=False),
+         K.flash_attention_fwd_plain(q, k, v, causal=False), "funnel")
+    part = BATCH * 50 * bst_cfg.n_heads     # a served batch at k = 50
+    hold(K.flash_attention_fwd(q[:part], k[:part], v[:part], causal=False),
+         K.flash_attention_fwd_plain(q[:part], k[:part], v[:part],
+                                     causal=False), "funnel at k = 50")
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    hold(K.flash_attention_fwd(qb, kb, vb, causal=False),
+         K.flash_attention_fwd_plain(qb, kb, vb, causal=False),
+         "funnel bf16")
+    for (b, sl, hq, hkv, d) in ((2, 64, 4, 2, 32), (1, 128, 2, 2, 16),
+                                (2, 64, 8, 1, 64), (1, 256, 4, 4, 32)):
+        xs = (randn(b, sl, hq, d), randn(b, sl, hkv, d), randn(b, sl, hkv, d))
+        for causal, window in ((True, None), (False, None), (True, 16)):
+            hold(ops.flash_attention(*xs, causal=causal, window=window),
+                 ops.flash_attention(*xs, causal=causal, window=window,
+                                     use_kernel=False),
+                 f"{(b, sl, hq, hkv, d)} causal={causal} window={window}")
+        xb = tuple(x.to(torch.bfloat16) for x in xs)
+        hold(ops.flash_attention(*xb), ops.flash_attention(
+            *xb, use_kernel=False), f"{(b, sl, hq, hkv, d)} bf16")
+    for (n, sl, d, causal, window) in ((3, 300, 128, False, 40),
+                                       (5, 7, 8, True, None),
+                                       (2, 1, 4, True, 1)):
+        xs = tuple(randn(n, sl, d) for _ in range(3))
+        hold(K.flash_attention_fwd(*xs, causal=causal, window=window),
+             K.flash_attention_fwd_plain(*xs, causal=causal, window=window),
+             f"({n}, {sl}, {d}) causal={causal} window={window}")
+
+    q4, k4, v4 = (x.view(bh // bst_cfg.n_heads, bst_cfg.n_heads, s, hd)
+                  for x in (q, k, v))
+    n_bytes = 4 * bh * s * hd * 4
+    b_ms, b_by = bound_ms(n_bytes, 4 * bh * s * s * hd)
+    return dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:110",
+        max_abs_err=errs["float32"], max_abs_err_bf16=errs["bfloat16"],
+        ms=time_ms(lambda: K.flash_attention_fwd(q, k, v, causal=False)),
+        plain_ms=time_ms(lambda: K.flash_attention_fwd_plain(
+            q, k, v, causal=False)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, scale=hd ** -0.5)),
+        shape=f"BH={bh} S={s} hd={hd} float32 non-causal", bytes=n_bytes)
+
+
+def check_embedding_bag(dev):
+    """262 144 bags of 8 over a 1 000 000 x 32 table (wide_deep's field
+    width and vocabulary, the serve_bulk batch) and the JAX benchmark's
+    100 000 x 32 table with ids (1024, 8); L = 1, bags of padding only,
+    ``mean``, and widths that are not a multiple of 4."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.embedding_bag import kernel as K
+    from repro_torch.kernels.embedding_bag import ref as R
+
+    max_err, bit_equal = 0.0, True
+
+    def make(v, d, b, l, seed, pad_rows=()):
+        r = np.random.default_rng(seed)
+        table = r.normal(0, d ** -0.5, (v, d)).astype(np.float32)
+        ids = r.integers(0, v, (b, l)).astype(np.int32)
+        live = r.integers(0, l + 1, b)         # -1 tails of random length
+        ids[np.arange(l)[None, :] >= live[:, None]] = -1
+        ids[list(pad_rows)] = -1
+        return (torch.from_numpy(table).to(dev), torch.from_numpy(ids).to(dev))
+
+    def run(table, ids, mean):
+        nonlocal max_err, bit_equal
+        got = K.embedding_bag_kernel(table, ids, mean=mean)
+        want = R.embedding_bag_ref(table, ids, mean=mean)
+        max_err = max(max_err, float((got - want).abs().max()))
+        bit_equal = bit_equal and torch.equal(got, want)
+        if not torch.allclose(got, want, rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"embedding_bag differs from its plain "
+                                 f"version at {tuple(table.shape)} "
+                                 f"{tuple(ids.shape)} mean={mean}")
+        empty = (ids < 0).all(dim=1)
+        if got[empty].any():
+            raise AssertionError("a bag of padding only is not zero")
+
+    table, ids = make(1_000_000, 32, 262_144, 8, seed=1, pad_rows=(0, 5))
+    for mean in (False, True):
+        run(table, ids, mean)
+    bench = make(100_000, 32, 1024, 8, seed=2, pad_rows=(3,))
+    for mean in (False, True):
+        run(*bench, mean)
+    run(*make(100_000, 32, 4096, 1, seed=3), False)
+    run(*make(1000, 5, 300, 4, seed=4, pad_rows=(1,)), True)
+    run(*make(500, 200, 64, 3, seed=5), False)
+
+    mask = ids >= 0
+    flat = ids[mask].long()                    # row-major: slot order
+    counts = mask.sum(dim=1)
+    offsets = torch.cumsum(counts, 0) - counts
+    live = int(counts.sum())
+    b, l = ids.shape
+    d = table.shape[1]
+    n_bytes = live * d * 4 + b * l * 4 + b * d * 4
+    b_ms, b_by = bound_ms(n_bytes, live * d)
+    return dict(
+        name="embedding_bag", route="cuda",
+        source="src/repro_torch/csrc/embedding_bag.cu",
+        replaces="src/repro/kernels/embedding_bag/kernel.py:72",
+        max_abs_err=max_err, bit_equal=bit_equal,
+        ms=time_ms(lambda: K.embedding_bag_kernel(table, ids)),
+        plain_ms=time_ms(lambda: R.embedding_bag_ref(table, ids)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: F.embedding_bag(flat, table, offsets,
+                                                   mode="sum")),
+        shape=f"V=1000000 D=32 B={b} L={l} live={live} sum", bytes=n_bytes)
+
+
 # ------------------------------------------------------------- phase 2 --
 
 def _stage2(server, qt):
@@ -372,6 +535,233 @@ def main_path(sys_, servers, batches):
     return launches, report
 
 
+# ------------------------------------------------------------- phase 3 --
+
+def _requests(n, d_user, seq_len, vocab, seed):
+    """Synthetic requests as examples/recsys_funnel.py makes them: normal
+    user features, histories with -1 tails of random length (1 to T
+    real items)."""
+    import numpy as np
+    r = np.random.default_rng(seed)
+    uf = r.normal(size=(n, d_user)).astype(np.float32)
+    hist = r.integers(0, vocab, (n, seq_len)).astype(np.int32)
+    hist[np.cumsum(np.ones((n, seq_len)), 1)
+         > r.integers(1, seq_len + 1, (n, 1))] = -1
+    return uf, hist
+
+
+def build_funnel():
+    """The full-width funnel on the card: seeded parameters, 1024
+    labelled training requests and a cascade trained on the host; 4
+    held-out batches of 128 to serve, and one more for the mixed-k
+    check.  Returns (funnel, batches, mixed batch)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import recsys as configs
+    from repro_torch.core import cascade as cascade_lib
+    from repro_torch.models.recsys import bst, retrieval_tower
+    from repro_torch.serving import funnel as F
+
+    t0 = time.perf_counter()
+    cfg = configs.funnel_config()
+    tower = retrieval_tower.init_tower(cfg.tower, seed=0, device="cuda")
+    model = bst.init_bst(cfg.bst, seed=1, device="cuda")
+    torch.cuda.synchronize()
+    log(f"phase 3: funnel {cfg.tower} {cfg.bst} cutoffs {cfg.cutoffs} "
+        f"pool {cfg.pool_depth}: parameters in "
+        f"{time.perf_counter() - t0:.1f} s")
+    n_serve = BATCH * N_BATCHES
+    uf, hist = _requests(FUNNEL_TRAIN + n_serve, cfg.tower.d_user_in,
+                         cfg.bst.seq_len, cfg.bst.item_vocab, seed=2)
+    t0 = time.perf_counter()
+    labels, meds = [], []
+    for b in range(0, FUNNEL_TRAIN, BATCH):
+        gold, runs = F.funnel_gold_runs(cfg, tower, model, uf[b:b + BATCH],
+                                        hist[b:b + BATCH])
+        lab, table = F.label_requests(cfg, gold, runs)
+        labels.append(lab)
+        meds.append(table)
+    labels, meds = np.concatenate(labels), np.concatenate(meds)
+    t_label = time.perf_counter() - t0
+    feats = F.request_features(
+        torch.from_numpy(uf[:FUNNEL_TRAIN]).cuda(),
+        torch.from_numpy(hist[:FUNNEL_TRAIN]).cuda()).cpu().numpy()
+    t0 = time.perf_counter()
+    casc = cascade_lib.train_cascade(
+        feats, labels, n_cutoffs=len(cfg.cutoffs),
+        forest_kwargs=dict(n_trees=10, max_depth=6), device="cuda")
+    log(f"phase 3: labels of {FUNNEL_TRAIN} requests in {t_label:.1f} s: "
+        f"{np.bincount(labels, minlength=len(cfg.cutoffs) + 1).tolist()}, "
+        f"mean MED_RBP per k {np.round(meds.mean(0), 4).tolist()}; "
+        f"cascade {time.perf_counter() - t0:.1f} s")
+    funnel = F.Funnel(cfg, tower, model, casc, device="cuda")
+    batches = [(uf[FUNNEL_TRAIN + i * BATCH:FUNNEL_TRAIN + (i + 1) * BATCH],
+                hist[FUNNEL_TRAIN + i * BATCH:FUNNEL_TRAIN + (i + 1) * BATCH])
+               for i in range(N_BATCHES)]
+    mixed = _requests(BATCH, cfg.tower.d_user_in, cfg.bst.seq_len,
+                      cfg.bst.item_vocab, seed=3)
+    return funnel, batches, mixed
+
+
+def _funnel_scores(funnel, uf, hist, ks):
+    """Per request {item: stage-2 score} on the funnel's device at the
+    served settings (pool of max(k), each request normalised over its
+    own k), and the pool ids."""
+    import torch
+    from repro_torch.models.recsys import retrieval_tower
+    from repro_torch.serving import funnel as F
+    dev = funnel.device
+    ids, vals = retrieval_tower.retrieve_topk(
+        funnel.tower_params, funnel.cfg.tower,
+        torch.from_numpy(uf).to(dev), int(ks.max()))
+    s2 = F._bst_scores(funnel.bst_params, funnel.cfg.bst,
+                       torch.from_numpy(hist).to(dev), ids, vals,
+                       norm_width=torch.from_numpy(ks).to(dev))
+    return [dict(zip(i, s)) for i, s in zip(ids.cpu().tolist(),
+                                            s2.cpu().tolist())]
+
+
+def _compare_funnel(name, got, want, scores) -> tuple[int, float]:
+    """Ranked lists equal, or every differing position holds two items
+    whose stage-2 scores (``scores``, one device's) lie within
+    FUNNEL_ATOL.  Returns (positions differing, largest gap allowed)."""
+    import numpy as np
+    qs, pos = np.nonzero(got != want)
+    worst = 0.0
+    for q, i in zip(qs, pos):
+        a, b = int(got[q, i]), int(want[q, i])
+        if a < 0 or b < 0 or a not in scores[q] or b not in scores[q]:
+            raise AssertionError(f"{name}: request {q} rank {i}: {a} vs {b}")
+        gap = abs(scores[q][a] - scores[q][b])
+        if gap > FUNNEL_ATOL:
+            raise AssertionError(f"{name}: request {q} rank {i}: items "
+                                 f"{a}/{b} stage-2 gap {gap}")
+        worst = max(worst, gap)
+    return len(qs), worst
+
+
+def _check_funnel_ranked(out, cfg):
+    import numpy as np
+    ranked, ks = out["ranked"], out["k"]
+    if ranked.shape != (BATCH, cfg.eval_depth):
+        raise AssertionError(f"funnel ranked shape {ranked.shape}")
+    if ranked.min() < -1 or ranked.max() >= cfg.tower.n_candidates:
+        raise AssertionError("funnel ranked ids out of range")
+    for row, k in zip(ranked, ks):
+        items = row[row >= 0]
+        if len(items) != min(k, cfg.eval_depth):
+            raise AssertionError(f"{len(items)} items ranked at k={k}")
+        if (row[len(items):] != -1).any():
+            raise AssertionError("-1 padding inside a funnel ranked list")
+        if len(np.unique(items)) != len(items):
+            raise AssertionError("a funnel ranked list repeats an item")
+
+
+def funnel_path(funnel, batches, mixed):
+    import numpy as np
+    from repro_torch.kernels.embedding_bag import kernel as eb_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.impact_scan import kernel as is_kernel
+    from repro_torch.kernels.topk import kernel as tk_kernel
+    from repro_torch.serving import funnel as F
+
+    cfg = funnel.cfg
+    served = []
+    # ---- the counted window: nothing but the funnel runs in it ----
+    fa_kernel.n_launches = eb_kernel.n_launches = 0
+    is_kernel.n_launches = tk_kernel.n_launches = 0
+    for uf, hist in batches:
+        before = fa_kernel.n_launches
+        out = funnel.serve(uf, hist)
+        out["launches"] = fa_kernel.n_launches - before
+        served.append(out)
+    launches = {"flash_attention": fa_kernel.n_launches,
+                "embedding_bag": eb_kernel.n_launches,
+                "impact_scan": is_kernel.n_launches,
+                "topk": tk_kernel.n_launches}
+    # ---- end of the counted window ----
+    if launches["impact_scan"] or launches["topk"]:
+        raise AssertionError(f"the funnel launched serving kernels: "
+                             f"{launches}")
+
+    for b, out in enumerate(served):
+        if out["launches"] != cfg.bst.n_blocks:
+            raise AssertionError(f"funnel batch {b}: {out['launches']} "
+                                 "flash_attention launches")
+        _check_funnel_ranked(out, cfg)
+    # the same funnel on the CPU, for a few requests of one batch
+    uf, hist = (x[:FUNNEL_CPU] for x in batches[1])
+    got = {k: v[:FUNNEL_CPU] for k, v in served[1].items()
+           if k in ("ranked", "k", "classes")}
+    cpu = F.Funnel(cfg, funnel.tower_params, funnel.bst_params,
+                   funnel.cascade, device="cpu")
+    want = cpu.serve(uf, hist)
+    if not (np.array_equal(want["classes"], got["classes"])
+            and np.array_equal(want["k"], got["k"])):
+        raise AssertionError("funnel classes differ on the CPU")
+    card = _funnel_scores(funnel, uf, hist, got["k"])
+    host = _funnel_scores(cpu, uf, hist, got["k"])
+    n_cpu, worst = _compare_funnel("funnel cpu", got["ranked"],
+                                   want["ranked"], card)
+    common = [abs(card[q][i] - host[q][i]) for q in range(FUNNEL_CPU)
+              for i in card[q] if i in host[q]]
+    steady = served[1:]
+    stages = {k: statistics.mean(o["timings"][k] for o in steady)
+              for k in steady[0]["timings"]}
+    report = dict(
+        stage_ms=stages, requests_per_s=BATCH / (stages["total_ms"] / 1e3),
+        mean_k=statistics.mean(o["mean_k"] for o in steady),
+        mean_k_per_batch=[o["mean_k"] for o in served],
+        launches_per_batch=[o["launches"] for o in served],
+        cpu_requests=FUNNEL_CPU, cpu_positions_differing=n_cpu,
+        cpu_largest_gap_allowed=worst,
+        cpu_card_stage2_max_abs_diff=max(common),
+        cpu_stage_ms=want["timings"])
+    log("phase 3: funnel: " + json.dumps(report))
+    log("phase 3: funnel mixed k: " + json.dumps(
+        funnel_mixed_k(funnel, cpu, *mixed)))
+    return launches, report
+
+
+def funnel_mixed_k(funnel, cpu, uf, hist):
+    """One batch with its classes spread over every cutoff and the
+    no-envelope class, executed on the card: held against each request
+    executed alone on the card (the prefix mask and the per-request
+    normalisation width must hide the wider pools) and against the same
+    batch executed on the CPU."""
+    import numpy as np
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    cfg = funnel.cfg
+    classes = (np.arange(len(uf)) % (len(cfg.cutoffs) + 1)).astype(np.int32)
+    before = fa_kernel.n_launches
+    out = funnel.execute(uf, hist, classes)
+    if fa_kernel.n_launches - before != cfg.bst.n_blocks:
+        raise AssertionError("mixed-k batch: flash_attention launches")
+    if set(out["k"].tolist()) != set(cfg.cutoffs):
+        raise AssertionError(f"mixed-k batch serves k {set(out['k'])}")
+    _check_funnel_ranked(out, cfg)
+    card = _funnel_scores(funnel, uf, hist, out["k"])
+    alone = np.concatenate([
+        funnel.execute(uf[q:q + 1], hist[q:q + 1], classes[q:q + 1])["ranked"]
+        for q in range(len(uf))])
+    n_alone, gap_alone = _compare_funnel("mixed-k alone", out["ranked"],
+                                         alone, card)
+    want = cpu.execute(uf, hist, classes)
+    n_cpu, gap_cpu = _compare_funnel("mixed-k cpu", out["ranked"],
+                                     want["ranked"], card)
+    host = _funnel_scores(cpu, uf, hist, out["k"])
+    diff = max(abs(card[q][i] - host[q][i]) for q in range(len(uf))
+               for i in card[q] if i in host[q])
+    return dict(
+        requests=len(uf), max_k=int(out["k"].max()),
+        requests_per_k={int(k): int((out["k"] == k).sum())
+                        for k in cfg.cutoffs},
+        stage_ms=out["timings"],
+        alone_positions_differing=n_alone, alone_largest_gap_allowed=gap_alone,
+        cpu_positions_differing=n_cpu, cpu_largest_gap_allowed=gap_cpu,
+        cpu_card_stage2_max_abs_diff=diff, cpu_stage_ms=want["timings"])
+
+
 def _busy_us(events) -> float:
     """Length of the union of the events' [start, end] intervals (us)."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -388,24 +778,25 @@ def _busy_us(events) -> float:
     return busy
 
 
-def profile(servers, batches, trace_dir: str) -> None:
-    """Device busy and idle share of each knob's steady batches."""
+def profile(targets, trace_dir: str) -> None:
+    """Device busy and idle share of each path's steady batches.
+    ``targets``: {name: (serve function, list of argument tuples)}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     os.makedirs(trace_dir, exist_ok=True)
-    steady = batches[1:]
-    for knob, (server, _, _) in servers.items():
+    for name, (serve, batches) in targets.items():
+        steady = batches[1:]
         wall = []
-        for qt in steady:
+        for args in steady:
             t0 = time.perf_counter()
-            server.serve_batch(qt)
+            serve(*args)
             wall.append((time.perf_counter() - t0) * 1e3)
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) as prof:
-            for qt in steady:
-                server.serve_batch(qt)
+            for args in steady:
+                serve(*args)
         torch.cuda.synchronize()
         dev_events = [e for e in prof.events()
                       if e.device_type == DeviceType.CUDA]
@@ -417,15 +808,15 @@ def profile(servers, batches, trace_dir: str) -> None:
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
         wall_ms = statistics.median(wall)
         prof.export_chrome_trace(os.path.join(
-            trace_dir, f"trace_serving_{knob}.json"))
+            trace_dir, f"trace_serving_{name}.json"))
         log("profile: " + json.dumps({
-            "knob": knob, "batches": len(steady),
+            "path": name, "batches": len(steady),
             "wall_ms_per_batch": wall_ms,
             "device_busy_ms_per_batch": busy_ms if dev_events else None,
             "idle_share": 1 - busy_ms / wall_ms if dev_events else None,
             "cuda_activities_per_batch": len(dev_events) / len(steady),
             "top_kernels_ms_per_batch": [
-                [name[:80], us / 1e3 / len(steady)] for name, us in top]}))
+                [k[:80], us / 1e3 / len(steady)] for k, us in top]}))
 
 
 def main() -> int:
@@ -457,26 +848,45 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 log(f"phase 0: {kname}: {line.strip()}")
 
+    from repro_torch.configs import recsys as configs
+    from repro_torch.models import layers
+
+    layers.full_fp32_matmul()     # float32 products in full float32,
+    #                               set once for the whole run
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     is_row, stage1_acc = check_impact_scan(dev)
     tk_row = check_topk(dev, stage1_acc)
-    for row in (is_row, tk_row):
+    del stage1_acc
+    fcfg = configs.funnel_config()
+    fa_row = check_flash_attention(dev, fcfg.bst, fcfg.pool_depth)
+    eb_row = check_embedding_bag(dev)
+    rows = (is_row, tk_row, fa_row, eb_row)
+    for row in rows:
         log("phase 1: " + json.dumps(row))
-    log(f"phase 1: kernels bit-equal to their plain versions "
+    log(f"phase 1: kernels hold against their plain versions "
         f"({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
 
     sys_, servers, batches = build_servers()
     launches, _ = main_path(sys_, servers, batches)
+    funnel, fbatches, fmixed = build_funnel()
+    f_launches, _ = funnel_path(funnel, fbatches, fmixed)
+    launches.update(flash_attention=f_launches["flash_attention"],
+                    embedding_bag=f_launches["embedding_bag"])
     if args.profile:
-        profile(servers, batches, args.profile)
-    for row in (is_row, tk_row):
+        targets = {knob: (server.serve_batch, [(qt,) for qt in batches])
+                   for knob, (server, _, _) in servers.items()}
+        targets["funnel"] = (funnel.serve, fbatches)
+        profile(targets, args.profile)
+    for row in rows:
         row["launches"] = launches[row["name"]]
-        for extra in ("shape", "bytes", "select_ms"):
+        for extra in ("shape", "bytes", "select_ms", "max_abs_err_bf16",
+                      "bit_equal"):
             row.pop(extra, None)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
-    print(json.dumps({"kernels": [is_row, tk_row]}))
+    print(json.dumps({"kernels": list(rows)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

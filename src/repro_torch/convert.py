@@ -8,9 +8,11 @@ import torch
 
 from repro_torch.core.cascade import Cascade
 from repro_torch.device import resolve_device
+from repro_torch.models import layers
 from repro_torch.retrieval.index import InvertedIndex, TermStats
 
-__all__ = ["index_from_numpy", "cascade_from_numpy"]
+__all__ = ["index_from_numpy", "cascade_from_numpy", "tower_from_numpy",
+           "bst_from_numpy"]
 
 _FOREST_TABLES = {"feature": np.int32, "thresh": np.float32,
                   "left": np.int32, "right": np.int32, "leaf": np.float32}
@@ -53,3 +55,43 @@ def cascade_from_numpy(kind: str, node_params, max_depth: int,
               for p in node_params]
     return Cascade(kind=kind, nodes=[], node_params=params,
                    max_depth=max_depth, n_cutoffs=n_cutoffs)
+
+
+_LINEAR = ("w", "b")
+_BST_BLOCK = ("wq", "wk", "wv", "wo", "ln1_w", "ln1_b", "ln2_w", "ln2_b",
+              "ff1", "ff2")
+
+
+def _check_keys(tree: dict, keys, what: str) -> None:
+    if set(tree) != set(keys):
+        raise ValueError(f"{what} has keys {sorted(tree)}, expected "
+                         f"{sorted(keys)}")
+
+
+def tower_from_numpy(params: dict, *, device=None) -> dict:
+    """The port's two-tower parameters from the JAX package's tree
+    (``{"mlp": [{"w", "b"}, ...], "items"}`` of float32 arrays)."""
+    _check_keys(params, ("mlp", "items"), "tower params")
+    for lyr in params["mlp"]:
+        _check_keys(lyr, _LINEAR, "tower MLP layer")
+    return layers.to_device(_as_f32(params), resolve_device(device))
+
+
+def bst_from_numpy(params: dict, *, device=None) -> dict:
+    """The port's BST parameters from the JAX package's tree (item and
+    positional tables, blocks, MLP and head of float32 arrays)."""
+    _check_keys(params, ("item_table", "pos_table", "blocks", "mlp", "head"),
+                "BST params")
+    for blk in params["blocks"]:
+        _check_keys(blk, _BST_BLOCK, "BST block")
+    for lyr in params["mlp"]:
+        _check_keys(lyr, _LINEAR, "BST MLP layer")
+    return layers.to_device(_as_f32(params), resolve_device(device))
+
+
+def _as_f32(tree):
+    if isinstance(tree, dict):
+        return {k: _as_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_as_f32(v) for v in tree]
+    return np.asarray(tree, np.float32)

@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels of the port: ``impact_scan`` and ``topk``.
+"""Hand-written Hopper kernels of the port: ``impact_scan``, ``topk``,
+``flash_attention`` and ``embedding_bag``.
 
 Each kernel package keeps the JAX package's layout: ``kernel.py`` (the
 CUDA launch, its plain torch version and a launch counter), ``ops.py``

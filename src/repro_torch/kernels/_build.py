@@ -27,7 +27,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: launcher symbol and argtypes of each kernel source
 KERNELS = {
     "impact_scan": ("impact_scan_launch",
@@ -35,6 +35,11 @@ KERNELS = {
                      _I, _I, _I, _I, _I, _I, _I, _P]),
     "topk": ("block_topk_launch",
              [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "flash_attention": ("flash_attention_launch",
+                        [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
+                         ctypes.c_float, _P]),
+    "embedding_bag": ("embedding_bag_launch",
+                      [_P, _P, _P, _L, _I, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -5,7 +5,7 @@ Tolerances, with their reasons:
   * features: rtol 1e-6 (masked means and a harmonic mean in float32).
   * forest tables: identical, from the same seed (host numpy on both).
   * forest probabilities: rtol 1e-6; predicted classes: equal.  A class
-    flip would be a fault, logged in ROADMAP.md section 3.
+    flip would be a fault, logged in ROADMAP.md section 4.
   * MED: rtol 1e-5 with an atol of 1e-6: sums of up to 2000 float32
     weights in another order; MED(A, A) is exactly 0.
   * envelope labels from one MED table: equal.

@@ -1,5 +1,6 @@
 """Card-only tests of the port: the CUDA kernels against their plain
-versions, and the serving path on the card against the CPU.
+versions, and the serving path and the recsys funnel on the card against
+the CPU.
 
 Every test here carries the ``gpu`` marker and skips (in the
 ``cuda_device`` fixture) where no card is present.  The file imports no
@@ -7,9 +8,18 @@ JAX, so it also runs on a machine that has only the port's stack:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances: exact.  Impacts are integer-valued and top-k is a selection;
-the tiny serving system below has no two pool docs whose stage-2 scores
-are within float32 rounding of each other, so ranked lists are equal.
+Tolerances, with their reasons:
+  * impact_scan and topk: exact.  Impacts are integer-valued and top-k
+    is a selection; the tiny serving system below has no two pool docs
+    whose stage-2 scores are within float32 rounding of each other, so
+    ranked lists are equal.
+  * flash_attention: 2e-5 in float32, 2e-2 in bfloat16 (online against
+    plain softmax: exp and the order of sums differ).
+  * embedding_bag: bit-equal; the kernel and its plain version both add
+    the slots left to right.
+  * funnel: classes and k equal; ranked lists equal except where two
+    items' stage-2 scores lie within 1e-5 (float32 products in another
+    order on the card than on the CPU).
 """
 
 import numpy as np
@@ -17,16 +27,22 @@ import pytest
 import torch
 
 from repro_torch.core import cascade, experiment, labeling
+from repro_torch.kernels.embedding_bag import kernel as eb_kernel
+from repro_torch.kernels.embedding_bag import ref as eb_ref
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.impact_scan import kernel as is_kernel
 from repro_torch.kernels.topk import kernel as tk_kernel
+from repro_torch.models import layers
+from repro_torch.models.recsys import bst, retrieval_tower
 from repro_torch.retrieval.index import block_doc_bounds
-from repro_torch.serving import pipeline
+from repro_torch.serving import funnel, pipeline
 
 
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    layers.full_fp32_matmul()
     return torch.device("cuda")
 
 
@@ -91,3 +107,109 @@ def test_serve_batch_on_card_matches_cpu(cuda_device, knob):
     np.testing.assert_array_equal(a["ranked"], b["ranked"])
     np.testing.assert_array_equal(a["ranked"],
                                   gpu.serve_batch_reference(qt)["ranked"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,s,hd,causal,window,dtype", [
+    (4096, 21, 4, False, None, torch.float32),    # the funnel's attention
+    (8, 64, 32, True, None, torch.float32),
+    (4, 256, 64, True, 16, torch.float32),
+    (3, 300, 128, False, 40, torch.float32),      # ragged S, window only
+    (16, 64, 32, True, None, torch.bfloat16),
+    (5, 7, 8, False, None, torch.bfloat16),
+])
+def test_flash_attention_cuda_matches_plain(cuda_device, bh, s, hd, causal,
+                                            window, dtype):
+    r = np.random.default_rng(bh + s + hd)
+    q, k, v = (torch.from_numpy(r.normal(size=(bh, s, hd)).astype(
+        np.float32)).to(cuda_device, dtype) for _ in range(3))
+    before = fa_kernel.n_launches
+    out = fa_kernel.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    assert fa_kernel.n_launches == before + 1
+    ref = fa_kernel.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                              window=window)
+    assert out.dtype == dtype and out.shape == ref.shape
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("v,d,b,l,mean", [
+    (100_000, 32, 1024, 8, False), (1000, 32, 777, 1, False),
+    (5000, 64, 300, 7, True), (300, 5, 90, 4, True), (50, 200, 33, 3, False),
+])
+def test_embedding_bag_cuda_matches_plain(cuda_device, v, d, b, l, mean):
+    r = np.random.default_rng(v + d + l)
+    table = torch.from_numpy(r.normal(size=(v, d)).astype(np.float32)).to(
+        cuda_device)
+    ids = r.integers(-1, v, (b, l)).astype(np.int32)
+    ids[::7] = -1                                 # bags of padding only
+    ids = torch.from_numpy(ids).to(cuda_device)
+    before = eb_kernel.n_launches
+    out = eb_kernel.embedding_bag_kernel(table, ids, mean=mean)
+    assert eb_kernel.n_launches == before + 1
+    ref = eb_ref.embedding_bag_ref(table, ids, mean=mean)
+    assert torch.equal(out, ref)
+    assert not out[::7].any()
+
+
+@pytest.mark.gpu
+def test_funnel_on_card_matches_cpu(cuda_device):
+    tcfg = retrieval_tower.TowerConfig(d_user_in=16, embed_dim=16,
+                                       hidden=(32,), n_candidates=5000)
+    bcfg = bst.BSTConfig(embed_dim=16, seq_len=8, n_heads=4, item_vocab=5000,
+                         n_profile=4, mlp=(64, 32))
+    cfg = funnel.FunnelConfig(tower=tcfg, bst=bcfg, pool_depth=1000,
+                              eval_depth=30)
+    tower = retrieval_tower.init_tower(tcfg, seed=0, device="cpu")
+    model = bst.init_bst(bcfg, seed=1, device="cpu")
+    r = np.random.default_rng(0)
+    uf = r.normal(size=(96, 16)).astype(np.float32)
+    hist = r.integers(0, 5000, (96, 8)).astype(np.int32)
+    hist[np.arange(8)[None, :] >= r.integers(1, 9, (96, 1))] = -1
+    gold, runs = funnel.funnel_gold_runs(cfg, tower, model, uf, hist)
+    labels, _ = funnel.label_requests(cfg, gold, runs)
+    feats = funnel.request_features(torch.from_numpy(uf),
+                                    torch.from_numpy(hist)).numpy()
+    casc = cascade.train_cascade(feats[:64], labels[:64],
+                                 n_cutoffs=len(cfg.cutoffs),
+                                 forest_kwargs=dict(n_trees=5, max_depth=4),
+                                 device="cpu")
+    cpu = funnel.Funnel(cfg, tower, model, casc, device="cpu")
+    gpu = funnel.Funnel(cfg, tower, model, casc, device=cuda_device)
+    before = fa_kernel.n_launches
+    a = gpu.serve(uf[64:], hist[64:])
+    assert fa_kernel.n_launches == before + bcfg.n_blocks
+    b = cpu.serve(uf[64:], hist[64:])
+    np.testing.assert_array_equal(a["classes"], b["classes"])
+    np.testing.assert_array_equal(a["k"], b["k"])
+    _assert_funnel_ranked(gpu, uf[64:], hist[64:], a, b)
+    # classes spread over every cutoff: the card against the CPU and
+    # against each request executed alone on the card
+    classes = np.arange(32) % (len(cfg.cutoffs) + 1)
+    a = gpu.execute(uf[64:], hist[64:], classes)
+    assert set(a["k"].tolist()) == set(cfg.cutoffs)
+    _assert_funnel_ranked(gpu, uf[64:], hist[64:], a,
+                          cpu.execute(uf[64:], hist[64:], classes))
+    alone = {"ranked": np.concatenate([
+        gpu.execute(uf[64 + q:65 + q], hist[64 + q:65 + q],
+                    classes[q:q + 1])["ranked"] for q in range(32)])}
+    _assert_funnel_ranked(gpu, uf[64:], hist[64:], a, alone)
+
+
+def _assert_funnel_ranked(gpu, uf, hist, a, b):
+    """Ranked lists equal, or each differing position holds two items
+    whose stage-2 scores on the card (at ``a``'s k) lie within 1e-5:
+    float32 sums in another order on the two devices or batch sizes."""
+    dev = gpu.device
+    ids, vals = retrieval_tower.retrieve_topk(
+        gpu.tower_params, gpu.cfg.tower, torch.from_numpy(uf).to(dev),
+        int(a["k"].max()))
+    s2 = funnel._bst_scores(gpu.bst_params, gpu.cfg.bst,
+                            torch.from_numpy(hist).to(dev), ids, vals,
+                            norm_width=torch.from_numpy(a["k"]).to(dev)).cpu()
+    ids = ids.cpu()
+    for q, i in zip(*np.nonzero(a["ranked"] != b["ranked"])):
+        row = dict(zip(ids[q].tolist(), s2[q].tolist()))
+        x, y = int(a["ranked"][q, i]), int(b["ranked"][q, i])
+        assert x >= 0 and y >= 0 and abs(row[x] - row[y]) <= 1e-5, (q, i)

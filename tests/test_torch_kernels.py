@@ -2,11 +2,18 @@
 
 On the CPU the port's kernel wrappers run their plain torch versions;
 they are held here against the Pallas kernels in interpret mode and
-against the jnp oracles.  Tolerances: exact.  Impacts are integer-valued
-float32 (partial sums below 2^24), and top-k is a selection, so every
-output must be bit-identical.  The CUDA kernels themselves are compared
-with the plain versions on the card (tests/test_torch_gpu.py and
-chip_smoke.py).
+against the jnp oracles.  Tolerances, with their reasons:
+  * impact_scan and topk: exact.  Impacts are integer-valued float32
+    (partial sums below 2^24), and top-k is a selection, so every output
+    must be bit-identical.
+  * flash_attention: 2e-5 in float32 and 2e-2 in bfloat16, the
+    tolerances of the JAX package's own kernel tests (exp and the order
+    of sums differ between online and plain softmax).
+  * embedding_bag: bit-equal to the Pallas kernel (both add the slots
+    left to right); rtol 1e-5 / atol 1e-6 against the jnp oracle, which
+    sums the slot axis in its own order.
+The CUDA kernels themselves are compared with the plain versions on the
+card (tests/test_torch_gpu.py and chip_smoke.py).
 """
 
 import jax.numpy as jnp
@@ -14,11 +21,22 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.embedding_bag import kernel as j_eb_kernel
+from repro.kernels.embedding_bag import ops as j_eb_ops
+from repro.kernels.flash_attention import ops as j_fa_ops
+from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
 from repro.kernels.impact_scan import kernel as j_is_kernel
 from repro.kernels.impact_scan import ops as j_is_ops
 from repro.kernels.topk import kernel as j_tk_kernel
 from repro.kernels.topk import ops as j_tk_ops
+from repro.models.recsys import embedding as j_embedding
 from repro.retrieval import index as j_index
+from repro_torch.kernels.embedding_bag import kernel as t_eb_kernel
+from repro_torch.kernels.embedding_bag import ops as t_eb_ops
+from repro_torch.kernels.embedding_bag import ref as t_eb_ref
+from repro_torch.kernels.flash_attention import kernel as t_fa_kernel
+from repro_torch.kernels.flash_attention import ops as t_fa_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.impact_scan import kernel as t_is_kernel
 from repro_torch.kernels.impact_scan import ops as t_is_ops
 from repro_torch.kernels.impact_scan.ref import impact_scan_ref
@@ -161,7 +179,14 @@ def test_cpu_tensors_never_count_as_launches(monkeypatch):
     t_is_ops.saat_accumulate(docs, imps, n_docs=50,
                              rho=torch.tensor([3, 64], dtype=torch.int32))
     t_tk_ops.topk_select(imps, 5, block_n=16)
+    monkeypatch.setattr(t_fa_kernel, "n_launches", 0)
+    monkeypatch.setattr(t_eb_kernel, "n_launches", 0)
+    x = torch.zeros((1, 8, 2, 4))
+    t_fa_ops.flash_attention(x, x, x)
+    t_eb_ops.embedding_bag(torch.zeros((5, 4)),
+                           torch.tensor([[0, -1]], dtype=torch.int32))
     assert t_is_kernel.n_launches == 0 and t_tk_kernel.n_launches == 0
+    assert t_fa_kernel.n_launches == 0 and t_eb_kernel.n_launches == 0
 
 
 # ------------------------------------------------------------------ topk --
@@ -224,3 +249,113 @@ def test_topk_ties_prefer_low_index():
     _, idx = t_tk_ops.topk_select(s, 3, block_n=2)
     assert idx[0].tolist() == [1, 2, 4]
 
+
+
+# ------------------------------------------------------- flash attention --
+
+def _qkv(b, s, hq, hkv, hd, seed, dtype=np.float32):
+    r = np.random.default_rng(seed)
+    return (r.normal(size=(b, s, hq, hd)).astype(dtype),
+            r.normal(size=(b, s, hkv, hd)).astype(dtype),
+            r.normal(size=(b, s, hkv, hd)).astype(dtype))
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,hd", [
+    (2, 64, 4, 2, 32), (1, 128, 2, 2, 16),
+    (4, 7, 2, 2, 4),               # BST-like: S = seq_len + 1, hd 4
+])
+@pytest.mark.parametrize("causal,window", [
+    (True, None), (False, None), (True, 16),
+])
+def test_flash_attention_matches_pallas_and_ref(b, s, hq, hkv, hd, causal,
+                                                window):
+    q, k, v = _qkv(b, s, hq, hkv, hd, seed=s * hq + hd)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    pallas = np.asarray(j_fa_ops.flash_attention(
+        jq, jk, jv, causal=causal, window=window, block_q=32, block_kv=32))
+    ref = np.asarray(j_fa_ops.flash_attention(
+        jq, jk, jv, causal=causal, window=window, use_kernel=False))
+    out = t_fa_ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                   torch.from_numpy(v), causal=causal,
+                                   window=window)
+    assert out.shape == (b, s, hq, hd) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), pallas, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("window", [None, 3])
+def test_attention_ref_matches_jax_ref(window):
+    r = np.random.default_rng(11)
+    q, k, v = (r.normal(size=(6, 21, 4)).astype(np.float32)
+               for _ in range(3))
+    for causal in (True, False):
+        j = np.asarray(j_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), causal=causal,
+                                       window=window))
+        t = attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), causal=causal, window=window)
+        np.testing.assert_allclose(t.numpy(), j, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_bfloat16_matches_pallas():
+    q, k, v = _qkv(1, 64, 4, 2, 32, seed=3)
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
+    pallas = np.asarray(j_fa_ops.flash_attention(jq, jk, jv, block_q=32,
+                                                 block_kv=32), np.float32)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    out = t_fa_ops.flash_attention(tq, tk, tv)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), pallas, rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_flash_attention_validation():
+    x = torch.zeros((2, 8, 4))
+    with pytest.raises(ValueError, match="window must be >= 1"):
+        t_fa_kernel.flash_attention_fwd(x, x, x, window=0)
+    with pytest.raises(ValueError, match="one \\(BH, S, hd\\) shape"):
+        t_fa_kernel.flash_attention_fwd(x, x, torch.zeros((2, 8, 8)))
+    with pytest.raises(ValueError, match="multiple of the key/value heads"):
+        t_fa_ops.flash_attention(torch.zeros((1, 8, 3, 4)),
+                                 torch.zeros((1, 8, 2, 4)),
+                                 torch.zeros((1, 8, 2, 4)))
+
+
+# --------------------------------------------------------- embedding bag --
+
+@pytest.mark.parametrize("v,d,b,l,comb", [
+    (100, 16, 8, 5, "sum"), (50, 8, 4, 3, "mean"), (30, 32, 16, 1, "sum"),
+    (200, 64, 2, 7, "mean"), (40, 5, 6, 4, "sum"),   # D not a multiple of 4
+])
+def test_embedding_bag_matches_pallas_and_oracle(v, d, b, l, comb):
+    r = np.random.default_rng(v * d + l)
+    table = r.normal(size=(v, d)).astype(np.float32)
+    ids = r.integers(-1, v, (b, l)).astype(np.int32)
+    ids[0] = -1                                    # a bag of padding only
+    jt, ji = jnp.asarray(table), jnp.asarray(ids)
+    pallas = np.asarray(j_eb_kernel.embedding_bag_kernel(
+        jt, ji, mean=comb == "mean", interpret=True))
+    oracle = np.asarray(j_embedding.bag_fixed(jt, ji, comb))
+    out = t_eb_ops.embedding_bag(torch.from_numpy(table),
+                                 torch.from_numpy(ids), combiner=comb)
+    np.testing.assert_array_equal(out.numpy(), pallas)
+    np.testing.assert_allclose(out.numpy(), oracle, rtol=1e-5, atol=1e-6)
+    assert not out[0].any()
+    ref = t_eb_ref.embedding_bag_ref(torch.from_numpy(table),
+                                     torch.from_numpy(ids),
+                                     mean=comb == "mean")
+    np.testing.assert_allclose(ref.numpy(), np.asarray(
+        j_eb_ops.embedding_bag(jt, ji, combiner=comb, use_kernel=False)),
+        rtol=1e-5, atol=1e-6)
+
+
+def test_embedding_bag_all_padding_and_validation():
+    table = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(10, 4)).astype(np.float32))
+    ids = torch.full((2, 3), -1, dtype=torch.int32)
+    for comb in ("sum", "mean"):
+        assert not t_eb_ops.embedding_bag(table, ids, combiner=comb).any()
+    with pytest.raises(ValueError, match="combiner"):
+        t_eb_ops.embedding_bag(table, ids, combiner="max")
+    with pytest.raises(ValueError, match="integer tensor"):
+        t_eb_kernel.embedding_bag_kernel(table, ids.float())
