@@ -8,10 +8,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ``src/repro_torch/csrc`` (one nvcc per source, started together).
   1. each kernel against its plain torch version on the card, at the
      main paths' shapes and at edge shapes (impact_scan and topk
-     bit-equal; flash_attention within 2e-5 in float32 and 2e-2 in
-     bfloat16; embedding_bag within rtol 1e-5 / atol 1e-6, and whether
-     it was bit-equal); CUDA-event times of the kernel, the plain version
-     and one library call.
+     bit-equal, topk's tie-heavy stage-1 rows, signed zeros and -inf
+     scores and impact_scan's doc ranges wider than one block included;
+     flash_attention within 2e-5 in float32 and 2e-2 in bfloat16;
+     embedding_bag within rtol 1e-5 / atol 1e-6, and whether it was
+     bit-equal); CUDA-event times of the kernel, the plain version and
+     one library call on the device (a sleep kernel holds the card
+     while each call is enqueued), and of one call of the kernel and of
+     the library on an idle card, host overhead included; the kernel's
+     device time over the library call's and its share of the bound;
+     the registers, shared memory and spills ptxas reported for each
+     kernel function.
   2. the batch-once serving path at the repo's paper-validation scale
      ("paperish": 50 000 docs, 60 000 terms, 8 000 queries, streams of
      4096): build the system, MED tables and envelope labels, train the
@@ -51,6 +58,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -62,6 +70,10 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 ops/s
 HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
+#: clock cycles of the sleep kernel that holds the card while a timed
+#: call is enqueued (about 1 ms at the H100's 1.98 GHz boost clock,
+#: longer than any timed call's host work)
+HOLD_CYCLES = 2_000_000
 #: the JAX package's configs/paper_retrieval.py experiment_config("paperish")
 PAPERISH = dict(n_docs=50_000, vocab=60_000, n_queries=8_000,
                 stream_cap=4096, pool_depth=10_000, gold_depth=1000)
@@ -80,9 +92,12 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int = 25, warm: int = 3) -> float:
+def time_ms(fn, reps: int = 25, warm: int = 3, hold: bool = True) -> float:
     """Median CUDA-event time of ``fn`` over ``reps`` runs, after
-    ``warm`` runs."""
+    ``warm`` runs.  With ``hold``, a sleep kernel keeps the card busy
+    while the host enqueues each run, so the events time the device's
+    work and not the host's launch overhead; without it, the time of one
+    call on an idle card, host overhead included."""
     import torch
     for _ in range(warm):
         fn()
@@ -91,12 +106,47 @@ def time_ms(fn, reps: int = 25, warm: int = 3) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if hold:
+            torch.cuda._sleep(HOLD_CYCLES)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def timings(kernel, plain, library) -> dict:
+    """The device times of the kernel, its plain version and the library
+    call (``ms``, ``plain_ms``, ``library_ms``), and the time of one call
+    of the kernel and of the library on an idle card, host overhead
+    included (``call_ms``, ``library_call_ms``)."""
+    return dict(ms=time_ms(kernel), call_ms=time_ms(kernel, hold=False),
+                plain_ms=time_ms(plain), library_ms=time_ms(library),
+                library_call_ms=time_ms(library, hold=False))
+
+
+def ptxas_summary(report: str) -> list[dict]:
+    """Registers, shared memory and spill bytes of each kernel function
+    in an ``nvcc -Xptxas -v`` report."""
+    funcs, cur = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"function": m.group(1)}
+            funcs.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                cur.update(spill_stores=int(m.group(1)),
+                           spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                cur["smem_bytes"] = int(m.group(1)) if m else 0
+    return funcs
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -156,12 +206,18 @@ def check_impact_scan(dev):
     main_args, main_kw = run(q, p, n_docs, rho, 512, 2048, False)
     run(q, p, n_docs, rho, 512, 2048, True)
     # edge shapes: ragged P, rho 0 and rho > P, all-padding streams,
-    # doc tiles that do not divide n_docs, a doc tile above 48 KB
+    # doc tiles that do not divide n_docs, one posting block
     run(5, 1000, 3001, [0, 1, 999, 5000, 512], 512, 2048, True,
         pad_rows=(3,))
     run(3, 65, 40, [0, 64, 65], 32, 16, True, pad_rows=(0,))
     run(2, 4096, 50_000, [4096, 300], 4096, 16384, True)
     run(1, 7, 5, [7], 512, 2048, True)
+    # more docs than one block's shared memory holds (three tiles a
+    # query), and a stats tile (block_d) that divides neither n_docs nor
+    # the kernel's doc tile
+    run(6, p, 120_000, [0, 1, p // 2, p, p + 50, 300], 512, 2048, True,
+        pad_rows=(3,))
+    run(4, p, n_docs, [p, 1000, 9, 0], 512, 777, True)
 
     d, i, r, lo, hi = main_args
     live = int(torch.minimum(r.long(), torch.full_like(r.long(), p)).sum())
@@ -184,9 +240,10 @@ def check_impact_scan(dev):
         source="src/repro_torch/csrc/impact_scan.cu",
         replaces="src/repro/kernels/impact_scan/kernel.py:158",
         max_abs_err=max_err,
-        ms=time_ms(lambda: K.impact_scan(*main_args, **main_kw)),
-        plain_ms=time_ms(lambda: K.impact_scan_plain(*main_args, **main_kw)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library),
+        **timings(lambda: K.impact_scan(*main_args, **main_kw),
+                  lambda: K.impact_scan_plain(*main_args, **main_kw),
+                  library),
+        bound_ms=b_ms, bound_by=b_by,
         shape=f"Q={q} P={p} n_docs={n_docs} block_p=512 block_d=2048",
         bytes=n_bytes), K.impact_scan(*main_args, **main_kw)
 
@@ -203,7 +260,8 @@ def check_topk(dev, stage1_acc):
         nonlocal max_err
         gv, gi = K.block_topk(scores, kp=kp, block_n=bn)
         wv, wi = K.block_topk_plain(scores, kp=kp, block_n=bn)
-        if not (torch.equal(gv, wv) and torch.equal(gi, wi)):
+        if not (torch.equal(gv.view(torch.int32), wv.view(torch.int32))
+                and torch.equal(gi, wi)):
             raise AssertionError(f"block_topk differs from its plain "
                                  f"version at {tuple(scores.shape)} "
                                  f"kp={kp} bn={bn}")
@@ -226,8 +284,26 @@ def check_topk(dev, stage1_acc):
         run(ties, kp, 4096)
     run(ties[:, :5], 3, 2)                  # kp wider than the block
     run(ties[:2, :4999], 100, 1024)         # ragged last block
+    run(ties, k, 32_768)                    # the widest block
     minf = torch.full((2, 300), float("-inf"), device=dev)
     run(minf, 7, 128, vs_ref=False)         # nothing but -inf
+    # stage-1 rows at small rho: integer-valued, 99% zeros, thousands of
+    # zeros tied at the kp-th value of each block
+    stage1 = np.zeros((9, 50_000), np.float32)
+    live = r.random(stage1.shape) < 0.01
+    stage1[live] = r.integers(1, 20, int(live.sum()))
+    run(torch.from_numpy(stage1).to(dev), k, 4096)
+    # -0.0 ties with +0.0 and comes out as -0.0
+    zeros = r.choice(np.array([-0.0, 0.0, 1.0, -1.0], np.float32),
+                     (9, 50_000), p=[0.45, 0.45, 0.05, 0.05])
+    run(torch.from_numpy(zeros).to(dev), k, 4096)
+    # real -inf scores among finite ones; the first row has fewer finite
+    # scores than kp in every block
+    sparse = ties.clone()
+    sparse[torch.rand(sparse.shape, generator=torch.Generator(
+        device=dev).manual_seed(5), device=dev) < 0.2] = float("-inf")
+    sparse[0, 50:] = float("-inf")
+    run(sparse, k, 4096, vs_ref=False)
 
     n_b = -(-n // 4096)
     n_bytes = q * n * 4 + q * n_b * k * 8
@@ -236,11 +312,10 @@ def check_topk(dev, stage1_acc):
         name="topk", route="cuda", source="src/repro_torch/csrc/topk.cu",
         replaces="src/repro/kernels/topk/kernel.py:94",
         max_abs_err=max_err,
-        ms=time_ms(lambda: K.block_topk(stage1_acc, kp=k, block_n=4096)),
-        plain_ms=time_ms(lambda: K.block_topk_plain(stage1_acc, kp=k,
-                                                    block_n=4096)),
+        **timings(lambda: K.block_topk(stage1_acc, kp=k, block_n=4096),
+                  lambda: K.block_topk_plain(stage1_acc, kp=k, block_n=4096),
+                  lambda: torch.topk(stage1_acc, k, dim=1)),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: torch.topk(stage1_acc, k, dim=1)),
         select_ms=time_ms(lambda: ops.topk_select(stage1_acc, k)),
         shape=f"Q={q} N={n} kp={k} block_n=4096", bytes=n_bytes)
 
@@ -311,12 +386,11 @@ def check_flash_attention(dev, bst_cfg, pool: int):
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:110",
         max_abs_err=errs["float32"], max_abs_err_bf16=errs["bfloat16"],
-        ms=time_ms(lambda: K.flash_attention_fwd(q, k, v, causal=False)),
-        plain_ms=time_ms(lambda: K.flash_attention_fwd_plain(
-            q, k, v, causal=False)),
+        **timings(lambda: K.flash_attention_fwd(q, k, v, causal=False),
+                  lambda: K.flash_attention_fwd_plain(q, k, v, causal=False),
+                  lambda: F.scaled_dot_product_attention(
+                      q4, k4, v4, scale=hd ** -0.5)),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, scale=hd ** -0.5)),
         shape=f"BH={bh} S={s} hd={hd} float32 non-causal", bytes=n_bytes)
 
 
@@ -380,11 +454,10 @@ def check_embedding_bag(dev):
         source="src/repro_torch/csrc/embedding_bag.cu",
         replaces="src/repro/kernels/embedding_bag/kernel.py:72",
         max_abs_err=max_err, bit_equal=bit_equal,
-        ms=time_ms(lambda: K.embedding_bag_kernel(table, ids)),
-        plain_ms=time_ms(lambda: R.embedding_bag_ref(table, ids)),
+        **timings(lambda: K.embedding_bag_kernel(table, ids),
+                  lambda: R.embedding_bag_ref(table, ids),
+                  lambda: F.embedding_bag(flat, table, offsets, mode="sum")),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: F.embedding_bag(flat, table, offsets,
-                                                   mode="sum")),
         shape=f"V=1000000 D=32 B={b} L={l} live={live} sum", bytes=n_bytes)
 
 
@@ -843,10 +916,6 @@ def main() -> int:
     reports = _build.build_all()
     log(f"phase 0: built {sorted(reports) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for kname, text in reports.items():
-        for line in text.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"phase 0: {kname}: {line.strip()}")
 
     from repro_torch.configs import recsys as configs
     from repro_torch.models import layers
@@ -863,6 +932,10 @@ def main() -> int:
     eb_row = check_embedding_bag(dev)
     rows = (is_row, tk_row, fa_row, eb_row)
     for row in rows:
+        row["ms_over_library_ms"] = row["ms"] / row["library_ms"]
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["ptxas"] = (ptxas_summary(reports[row["name"]])
+                        if row["name"] in reports else "not built here")
         log("phase 1: " + json.dumps(row))
     log(f"phase 1: kernels hold against their plain versions "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -882,7 +955,7 @@ def main() -> int:
     for row in rows:
         row["launches"] = launches[row["name"]]
         for extra in ("shape", "bytes", "select_ms", "max_abs_err_bf16",
-                      "bit_equal"):
+                      "bit_equal", "ptxas", "call_ms", "library_call_ms"):
             row.pop(extra, None)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -3,9 +3,15 @@
 Replaces the Pallas TPU kernel ``impact_scan`` of
 ``src/repro/kernels/impact_scan/kernel.py``; the CUDA source is
 ``src/repro_torch/csrc/impact_scan.cu``, whose header gives the design
-(one thread block per (query, doc tile), shared-memory atomics, one
-write of each output element) and the bound (bytes: the dense (Q,
-n_docs) accumulator write is the floor).
+(one thread block owns a query's whole doc range in shared memory, up to
+56 K docs a block, reads its stream once and writes each output element
+once) and the bound (bytes: the dense (Q, n_docs) accumulator write is
+the floor).
+
+``block_p`` and ``block_d`` keep the TPU grid's meaning: the posting
+blocks that ``seg_lo``/``seg_hi`` describe, and the doc tile per which
+``with_stats`` counts the live posting blocks.  Neither shapes the CUDA
+kernel's work.
 
 ``impact_scan`` launches the kernel on a CUDA tensor and runs the plain
 version (``impact_scan_plain``) on a CPU tensor; there is no fallback
@@ -114,12 +120,12 @@ def impact_scan(doc_stream: torch.Tensor, impact_stream: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"impact_scan runs on cuda or cpu, not {dev}")
     _validate(doc_stream, rho_vec, seg_lo, seg_hi, block_p)
+    if not 1 <= n_docs < 2 ** 31:
+        raise ValueError(f"impact_scan takes 1 <= n_docs < 2**31 (doc ids "
+                         f"are int32), got {n_docs}")
     qn, p = doc_stream.shape
     bp, n_p = posting_blocks(p, block_p)
     bd, n_d = doc_blocks(n_docs, block_d)
-    if bd * 4 > 227 * 1024:
-        raise ValueError(f"block_d={bd} needs more than the 227 KB of "
-                         "shared memory a block may use")
     docs = doc_stream.to(torch.int32).contiguous()
     imps = impact_stream.to(torch.float32).contiguous()
     operands = [rho_vec, seg_lo, seg_hi]

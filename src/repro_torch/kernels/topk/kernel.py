@@ -3,9 +3,10 @@
 Replaces the Pallas TPU kernel ``block_topk`` of
 ``src/repro/kernels/topk/kernel.py``; the CUDA source is
 ``src/repro_torch/csrc/topk.cu``, whose header gives the design (one
-thread block per (query, score block), scores in registers, kp rounds of
-a block-wide argmax) and the bound (bytes for the function; this first
-kernel is latency-bound by its kp dependent rounds).
+thread block per (query, score block): order-preserving uint32 keys, an
+MSD radix select of the kp-th largest, the lowest-index ties kept, the
+survivors sorted in shared memory; a dozen barriers whatever kp is) and
+the bound (bytes: one read of the scores).
 
 Each (query, ``block_n`` block) yields its top-kp (value, index) pairs in
 the TPU kernel's order: descending value, ties to the lower index, and
@@ -27,7 +28,7 @@ __all__ = ["KP_MAX", "block_topk", "block_topk_plain", "n_launches"]
 
 #: widest per-block selection the kernel supports, as on the TPU
 KP_MAX = 128
-#: widest block the kernel holds in registers (1024 threads x 32 scores)
+#: widest block the kernel holds in registers (1024 threads x 32 keys)
 BLOCK_N_MAX = 32 * 1024
 
 #: kernel launches since the last reset

@@ -24,8 +24,9 @@ def topk_select(scores: torch.Tensor, k: int, *, block_n: int = 4096,
         return topk_ref(scores, k)
     vals, idxs = _kernel_mod.block_topk(scores, kp=k, block_n=block_n)
     # merge the per-block survivors: lexsort((idx, -val)) is a stable
-    # sort on idx, then a stable sort on -val
-    by_idx = torch.sort(idxs, dim=1, stable=True).indices
-    v, i = vals.gather(1, by_idx), idxs.gather(1, by_idx)
-    order = torch.sort(-v, dim=1, stable=True).indices[:, :k]
-    return v.gather(1, order), i.gather(1, order)
+    # sort on idx, then a stable sort on -val.  The blocks already come
+    # in index order: within a block equal values ascend by index, blocks
+    # ascend, and repeated (-inf, base) pairs are identical.  So the
+    # stable sort on -val alone gives the lexsort.
+    order = torch.sort(-vals, dim=1, stable=True).indices[:, :k]
+    return vals.gather(1, order), idxs.gather(1, order)

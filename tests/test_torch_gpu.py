@@ -37,6 +37,8 @@ from repro_torch.models.recsys import bst, retrieval_tower
 from repro_torch.retrieval.index import block_doc_bounds
 from repro_torch.serving import funnel, pipeline
 
+from _torch_inputs import TOPK_KINDS, topk_edge_scores
+
 
 @pytest.fixture
 def cuda_device():
@@ -65,6 +67,55 @@ def test_impact_scan_cuda_matches_plain(cuda_device, q, p, nd, bp, bd):
                                             block_p=bp, block_d=bd,
                                             with_stats=True)
     assert torch.equal(out, ref) and torch.equal(cnt, rcnt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,nd,bd", [
+    (6, 120_000, 2048),     # three doc tiles a query, each re-reads
+    (6, 120_000, 777),      # stats tiles that straddle the doc tiles
+    (128, 50_000, 2048),    # the serving shape: one block a query
+])
+def test_impact_scan_cuda_wide_and_serving(cuda_device, q, nd, bd):
+    p, bp = 4096, 512
+    r = np.random.default_rng(nd + bd)
+    docs = r.integers(-1, nd, (q, p)).astype(np.int32)
+    imps = r.integers(0, 256, (q, p)).astype(np.float32)
+    docs[2], imps[2] = -1, -1.0                   # a row of padding only
+    rho = np.resize(np.array([0, 1, p // 2, p, p + 50, p], np.int32), q)
+    d, i, rv = (torch.from_numpy(a).to(cuda_device) for a in (docs, imps, rho))
+    seg = block_doc_bounds(d, block_p=bp, n_docs=nd)
+    out, cnt = is_kernel.impact_scan(d, i, rv, *seg, n_docs=nd, block_p=bp,
+                                     block_d=bd, with_stats=True)
+    ref, rcnt = is_kernel.impact_scan_plain(d, i, rv, *seg, n_docs=nd,
+                                            block_p=bp, block_d=bd,
+                                            with_stats=True)
+    assert torch.equal(out, ref) and torch.equal(cnt, rcnt)
+    assert not out[0].any() and not out[2].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nd", [0, 2 ** 31])
+def test_impact_scan_cuda_rejects_n_docs(cuda_device, nd):
+    """Doc ids are int32: the kernel takes 1 <= n_docs < 2**31."""
+    d = torch.zeros((2, 8), dtype=torch.int32, device=cuda_device)
+    i = torch.ones((2, 8), device=cuda_device)
+    rv = torch.full((2,), 8, dtype=torch.int32, device=cuda_device)
+    seg = torch.zeros((2, 1), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="n_docs"):
+        is_kernel.impact_scan(d, i, rv, seg, seg, n_docs=nd, block_p=8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", TOPK_KINDS)
+@pytest.mark.parametrize("bn", [4096, 32_768])
+def test_block_topk_cuda_edge_inputs(cuda_device, kind, bn):
+    s = torch.from_numpy(topk_edge_scores(kind, 4, 50_000, seed=bn)).to(
+        cuda_device)
+    kv, ki = tk_kernel.block_topk(s, kp=100, block_n=bn)
+    pv, pi = tk_kernel.block_topk_plain(s.cpu(), kp=100, block_n=bn)
+    assert torch.equal(kv.cpu(), pv) and torch.equal(ki.cpu(), pi)
+    # bit for bit: a -0.0 comes out as -0.0
+    assert torch.equal(kv.cpu().view(torch.int32), pv.view(torch.int32))
 
 
 @pytest.mark.gpu

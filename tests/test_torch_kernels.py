@@ -44,6 +44,8 @@ from repro_torch.kernels.topk import kernel as t_tk_kernel
 from repro_torch.kernels.topk import ops as t_tk_ops
 from repro_torch.retrieval import index as t_index
 
+from _torch_inputs import TOPK_KINDS, topk_edge_scores
+
 
 def _int_streams(q, p, nd, seed=7):
     """Quantized-impact streams (integer-valued f32, like the index)."""
@@ -65,6 +67,8 @@ def _rho(q, p):
     (2, 65, 40, 32, 16, False),     # ragged stream tail (65 % 32 != 0)
     (5, 256, 1000, 256, 2048, True),  # one posting block, one doc tile
     (1, 100, 77, 512, 32, False),     # block_p clamps to the stream
+    (3, 500, 3001, 128, 777, True),   # block_d divides neither n_docs
+    #                                   nor the CUDA tile (57 344 docs)
 ])
 def test_impact_scan_matches_pallas_and_ref(q, p, nd, bp, bd, seg):
     docs, imps = _int_streams(q, p, nd)
@@ -221,6 +225,23 @@ def test_topk_select_matches_jax(q, n, k, bn):
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     ov, oi = t_tk_ops.topk_select(torch.from_numpy(s), k, use_kernel=False)
     np.testing.assert_array_equal(oi.numpy(), ti.numpy())
+
+
+@pytest.mark.parametrize("kind", TOPK_KINDS)
+def test_block_topk_edge_inputs_match_pallas(kind):
+    """Tie-heavy stage-1 rows, signed zeros and -inf scores: the raw
+    per-block pairs and the merged top-k are the JAX package's."""
+    s = topk_edge_scores(kind, 2, 10_000, seed=5)    # ragged last block
+    jv, ji = j_tk_kernel.block_topk(jnp.asarray(s), kp=100, block_n=4096,
+                                    interpret=True)
+    tv, ti = t_tk_kernel.block_topk(torch.from_numpy(s), kp=100,
+                                    block_n=4096)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    jv, ji = j_tk_ops.topk_select(jnp.asarray(s), 100, interpret=True)
+    tv, ti = t_tk_ops.topk_select(torch.from_numpy(s), 100)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
 
 
 def test_block_topk_rejects_invalid_kp():
