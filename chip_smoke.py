@@ -12,13 +12,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      scores and impact_scan's doc ranges wider than one block included;
      flash_attention within 2e-5 in float32 and 2e-2 in bfloat16;
      embedding_bag within rtol 1e-5 / atol 1e-6, and whether it was
-     bit-equal); CUDA-event times of the kernel, the plain version and
-     one library call on the device (a sleep kernel holds the card
-     while each call is enqueued), and of one call of the kernel and of
-     the library on an idle card, host overhead included; the kernel's
-     device time over the library call's and its share of the bound;
-     the registers, shared memory and spills ptxas reported for each
-     kernel function.
+     bit-equal); CUDA-event times of one call of the kernel, of the
+     plain version and of one library call on an idle card, the host's
+     work in the call included (``ms``, ``plain_ms``, ``library_ms``),
+     the kernel's time over the library call's and its share of the
+     bound; beside them the device time alone and the host time alone
+     of the kernel's call and the library call (a sleep kernel holds the
+     card while each call is enqueued: ``device_ms``,
+     ``library_device_ms``, ``host_ms``, ``library_host_ms``); the
+     registers, shared memory and spills ptxas reported for each kernel
+     function.
   2. the batch-once serving path at the repo's paper-validation scale
      ("paperish": 50 000 docs, 60 000 terms, 8 000 queries, streams of
      4096): build the system, MED tables and envelope labels, train the
@@ -70,9 +73,9 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 ops/s
 HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
-#: clock cycles of the sleep kernel that holds the card while a timed
-#: call is enqueued (about 1 ms at the H100's 1.98 GHz boost clock,
-#: longer than any timed call's host work)
+#: clock cycles of the sleep kernel that holds the card while a call
+#: timed for its device work alone is enqueued (about 1 ms at the H100's
+#: 1.98 GHz boost clock, longer than any timed call's host work)
 HOLD_CYCLES = 2_000_000
 #: the JAX package's configs/paper_retrieval.py experiment_config("paperish")
 PAPERISH = dict(n_docs=50_000, vocab=60_000, n_queries=8_000,
@@ -92,12 +95,12 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int = 25, warm: int = 3, hold: bool = True) -> float:
+def time_ms(fn, reps: int = 25, warm: int = 3, hold: bool = False) -> float:
     """Median CUDA-event time of ``fn`` over ``reps`` runs, after
-    ``warm`` runs.  With ``hold``, a sleep kernel keeps the card busy
+    ``warm`` runs: one call on an idle card, the host's work before each
+    launch included.  With ``hold``, a sleep kernel keeps the card busy
     while the host enqueues each run, so the events time the device's
-    work and not the host's launch overhead; without it, the time of one
-    call on an idle card, host overhead included."""
+    work alone."""
     import torch
     for _ in range(warm):
         fn()
@@ -116,14 +119,35 @@ def time_ms(fn, reps: int = 25, warm: int = 3, hold: bool = True) -> float:
     return statistics.median(times)
 
 
+def host_ms(fn, reps: int = 25, warm: int = 3) -> float:
+    """Median host wall time of one call of ``fn`` while a sleep kernel
+    holds the card, so that no launch waits for the device: the host's
+    work in the call alone."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(HOLD_CYCLES)
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def timings(kernel, plain, library) -> dict:
-    """The device times of the kernel, its plain version and the library
-    call (``ms``, ``plain_ms``, ``library_ms``), and the time of one call
-    of the kernel and of the library on an idle card, host overhead
-    included (``call_ms``, ``library_call_ms``)."""
-    return dict(ms=time_ms(kernel), call_ms=time_ms(kernel, hold=False),
-                plain_ms=time_ms(plain), library_ms=time_ms(library),
-                library_call_ms=time_ms(library, hold=False))
+    """One call's time of the kernel, its plain version and the library
+    call on an idle card (``ms``, ``plain_ms``, ``library_ms``); the
+    device time alone (``device_ms``, ``library_device_ms``) and the
+    host time alone (``host_ms``, ``library_host_ms``) of the kernel's
+    call and the library call."""
+    return dict(ms=time_ms(kernel), device_ms=time_ms(kernel, hold=True),
+                host_ms=host_ms(kernel), plain_ms=time_ms(plain),
+                library_ms=time_ms(library),
+                library_device_ms=time_ms(library, hold=True),
+                library_host_ms=host_ms(library))
 
 
 def ptxas_summary(report: str) -> list[dict]:
@@ -253,6 +277,7 @@ def check_topk(dev, stage1_acc):
     import torch
     from repro_torch.kernels.topk import kernel as K
     from repro_torch.kernels.topk import ops
+    from repro_torch.kernels.topk.edge_scores import KINDS, edge_scores
 
     max_err = 0.0
 
@@ -285,25 +310,15 @@ def check_topk(dev, stage1_acc):
     run(ties[:, :5], 3, 2)                  # kp wider than the block
     run(ties[:2, :4999], 100, 1024)         # ragged last block
     run(ties, k, 32_768)                    # the widest block
-    minf = torch.full((2, 300), float("-inf"), device=dev)
+    minf = torch.from_numpy(edge_scores("all_neg_inf", 2, 300, 0)).to(dev)
     run(minf, 7, 128, vs_ref=False)         # nothing but -inf
-    # stage-1 rows at small rho: integer-valued, 99% zeros, thousands of
-    # zeros tied at the kp-th value of each block
-    stage1 = np.zeros((9, 50_000), np.float32)
-    live = r.random(stage1.shape) < 0.01
-    stage1[live] = r.integers(1, 20, int(live.sum()))
-    run(torch.from_numpy(stage1).to(dev), k, 4096)
-    # -0.0 ties with +0.0 and comes out as -0.0
-    zeros = r.choice(np.array([-0.0, 0.0, 1.0, -1.0], np.float32),
-                     (9, 50_000), p=[0.45, 0.45, 0.05, 0.05])
-    run(torch.from_numpy(zeros).to(dev), k, 4096)
-    # real -inf scores among finite ones; the first row has fewer finite
-    # scores than kp in every block
-    sparse = ties.clone()
-    sparse[torch.rand(sparse.shape, generator=torch.Generator(
-        device=dev).manual_seed(5), device=dev) < 0.2] = float("-inf")
-    sparse[0, 50:] = float("-inf")
-    run(sparse, k, 4096, vs_ref=False)
+    # tie-heavy stage-1 rows, signed zeros and -inf among finite scores
+    # (edge_scores.py); the merged selection is exact where each row has
+    # at least kp finite scores
+    for kind in KINDS:
+        for bn in (4096, 32_768):
+            rows = torch.from_numpy(edge_scores(kind, 9, 50_000, bn)).to(dev)
+            run(rows, k, bn, vs_ref=kind in ("stage1", "signed_zeros"))
 
     n_b = -(-n // 4096)
     n_bytes = q * n * 4 + q * n_b * k * 8
@@ -934,6 +949,7 @@ def main() -> int:
     for row in rows:
         row["ms_over_library_ms"] = row["ms"] / row["library_ms"]
         row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
         row["ptxas"] = (ptxas_summary(reports[row["name"]])
                         if row["name"] in reports else "not built here")
         log("phase 1: " + json.dumps(row))
@@ -955,7 +971,8 @@ def main() -> int:
     for row in rows:
         row["launches"] = launches[row["name"]]
         for extra in ("shape", "bytes", "select_ms", "max_abs_err_bf16",
-                      "bit_equal", "ptxas", "call_ms", "library_call_ms"):
+                      "bit_equal", "ptxas", "device_ms", "library_device_ms",
+                      "device_bound_share", "host_ms", "library_host_ms"):
             row.pop(extra, None)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

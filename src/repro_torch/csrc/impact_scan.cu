@@ -13,7 +13,7 @@
 //
 //   * one thread block of 1024 threads owns one query's doc range, as
 //     wide as MAX_TILE floats (224 KB of dynamic shared memory); a wider
-//     range is split into equal tiles, each a block that reads the
+//     range is split into near-equal tiles, each a block that reads the
 //     query's stream again (the paper's 50 M docs, not the serving shape);
 //   * the block zeroes its tile with 16-byte stores, reads the first
 //     rho[q] postings once, coalesced, and atomicAdds the live ones into
@@ -47,6 +47,7 @@ namespace {
 
 constexpr int THREADS = 1024;
 constexpr int MAX_TILE = 56 * 1024;  // floats of one block's accumulator
+constexpr int MAX_DEVICES = 64;      // devices whose opt-in is remembered
 
 __global__ void __launch_bounds__(THREADS)
 impact_scan_kernel(const int* __restrict__ docs,
@@ -88,16 +89,21 @@ impact_scan_kernel(const int* __restrict__ docs,
   for (int i = head + t; i < width; i += THREADS) qout[i] = acc[i];
 
   if (stats != nullptr) {
-    // the block_d tiles that start in [lo, lo + width)
-    const int first = (lo + bd - 1) / bd;
-    const int last = min(n_d, (lo + width + bd - 1) / bd);
-    for (int db = first + t; db < last; db += THREADS) {
-      const int base = db * bd;
+    // the block_d tiles that start in [lo, lo + width).  n_docs + bd may
+    // pass 2^31 but not 2^32, so the tile bounds divide as unsigned; the
+    // doc bounds and the stats offset (Q * n_d may pass 2^31) are 64-bit
+    const unsigned ubd = bd;
+    const unsigned first = ((unsigned)lo + ubd - 1) / ubd;
+    const unsigned last =
+        min((unsigned)n_d, ((unsigned)lo + width + ubd - 1) / ubd);
+    const int* qlo = seg_lo + (long long)q * n_p;
+    const int* qhi = seg_hi + (long long)q * n_p;
+    for (unsigned db = first + t; db < last; db += THREADS) {
+      const long long base = (long long)db * bd;
       int live = 0;
       for (int pb = 0; pb < n_p; ++pb)
-        live += pb * bp < r && seg_lo[q * n_p + pb] < base + bd &&
-                seg_hi[q * n_p + pb] >= base;
-      stats[q * n_d + db] = live;
+        live += pb * bp < r && qlo[pb] < base + bd && qhi[pb] >= base;
+      stats[(long long)q * n_d + db] = live;
     }
   }
 }
@@ -110,15 +116,25 @@ extern "C" int impact_scan_launch(void* docs, void* imps, void* rho,
                                   int bp, int n_p, int bd, int n_d,
                                   void* stream) {
   if (n_docs < 1 || bd < 1) return (int)cudaErrorInvalidValue;
-  // equal tiles, each a multiple of 4 floats and at most MAX_TILE
-  const int n_t = (n_docs + MAX_TILE - 1) / MAX_TILE;
-  const int tile = ((n_docs + n_t - 1) / n_t + 3) / 4 * 4;
+  // near-equal tiles, each a multiple of 4 floats and at most MAX_TILE
+  // (a multiple of 4), none empty; in 64 bits, as n_docs nears 2^31
+  const long long nd = n_docs;
+  const long long n_t0 = (nd + MAX_TILE - 1) / MAX_TILE;
+  const int tile = (int)(((nd + n_t0 - 1) / n_t0 + 3) / 4 * 4);
+  const int n_t = (int)((nd + tile - 1) / tile);
   const size_t smem = (size_t)tile * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        impact_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+  // opt in to MAX_TILE floats of shared memory once per device, not on
+  // every launch (a driver call of host time before each kernel)
+  static bool opted_in[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (smem > 48 * 1024 && (dev >= MAX_DEVICES || !opted_in[dev])) {
+    e = cudaFuncSetAttribute(impact_scan_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             MAX_TILE * (int)sizeof(float));
     if (e != cudaSuccess) return (int)e;
+    if (dev < MAX_DEVICES) opted_in[dev] = true;
   }
   const long long blocks = (long long)Q * n_t;
   if (blocks > 0) {

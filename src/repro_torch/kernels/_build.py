@@ -21,7 +21,10 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["KERNELS", "build_all", "check", "library", "nvcc_path"]
+import torch
+
+__all__ = ["KERNELS", "build_all", "check", "library", "nvcc_path",
+           "operand", "stream"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -43,7 +46,8 @@ KERNELS = {
 }
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+#: each loaded launcher, read without the lock once it is set
+_launchers: dict[str, object] = {}
 
 
 def nvcc_path() -> str:
@@ -102,16 +106,33 @@ def build_all() -> dict[str, str]:
 
 def library(name: str):
     """The C launcher of kernel ``name``, built and loaded on first use."""
+    fn = _launchers.get(name)
+    if fn is not None:
+        return fn
     symbol, argtypes = KERNELS[name]
     with _lock:
-        lib = _libs.get(name)
-        if lib is None:
+        if name not in _launchers:
             _build_missing([name])
-            lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
-            fn = getattr(lib, symbol)
+            fn = getattr(ctypes.CDLL(str(_lib_path(name))), symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-    return getattr(lib, symbol)
+            _launchers[name] = fn
+    return _launchers[name]
+
+
+def operand(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` as a contiguous ``dtype`` tensor: ``t`` itself when it is
+    one already, which costs two attribute reads instead of two
+    dispatcher calls on every launch."""
+    if t.dtype == dtype and t.is_contiguous():
+        return t
+    return t.to(dtype).contiguous()
+
+
+def stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current CUDA stream, read without
+    building a ``torch.cuda.Stream`` object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(err: int, name: str) -> None:

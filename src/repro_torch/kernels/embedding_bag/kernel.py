@@ -51,7 +51,7 @@ def embedding_bag_kernel(table: torch.Tensor, ids: torch.Tensor, *,
     vec = 4 if d % 4 == 0 and t.data_ptr() % 16 == 0 else 1
     launch = _build.library("embedding_bag")
     err = launch(t.data_ptr(), i.data_ptr(), out.data_ptr(), bsz, n_slots, d,
-                 vec, int(mean), torch.cuda.current_stream(dev).cuda_stream)
+                 vec, int(mean), _build.stream(dev))
     _build.check(err, "embedding_bag")
     n_launches += 1
     return out

@@ -81,7 +81,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = launch(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
                  bh, s, hd, _DTYPE_CODES[q.dtype], int(causal),
                  0 if window is None else int(window), hd ** -0.5,
-                 torch.cuda.current_stream(dev).cuda_stream)
+                 _build.stream(dev))
     _build.check(err, "flash_attention")
     n_launches += 1
     return out

@@ -126,12 +126,13 @@ def impact_scan(doc_stream: torch.Tensor, impact_stream: torch.Tensor,
     qn, p = doc_stream.shape
     bp, n_p = posting_blocks(p, block_p)
     bd, n_d = doc_blocks(n_docs, block_d)
-    docs = doc_stream.to(torch.int32).contiguous()
-    imps = impact_stream.to(torch.float32).contiguous()
-    operands = [rho_vec, seg_lo, seg_hi]
-    if any(t.device != dev for t in operands + [impact_stream]):
+    if any(t.device != dev for t in (impact_stream, rho_vec, seg_lo,
+                                     seg_hi)):
         raise ValueError("impact_scan operands must share one device")
-    rho, lo, hi = (t.to(torch.int32).contiguous() for t in operands)
+    docs = _build.operand(doc_stream, torch.int32)
+    imps = _build.operand(impact_stream, torch.float32)
+    rho, lo, hi = (_build.operand(t, torch.int32)
+                   for t in (rho_vec, seg_lo, seg_hi))
     out = torch.empty((qn, n_docs), dtype=torch.float32, device=dev)
     stats = (torch.empty((qn, n_d), dtype=torch.int32, device=dev)
              if with_stats else None)
@@ -140,7 +141,7 @@ def impact_scan(doc_stream: torch.Tensor, impact_stream: torch.Tensor,
                  lo.data_ptr(), hi.data_ptr(), out.data_ptr(),
                  None if stats is None else stats.data_ptr(),
                  qn, p, n_docs, bp, n_p, bd, n_d,
-                 torch.cuda.current_stream(dev).cuda_stream)
+                 _build.stream(dev))
     _build.check(err, "impact_scan")
     n_launches += 1
     return (out, stats) if with_stats else out

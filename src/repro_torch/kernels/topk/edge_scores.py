@@ -1,12 +1,17 @@
-"""Seeded inputs shared by the port's CPU and card-only kernel tests."""
+"""Seeded score rows at the edges of the top-k kernel's contract,
+defined once for ``chip_smoke.py`` and the port's kernel tests."""
+
+from __future__ import annotations
 
 import numpy as np
 
+__all__ = ["KINDS", "edge_scores"]
+
 #: score rows that pin the top-k kernel's contract
-TOPK_KINDS = ("stage1", "signed_zeros", "neg_inf_inside", "all_neg_inf")
+KINDS = ("stage1", "signed_zeros", "neg_inf_inside", "all_neg_inf")
 
 
-def topk_edge_scores(kind: str, q: int, n: int, seed: int) -> np.ndarray:
+def edge_scores(kind: str, q: int, n: int, seed: int) -> np.ndarray:
     """(q, n) float32 scores of one kind:
 
     * ``stage1``: what ``impact_scan`` hands ``topk`` at small rho:
@@ -23,8 +28,8 @@ def topk_edge_scores(kind: str, q: int, n: int, seed: int) -> np.ndarray:
         live = r.random((q, n)) < 0.01
         s[live] = r.integers(1, 20, int(live.sum()))
     elif kind == "signed_zeros":
-        s = r.choice(np.array([-0.0, 0.0, 1.0, -1.0, 3.0], np.float32),
-                     (q, n), p=[0.4, 0.4, 0.08, 0.08, 0.04])
+        s = r.choice([-0.0, 0.0, 1.0, -1.0, 3.0], (q, n),
+                     p=[0.4, 0.4, 0.08, 0.08, 0.04]).astype(np.float32)
     elif kind == "neg_inf_inside":
         s = np.round(r.normal(size=(q, n)) * 4).astype(np.float32)
         s[r.random((q, n)) < 0.2] = -np.inf

@@ -91,12 +91,12 @@ def block_topk(scores: torch.Tensor, *, kp: int, block_n: int = 4096):
     if bn > BLOCK_N_MAX:
         raise ValueError(f"block_n={bn} exceeds the kernel's register "
                          f"budget of {BLOCK_N_MAX} scores a block")
-    s = scores.to(torch.float32).contiguous()
+    s = _build.operand(scores, torch.float32)
     vals = torch.empty((qn, n_b * kp), dtype=torch.float32, device=dev)
     idxs = torch.empty((qn, n_b * kp), dtype=torch.int32, device=dev)
     launch = _build.library("topk")
     err = launch(s.data_ptr(), vals.data_ptr(), idxs.data_ptr(), qn, n, bn,
-                 n_b, kp, torch.cuda.current_stream(dev).cuda_stream)
+                 n_b, kp, _build.stream(dev))
     _build.check(err, "topk")
     n_launches += 1
     return vals, idxs

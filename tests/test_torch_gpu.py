@@ -32,12 +32,11 @@ from repro_torch.kernels.embedding_bag import ref as eb_ref
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.impact_scan import kernel as is_kernel
 from repro_torch.kernels.topk import kernel as tk_kernel
+from repro_torch.kernels.topk.edge_scores import KINDS, edge_scores
 from repro_torch.models import layers
 from repro_torch.models.recsys import bst, retrieval_tower
 from repro_torch.retrieval.index import block_doc_bounds
 from repro_torch.serving import funnel, pipeline
-
-from _torch_inputs import TOPK_KINDS, topk_edge_scores
 
 
 @pytest.fixture
@@ -94,6 +93,39 @@ def test_impact_scan_cuda_wide_and_serving(cuda_device, q, nd, bd):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("q,nd,bd", [
+    (2, 2 ** 31 - 8, 2 ** 30 + 5),   # n_docs + block_d passes 2**31
+    (2, 2 ** 30 + 8, 1),             # Q * n_doc_blocks passes 2**31
+])
+def test_impact_scan_cuda_stats_past_int32(cuda_device, q, nd, bd):
+    """The stats' tile bounds and offsets past 2**31 (each case holds
+    about 17 GB on the card): two posting blocks of two postings, each
+    over a narrow doc range, one at each end of the collection."""
+    docs = [10, 12, nd - 3, nd - 1]
+    imps = [5.0, 4.0, 3.0, 2.0]
+    rho = [4, 2]                     # both posting blocks, the first only
+    d = torch.tensor([docs] * q, dtype=torch.int32, device=cuda_device)
+    i = torch.tensor([imps] * q, device=cuda_device)
+    rv = torch.tensor(rho[:q], dtype=torch.int32, device=cuda_device)
+    seg = block_doc_bounds(d, block_p=2, n_docs=nd)
+    out, cnt = is_kernel.impact_scan(d, i, rv, *seg, n_docs=nd, block_p=2,
+                                     block_d=bd, with_stats=True)
+    for row in range(q):
+        want = {}
+        for b in range(rho[row] // 2):
+            for tile in range(docs[2 * b] // bd, docs[2 * b + 1] // bd + 1):
+                want[tile] = want.get(tile, 0) + 1
+        assert int(cnt[row].sum(dtype=torch.int64)) == sum(want.values())
+        assert all(int(cnt[row, t]) == v for t, v in want.items())
+        live = slice(0, rho[row])
+        assert float(out[row].sum(dtype=torch.float64)) == sum(imps[live])
+        assert all(float(out[row, doc]) == imp
+                   for doc, imp in zip(docs[live], imps[live]))
+    del out, cnt
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("nd", [0, 2 ** 31])
 def test_impact_scan_cuda_rejects_n_docs(cuda_device, nd):
     """Doc ids are int32: the kernel takes 1 <= n_docs < 2**31."""
@@ -106,29 +138,23 @@ def test_impact_scan_cuda_rejects_n_docs(cuda_device, nd):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", TOPK_KINDS)
-@pytest.mark.parametrize("bn", [4096, 32_768])
-def test_block_topk_cuda_edge_inputs(cuda_device, kind, bn):
-    s = torch.from_numpy(topk_edge_scores(kind, 4, 50_000, seed=bn)).to(
-        cuda_device)
-    kv, ki = tk_kernel.block_topk(s, kp=100, block_n=bn)
-    pv, pi = tk_kernel.block_topk_plain(s.cpu(), kp=100, block_n=bn)
-    assert torch.equal(kv.cpu(), pv) and torch.equal(ki.cpu(), pi)
-    # bit for bit: a -0.0 comes out as -0.0
-    assert torch.equal(kv.cpu().view(torch.int32), pv.view(torch.int32))
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("kp,bn", [(1, 4096), (100, 4096), (128, 1024),
-                                   (3, 2)])
-def test_block_topk_cuda_matches_plain(cuda_device, kp, bn):
-    s = np.round(np.random.default_rng(kp).normal(size=(4, 9001)) * 4)
+@pytest.mark.parametrize("kind,kp,bn", [
+    ("rounded_normal", 1, 4096), ("rounded_normal", 100, 4096),
+    ("rounded_normal", 128, 1024), ("rounded_normal", 3, 2)]
+    + [(kind, 100, bn) for kind in KINDS for bn in (4096, 32_768)])
+def test_block_topk_cuda_matches_plain(cuda_device, kind, kp, bn):
+    if kind == "rounded_normal":
+        s = np.round(np.random.default_rng(kp).normal(size=(4, 9001)) * 4)
+    else:
+        s = edge_scores(kind, 4, 50_000, seed=bn)
     s = torch.from_numpy(s.astype(np.float32)).to(cuda_device)
     before = tk_kernel.n_launches
     kv, ki = tk_kernel.block_topk(s, kp=kp, block_n=bn)
     assert tk_kernel.n_launches == before + 1
-    pv, pi = tk_kernel.block_topk_plain(s, kp=kp, block_n=bn)
-    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    pv, pi = tk_kernel.block_topk_plain(s.cpu(), kp=kp, block_n=bn)
+    assert torch.equal(ki.cpu(), pi)
+    # bit for bit: a -0.0 comes out as -0.0
+    assert torch.equal(kv.cpu().view(torch.int32), pv.view(torch.int32))
 
 
 @pytest.mark.gpu

@@ -42,9 +42,8 @@ from repro_torch.kernels.impact_scan import ops as t_is_ops
 from repro_torch.kernels.impact_scan.ref import impact_scan_ref
 from repro_torch.kernels.topk import kernel as t_tk_kernel
 from repro_torch.kernels.topk import ops as t_tk_ops
+from repro_torch.kernels.topk.edge_scores import KINDS, edge_scores
 from repro_torch.retrieval import index as t_index
-
-from _torch_inputs import TOPK_KINDS, topk_edge_scores
 
 
 def _int_streams(q, p, nd, seed=7):
@@ -227,11 +226,11 @@ def test_topk_select_matches_jax(q, n, k, bn):
     np.testing.assert_array_equal(oi.numpy(), ti.numpy())
 
 
-@pytest.mark.parametrize("kind", TOPK_KINDS)
+@pytest.mark.parametrize("kind", KINDS)
 def test_block_topk_edge_inputs_match_pallas(kind):
     """Tie-heavy stage-1 rows, signed zeros and -inf scores: the raw
     per-block pairs and the merged top-k are the JAX package's."""
-    s = topk_edge_scores(kind, 2, 10_000, seed=5)    # ragged last block
+    s = edge_scores(kind, 2, 10_000, seed=5)    # ragged last block
     jv, ji = j_tk_kernel.block_topk(jnp.asarray(s), kp=100, block_n=4096,
                                     interpret=True)
     tv, ti = t_tk_kernel.block_topk(torch.from_numpy(s), kp=100,
