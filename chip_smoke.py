@@ -21,7 +21,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      card while each call is enqueued: ``device_ms``,
      ``library_device_ms``, ``host_ms``, ``library_host_ms``); the
      registers, shared memory and spills ptxas reported for each kernel
-     function.
+     function.  flash_attention is checked folded (BH, S, hd) and in
+     BST's (B, S, H, hd) layout read in place (strided, sliced, GQA and
+     broadcast operands too, each call one launch with a contiguous
+     output); its ``path`` field times the path's call, ``ops`` on
+     BST's views, at the labelling and the served shape (``ms``,
+     ``device_ms``, ``host_ms``; SDPA on the same views as
+     ``library_ms``; ``fold_ms``, the four copies the fold made before),
+     ``routes``
+     names the route the launcher took for each checked call, and
+     ``general`` times the general path at one LM shape.
   2. the batch-once serving path at the repo's paper-validation scale
      ("paperish": 50 000 docs, 60 000 terms, 8 000 queries, streams of
      4096): build the system, MED tables and envelope labels, train the
@@ -33,14 +42,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   3. the recsys funnel at full width (BST ``model_config``, two towers
      over 1 M candidates, pool 1000): label 1024 synthetic requests on
      the card in batches of 128 (gold and per-cutoff runs, MED_RBP,
-     envelope labels), train the forest cascade on the host, and serve 4
-     held-out batches of 128 through ``Funnel(device="cuda").serve``
+     envelope labels; the flash_attention launches of labelling are
+     counted, one per batch), train the forest cascade on the host, and
+     serve 4 held-out batches of 128 through ``Funnel(device="cuda").serve``
      with the launch counters zeroed just before and read just after; a
      few requests of one batch are held against the same funnel on the
      CPU.  Then one more held-out batch, its classes spread over every
      cutoff (k from 10 to the pool of 1000), is executed on the card and
      held against each of its requests executed alone on the card and
-     against the same batch executed on the CPU.
+     against the same batch executed on the CPU.  Last, the path's
+     flash_attention call at the labelling and the served shape runs
+     under ``torch.profiler``: its CUDA activities must be the kernel
+     alone (after every timed phase, since the profiler is left loaded
+     in the process).
   4. one JSON line with every kernel's launches, error and times.
   5. the last line: {"ok": true, "device": {...}}.
 
@@ -335,11 +349,59 @@ def check_topk(dev, stage1_acc):
         shape=f"Q={q} N={n} kp={k} block_n=4096", bytes=n_bytes)
 
 
+def _bst_qkv(b, bst_cfg, randn):
+    """q, k, v as ``bst_logits`` makes them: (B, S, H, hd) views of one
+    block's contiguous (B, S, d) products, the weights scaled by d^-0.5
+    as ``init_linear`` draws them."""
+    s, d = bst_cfg.seq_len + 1, bst_cfg.embed_dim
+    x = randn(b, s, d)
+    return [(x @ (randn(d, d) * d ** -0.5)).reshape(
+        b, s, bst_cfg.n_heads, bst_cfg.head_dim) for _ in range(3)]
+
+
+def _cuda_activities(fn, calls: int = 3) -> dict | None:
+    """The CUDA activities (kernels, copies, memsets) per call of ``fn``
+    over ``calls`` calls under ``torch.profiler``, after one traced
+    warm-up call (the tracer can miss a launch just after it starts),
+    and their names; None if the profiler saw no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from torch.profiler import schedule
+
+    names = []
+
+    def collect(prof):          # the schedule's step markers are no work
+        names.extend(e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and not e.name.startswith("ProfilerStep"))
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA],
+                       schedule=schedule(wait=0, warmup=1, active=calls,
+                                         repeat=1),
+                       on_trace_ready=collect) as prof:
+        for _ in range(calls + 1):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    if not names:
+        return None
+    return dict(per_call=len(names) / calls,
+                names=sorted({n[:80] for n in names}))
+
+
 def check_flash_attention(dev, bst_cfg, pool: int):
     """The funnel's attention shape at the full pool, as its labelling
     runs give it (BH = batch x pool x heads, S = seq_len + 1, hd =
-    head_dim, non-causal), and the LM shapes of the JAX package's kernel
-    tests, causal and windowed, GQA folded by ops."""
+    head_dim, non-causal): folded (BH, S, hd) and in BST's (B, S, H, hd)
+    layout, read in place; strided and GQA operands; and the LM shapes
+    of the JAX package's kernel tests, causal and windowed.  Besides the
+    folded call's times, ``path`` times the path's call (``ops`` on
+    BST's views) at the labelling and the served shape, with SDPA on the
+    same views and the four copies the fold made before (``fold_ms``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as K
@@ -347,6 +409,7 @@ def check_flash_attention(dev, bst_cfg, pool: int):
 
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = {"float32": 0.0, "bfloat16": 0.0}
+    routes = {}
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
@@ -359,6 +422,16 @@ def check_flash_attention(dev, bst_cfg, pool: int):
         if not torch.allclose(g, w, rtol=tol, atol=tol):
             raise AssertionError(f"flash_attention differs from its plain "
                                  f"version beyond {tol} at {what}")
+
+    def hold_ops(xs, what, **kw):
+        before = K.n_launches
+        got = ops.flash_attention(*xs, **kw)
+        if K.n_launches != before + 1 or not got.is_contiguous():
+            raise AssertionError(f"flash_attention at {what}: "
+                                 f"{K.n_launches - before} launches, "
+                                 f"contiguous {got.is_contiguous()}")
+        routes[what] = K.last_route
+        hold(got, ops.flash_attention(*xs, use_kernel=False, **kw), what)
 
     bh = BATCH * pool * bst_cfg.n_heads
     s, hd = bst_cfg.seq_len + 1, bst_cfg.head_dim
@@ -373,17 +446,42 @@ def check_flash_attention(dev, bst_cfg, pool: int):
     hold(K.flash_attention_fwd(qb, kb, vb, causal=False),
          K.flash_attention_fwd_plain(qb, kb, vb, causal=False),
          "funnel bf16")
+    del qb, kb, vb
+    # BST's layout, read in place, at the labelling and the served shape
+    lab = _bst_qkv(BATCH * pool, bst_cfg, randn)
+    srv = [x[:BATCH * 50] for x in lab]
+    hold_ops(lab, "bst layout, labelling", causal=False)
+    hold_ops(srv, "bst layout, served", causal=False)
+    hold_ops([x.to(torch.bfloat16) for x in srv], "bst layout bf16",
+             causal=False)
+    # strided operands: a transposed view, a sliced batch, a batch
+    # stride past S * H * hd, a sliced head dim, broadcast GQA heads
+    b, h = 301, bst_cfg.n_heads
+    wide = randn(2 * b, s, h, hd)
+    hold_ops((randn(b, h, s, hd).transpose(1, 2), wide[::2],
+              randn(b + 1, s, h, hd)[1:]), "transposed and sliced",
+             causal=False)
+    hold_ops((wide[1::2], wide[::2], wide[:b]), "batch stride 2",
+             causal=False)
+    hold_ops((randn(b, s, h, 2 * hd)[..., hd:], randn(b, s, h, hd),
+              randn(b, s, h, 2 * hd)[..., :hd]), "head-dim slice",
+             causal=True)
+    hold_ops((randn(b, s, h, hd), randn(b, s, 1, hd).expand(b, s, h, hd),
+              randn(b, s, 1, hd).expand(b, s, h, hd)), "broadcast heads",
+             causal=False)
+    for g in (1, 2, 4):
+        hold_ops((randn(b, s, 8, hd), randn(b, s, 8 // g, hd),
+                  randn(b, s, 8 // g, hd)), f"gqa g={g}", causal=True,
+                 window=5)
     for (b, sl, hq, hkv, d) in ((2, 64, 4, 2, 32), (1, 128, 2, 2, 16),
-                                (2, 64, 8, 1, 64), (1, 256, 4, 4, 32)):
+                                (2, 64, 8, 1, 64), (1, 256, 4, 4, 32),
+                                (7, 32, 4, 2, 16), (7, 33, 4, 2, 16)):
         xs = (randn(b, sl, hq, d), randn(b, sl, hkv, d), randn(b, sl, hkv, d))
         for causal, window in ((True, None), (False, None), (True, 16)):
-            hold(ops.flash_attention(*xs, causal=causal, window=window),
-                 ops.flash_attention(*xs, causal=causal, window=window,
-                                     use_kernel=False),
-                 f"{(b, sl, hq, hkv, d)} causal={causal} window={window}")
-        xb = tuple(x.to(torch.bfloat16) for x in xs)
-        hold(ops.flash_attention(*xb), ops.flash_attention(
-            *xb, use_kernel=False), f"{(b, sl, hq, hkv, d)} bf16")
+            hold_ops(xs, f"{(b, sl, hq, hkv, d)} causal={causal} "
+                     f"window={window}", causal=causal, window=window)
+        hold_ops(tuple(x.to(torch.bfloat16) for x in xs),
+                 f"{(b, sl, hq, hkv, d)} bf16")
     for (n, sl, d, causal, window) in ((3, 300, 128, False, 40),
                                        (5, 7, 8, True, None),
                                        (2, 1, 4, True, 1)):
@@ -391,6 +489,44 @@ def check_flash_attention(dev, bst_cfg, pool: int):
         hold(K.flash_attention_fwd(*xs, causal=causal, window=window),
              K.flash_attention_fwd_plain(*xs, causal=causal, window=window),
              f"({n}, {sl}, {d}) causal={causal} window={window}")
+    for what, want in (("bst layout, labelling", "short_bulk"),
+                       ("transposed and sliced", "short_loads"),
+                       ("batch stride 2", "short_bulk"),
+                       ("(7, 33, 4, 2, 16) bf16", "general")):
+        if routes[what] != want:
+            raise AssertionError(f"{what} took the {routes[what]} route")
+
+    path = {}
+    for name, (qp, kp, vp) in (("labelling", lab), ("served", srv)):
+        nb = qp.shape[0]
+        q4, k4, v4 = (x.transpose(1, 2) for x in (qp, kp, vp))
+
+        def call(qp=qp, kp=kp, vp=vp, nb=nb):
+            return ops.flash_attention(qp, kp, vp, causal=False).reshape(
+                nb, s, -1)
+
+        def fold(qp=qp, kp=kp, vp=vp, nb=nb):
+            # the copies the path made before: q, k, v folded to
+            # (B*H, S, hd), the output's (B, S, H*hd) reshape
+            fq, fk, fv = (x.transpose(1, 2).reshape(-1, s, hd)
+                          for x in (qp, kp, vp))
+            return fq.view(nb, -1, s, hd).transpose(1, 2).reshape(nb, s, -1)
+
+        def sdpa(q4=q4, k4=k4, v4=v4):
+            return F.scaled_dot_product_attention(q4, k4, v4,
+                                                  scale=hd ** -0.5)
+
+        t = dict(ms=time_ms(call), device_ms=time_ms(call, hold=True),
+                 host_ms=host_ms(call), library_ms=time_ms(sdpa),
+                 library_device_ms=time_ms(sdpa, hold=True),
+                 fold_ms=time_ms(fold), fold_device_ms=time_ms(fold,
+                                                               hold=True))
+        n_bytes = 4 * qp.numel() * qp.element_size()
+        path[name] = dict(shape=f"B={nb} S={s} H={bst_cfg.n_heads} hd={hd}",
+                          route=K.last_route, **t,
+                          bound_ms=bound_ms(n_bytes, 4 * nb * bst_cfg.n_heads
+                                            * s * s * hd)[0])
+    del lab, srv
 
     q4, k4, v4 = (x.view(bh // bst_cfg.n_heads, bst_cfg.n_heads, s, hd)
                   for x in (q, k, v))
@@ -405,8 +541,63 @@ def check_flash_attention(dev, bst_cfg, pool: int):
                   lambda: K.flash_attention_fwd_plain(q, k, v, causal=False),
                   lambda: F.scaled_dot_product_attention(
                       q4, k4, v4, scale=hd ** -0.5)),
-        bound_ms=b_ms, bound_by=b_by,
+        bound_ms=b_ms, bound_by=b_by, path=path, routes=routes,
+        general=time_general(dev),
         shape=f"BH={bh} S={s} hd={hd} float32 non-causal", bytes=n_bytes)
+
+
+def check_flash_activities(dev, bst_cfg, pool: int) -> dict:
+    """The CUDA activities of the path's call (``ops`` on BST's views, as
+    ``bst_logits`` makes them) at the labelling and the served shape,
+    which must be the flash kernel alone: no copy kernel around it.  It
+    runs after phase 3, as ``--profile`` does, so that no phase timed on
+    the host follows the profiler in the process."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    lab = _bst_qkv(BATCH * pool, bst_cfg, lambda *shape: torch.randn(
+        shape, generator=gen, device=dev))
+    out = {}
+    for name, (q, k, v) in (("labelling", lab),
+                            ("served", [x[:BATCH * 50] for x in lab])):
+        def call(q=q, k=k, v=v):
+            return ops.flash_attention(q, k, v, causal=False).reshape(
+                q.shape[0], q.shape[1], -1)
+
+        activities = _cuda_activities(call)
+        if (activities is None or activities["per_call"] != 1
+                or any("fa_short_kernel" not in n
+                       for n in activities["names"])):
+            raise AssertionError(f"the path's call at the {name} shape ran "
+                                 f"CUDA activities {activities}, not the "
+                                 "kernel alone")
+        out[name] = activities
+    return out
+
+
+def time_general(dev) -> dict:
+    """flash_attention's general path at one LM shape (BH = 32, S = 2048,
+    hd = 64, fp32, causal), folded: held against its plain version at
+    2e-5, then one call and the device time alone.  It uses only
+    ``flash_attention_fwd`` and its plain version, so it times an older
+    tree of the port as well."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as K
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = (torch.randn((32, 2048, 64), generator=gen, device=dev)
+               for _ in range(3))
+
+    def call():
+        return K.flash_attention_fwd(q, k, v, causal=True)
+
+    err = float((call() - K.flash_attention_fwd_plain(
+        q, k, v, causal=True)).abs().max())
+    if not err <= 2e-5:
+        raise AssertionError(f"flash_attention's general path differs from "
+                             f"its plain version by {err}")
+    return dict(shape="BH=32 S=2048 hd=64 float32 causal", max_abs_err=err,
+                ms=time_ms(call), device_ms=time_ms(call, hold=True))
 
 
 def check_embedding_bag(dev):
@@ -647,6 +838,7 @@ def build_funnel():
     import torch
     from repro_torch.configs import recsys as configs
     from repro_torch.core import cascade as cascade_lib
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.models.recsys import bst, retrieval_tower
     from repro_torch.serving import funnel as F
 
@@ -663,6 +855,7 @@ def build_funnel():
                          cfg.bst.seq_len, cfg.bst.item_vocab, seed=2)
     t0 = time.perf_counter()
     labels, meds = [], []
+    fa_kernel.n_launches = 0
     for b in range(0, FUNNEL_TRAIN, BATCH):
         gold, runs = F.funnel_gold_runs(cfg, tower, model, uf[b:b + BATCH],
                                         hist[b:b + BATCH])
@@ -671,6 +864,10 @@ def build_funnel():
         meds.append(table)
     labels, meds = np.concatenate(labels), np.concatenate(meds)
     t_label = time.perf_counter() - t0
+    n_label = fa_kernel.n_launches
+    if n_label != FUNNEL_TRAIN // BATCH * cfg.bst.n_blocks:
+        raise AssertionError(f"labelling launched flash_attention {n_label} "
+                             "times")
     feats = F.request_features(
         torch.from_numpy(uf[:FUNNEL_TRAIN]).cuda(),
         torch.from_numpy(hist[:FUNNEL_TRAIN]).cuda()).cpu().numpy()
@@ -678,7 +875,9 @@ def build_funnel():
     casc = cascade_lib.train_cascade(
         feats, labels, n_cutoffs=len(cfg.cutoffs),
         forest_kwargs=dict(n_trees=10, max_depth=6), device="cuda")
-    log(f"phase 3: labels of {FUNNEL_TRAIN} requests in {t_label:.1f} s: "
+    log(f"phase 3: labels of {FUNNEL_TRAIN} requests in {t_label:.3f} s "
+        f"({n_label} flash_attention launches at BH = "
+        f"{BATCH * cfg.pool_depth * cfg.bst.n_heads}): "
         f"{np.bincount(labels, minlength=len(cfg.cutoffs) + 1).tolist()}, "
         f"mean MED_RBP per k {np.round(meds.mean(0), 4).tolist()}; "
         f"cascade {time.perf_counter() - t0:.1f} s")
@@ -963,6 +1162,8 @@ def main() -> int:
     f_launches, _ = funnel_path(funnel, fbatches, fmixed)
     launches.update(flash_attention=f_launches["flash_attention"],
                     embedding_bag=f_launches["embedding_bag"])
+    log("phase 3: flash_attention's path call, CUDA activities per call: "
+        + json.dumps(check_flash_activities(dev, fcfg.bst, fcfg.pool_depth)))
     if args.profile:
         targets = {knob: (server.serve_batch, [(qt,) for qt in batches])
                    for knob, (server, _, _) in servers.items()}
@@ -972,7 +1173,8 @@ def main() -> int:
         row["launches"] = launches[row["name"]]
         for extra in ("shape", "bytes", "select_ms", "max_abs_err_bf16",
                       "bit_equal", "ptxas", "device_ms", "library_device_ms",
-                      "device_bound_share", "host_ms", "library_host_ms"):
+                      "device_bound_share", "host_ms", "library_host_ms",
+                      "path", "routes", "general"):
             row.pop(extra, None)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -39,8 +39,9 @@ KERNELS = {
     "topk": ("block_topk_launch",
              [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "flash_attention": ("flash_attention_launch",
-                        [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
-                         ctypes.c_float, _P]),
+                        [_P, _P, _P, _P, _P, _L, _I, _I,
+                         _I, _I, _I, _I, _I, ctypes.c_float,
+                         ctypes.POINTER(_I), _P]),
     "embedding_bag": ("embedding_bag_launch",
                       [_P, _P, _P, _L, _I, _I, _I, _I, _P]),
 }

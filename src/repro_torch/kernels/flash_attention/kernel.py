@@ -1,35 +1,64 @@
 """Flash-attention forward: the CUDA kernel's wrapper.
 
 Replaces the Pallas TPU kernel ``flash_attention_fwd`` of
-``src/repro/kernels/flash_attention/kernel.py``; the CUDA source is
-``src/repro_torch/csrc/flash_attention.cu``, whose header gives the
-design (a group of threads per query row, several bh packed per block,
-K/V tiles in shared memory, fp32 online softmax in registers) and the
-bound (bytes and fp32 operations about balanced at the funnel's shape).
+``src/repro/kernels/flash_attention/kernel.py`` and the fold of its
+wrapper; the CUDA source is ``src/repro_torch/csrc/flash_attention.cu``,
+whose header gives the bound (bytes at the funnel's shape) and the
+design of its two paths:
 
-Inputs are (BH, S, hd) in float32 or bfloat16 with hd in ``HEAD_DIMS``;
-unlike the TPU wrapper, S need not divide any block size (the kernel
-masks the ragged edge).  ``flash_attention_fwd`` launches the kernel on
-a CUDA tensor and runs ``flash_attention_fwd_plain`` (the oracle
-``attention_ref``) on a CPU tensor; ``n_launches`` counts launches.
+* ``short``: S <= 32 and hd <= 16 (BST's attention).  Persistent
+  blocks, a ring of groups of whole batch rows in shared memory, two
+  query rows of one head per thread with all S scores in registers.  Its
+  ``short_bulk`` route fills the ring with bulk async copies where each
+  batch row of q, k and v is one 16-byte aligned contiguous span (and
+  the batch stride 16-byte aligned); otherwise ``short_loads`` stages the
+  same groups with plain loads.
+* ``general``: the rest (the LM shapes: long S, hd up to 128), an
+  online softmax over kv tiles.
+
+The C launcher picks the path and route from the shape, strides and
+alignment it is given, and reports it: ``last_route`` holds the route of
+the last launch.  ``flash_attention_bshd`` takes the model layout, q
+(B, S, Hq, hd) and k, v (B, S, Hkv, hd) with Hkv dividing Hq, through
+their strides: any operand whose last axis has stride 1 is read in place
+(the kernel reads key/value head h // g for query head h), and the
+output is a new contiguous (B, S, Hq, hd).  ``flash_attention_fwd`` is
+the TPU kernel's (BH, S, hd) layout, the case H = 1.  Both launch the
+kernel on a CUDA tensor and run their plain version (the oracle
+``attention_ref``, through the fold) on a CPU tensor; ``n_launches``
+counts launches.
 """
 
 from __future__ import annotations
 
+import ctypes
+import struct
+
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                     attention_ref_bshd)
 
-__all__ = ["HEAD_DIMS", "flash_attention_fwd", "flash_attention_fwd_plain",
+__all__ = ["HEAD_DIMS", "ROUTES", "flash_attention_bshd",
+           "flash_attention_fwd", "flash_attention_fwd_plain", "last_route",
            "n_launches"]
 
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (4, 8, 16, 32, 64, 128)
+#: the routes by the code the launcher reports
+ROUTES = ("general", "short_bulk", "short_loads")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the twelve (batch, sequence, head) element strides of q, k, v and o as
+#: the launcher reads them
+_pack_strides = struct.Struct("12q").pack
+_route_code = ctypes.c_int(-1)
+_ROUTE_OUT = ctypes.byref(_route_code)
 
 #: kernel launches since the last reset
 n_launches = 0
+#: the route of the last launch (one of ROUTES), None before the first
+last_route: str | None = None
 
 
 def _check(q, k, v, window) -> None:
@@ -37,8 +66,86 @@ def _check(q, k, v, window) -> None:
         raise ValueError("flash_attention_fwd takes q, k, v of one (BH, S, "
                          f"hd) shape, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
+    _check_window(window)
+
+
+def _check_window(window) -> None:
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
+
+
+def _check_bshd(q, k, v, window):
+    """q's and k's shapes, checked."""
+    qsh, ksh = q.shape, k.shape
+    if len(qsh) != 4 or len(ksh) != 4 or ksh != v.shape:
+        raise ValueError("flash_attention_bshd takes q (B, S, Hq, hd) and "
+                         f"k, v (B, S, Hkv, hd), got {tuple(qsh)}, "
+                         f"{tuple(ksh)}, {tuple(v.shape)}")
+    if (ksh[0], ksh[1], ksh[3]) != (qsh[0], qsh[1], qsh[3]):
+        raise ValueError(f"q {tuple(qsh)} and k, v {tuple(ksh)} "
+                         "differ in batch, sequence or head dim")
+    if qsh[2] % ksh[2] != 0:
+        raise ValueError(f"query heads {qsh[2]} must be a multiple of the "
+                         f"key/value heads {ksh[2]}")
+    _check_window(window)
+    return qsh, ksh
+
+
+def _on_card(q, k, v, hd: int):
+    """q, k, v checked for the kernel, each with a head dim of stride 1
+    (a copy only where it has another), and their strides."""
+    if not q.is_cuda:
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} is not one of the kernel's "
+                         f"{HEAD_DIMS}")
+    dt, dev = q.dtype, q.device
+    if dt not in _DTYPE_CODES or k.dtype != dt or v.dtype != dt:
+        raise ValueError("flash_attention takes float32 or bfloat16 q, k, "
+                         f"v of one dtype, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if k.device != dev or v.device != dev:
+        raise ValueError("q, k and v must be on one device")
+    qs, ks, vs = q.stride(), k.stride(), v.stride()
+    if qs[-1] != 1 or ks[-1] != 1 or vs[-1] != 1:
+        q, k, v = (x if x.stride(-1) == 1 else x.contiguous()
+                   for x in (q, k, v))
+        qs, ks, vs = q.stride(), k.stride(), v.stride()
+    return q, k, v, qs, ks, vs
+
+
+def _launch(q, k, v, out, strides, b, s, hq, g, hd, causal, window):
+    """One launch on the (batch, sequence, head) element strides of q, k,
+    v and out; the launcher picks the route and reports it."""
+    global n_launches, last_route
+    err = _build.library("flash_attention")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _pack_strides(*strides), b, s, hq, g, hd, _DTYPE_CODES[q.dtype],
+        int(causal), 0 if window is None else int(window), hd ** -0.5,
+        _ROUTE_OUT, _build.stream(out.device))
+    _build.check(err, "flash_attention")
+    n_launches += 1
+    last_route = ROUTES[_route_code.value]
+    return out
+
+
+def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: int | None = None) -> torch.Tensor:
+    """q: (B, S, Hq, hd); k, v: (B, S, Hkv, hd) -> a contiguous
+    (B, S, Hq, hd) in q's dtype, read through the operands' strides."""
+    (b, s, hq, hd), ksh = _check_bshd(q, k, v, window)
+    if not q.is_cuda and q.device.type == "cpu":
+        return attention_ref_bshd(q, k, v, causal=causal, window=window)
+    q, k, v, qs, ks, vs = _on_card(q, k, v, hd)
+    out = torch.empty((b, s, hq, hd), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    return _launch(q, k, v, out, (qs[0], qs[1], qs[2], ks[0], ks[1], ks[2],
+                                  vs[0], vs[1], vs[2], s * hq * hd, hq * hd,
+                                  hd),
+                   b, s, hq, hq // ksh[2], hd, causal, window)
 
 
 def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -52,36 +159,17 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
                         window: int | None = None) -> torch.Tensor:
-    """q, k, v: (BH, S, hd) -> (BH, S, hd) in q's dtype."""
-    global n_launches
-    dev = q.device
-    if dev.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, causal=causal,
-                                         window=window)
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention_fwd runs on cuda or cpu, "
-                         f"not {dev}")
+    """q, k, v: (BH, S, hd) -> (BH, S, hd) in q's dtype: the model layout
+    with one head."""
     _check(q, k, v, window)
+    if not q.is_cuda and q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window)
     bh, s, hd = q.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} is not one of the kernel's "
-                         f"{HEAD_DIMS}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise ValueError("flash_attention_fwd takes float32 or bfloat16 "
-                         f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
-                         f"{v.dtype}")
-    if k.device != dev or v.device != dev:
-        raise ValueError("q, k and v must be on one device")
-    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(qc)
+    q, k, v, qs, ks, vs = _on_card(q, k, v, hd)
+    out = torch.empty((bh, s, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    launch = _build.library("flash_attention")
-    err = launch(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
-                 bh, s, hd, _DTYPE_CODES[q.dtype], int(causal),
-                 0 if window is None else int(window), hd ** -0.5,
-                 _build.stream(dev))
-    _build.check(err, "flash_attention")
-    n_launches += 1
-    return out
+    # one head: its stride is never stepped
+    return _launch(q, k, v, out, (qs[0], qs[1], hd, ks[0], ks[1], hd, vs[0],
+                                  vs[1], hd, s * hd, hd, hd),
+                   bh, s, 1, 1, hd, causal, window)

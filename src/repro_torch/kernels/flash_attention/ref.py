@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["attention_ref", "NEG_INF"]
+__all__ = ["attention_ref", "attention_ref_bshd", "NEG_INF"]
 
 #: the mask value of the JAX package's kernels (not -inf: a row with
 #: every key masked stays finite)
@@ -32,3 +32,27 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(logits, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p,
                         v.to(torch.float32)).to(q.dtype)
+
+
+def _fold_kv(x: torch.Tensor, g: int) -> torch.Tensor:
+    """(B, S, Hkv, hd) -> (B*Hkv*g, S, hd), each KV head repeated for its
+    g query heads (the JAX wrapper's ``broadcast_to`` + ``reshape``)."""
+    b, s, hkv, hd = x.shape
+    xf = x.transpose(1, 2)                            # (B, Hkv, S, hd)
+    if g > 1:
+        xf = xf[:, :, None].expand(b, hkv, g, s, hd)
+    return xf.reshape(b * hkv * g, s, hd)
+
+
+def attention_ref_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       *, causal: bool = True,
+                       window: int | None = None) -> torch.Tensor:
+    """The model layout through the fold, as the JAX wrapper does it.
+    q: (B, S, Hq, hd); k, v: (B, S, Hkv, hd) -> a contiguous
+    (B, S, Hq, hd)."""
+    b, s, hq, hd = q.shape
+    g = hq // k.shape[2]
+    of = attention_ref(q.transpose(1, 2).reshape(b * hq, s, hd),
+                       _fold_kv(k, g), _fold_kv(v, g), causal=causal,
+                       window=window)
+    return of.reshape(b, hq, s, hd).transpose(1, 2).contiguous()

@@ -13,7 +13,7 @@ Tolerances, with their reasons:
     is a selection; the tiny serving system below has no two pool docs
     whose stage-2 scores are within float32 rounding of each other, so
     ranked lists are equal.
-  * flash_attention: 2e-5 in float32, 2e-2 in bfloat16 (online against
+  * flash_attention: 2e-5 in float32, 2e-2 in bfloat16 (against the
     plain softmax: exp and the order of sums differ).
   * embedding_bag: bit-equal; the kernel and its plain version both add
     the slots left to right.
@@ -30,6 +30,7 @@ from repro_torch.core import cascade, experiment, labeling
 from repro_torch.kernels.embedding_bag import kernel as eb_kernel
 from repro_torch.kernels.embedding_bag import ref as eb_ref
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.impact_scan import kernel as is_kernel
 from repro_torch.kernels.topk import kernel as tk_kernel
 from repro_torch.kernels.topk.edge_scores import KINDS, edge_scores
@@ -208,6 +209,111 @@ def test_flash_attention_cuda_matches_plain(cuda_device, bh, s, hd, causal,
     assert out.dtype == dtype and out.shape == ref.shape
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def _hold_flash(q, k, v, causal, window):
+    """One launch, a contiguous (B, S, Hq, hd) output within 2e-5 (fp32)
+    or 2e-2 (bf16) of the plain version."""
+    before = fa_kernel.n_launches
+    out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa_kernel.n_launches == before + 1
+    assert out.is_contiguous() and out.dtype == q.dtype
+    ref = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                 use_kernel=False)
+    assert out.shape == ref.shape == q.shape
+    tol = 2e-5 if q.dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,hq,hkv,hd,causal,window,dtype", [
+    (6400, 21, 8, 8, 4, False, None, torch.float32),  # BST, a served batch
+    (6400, 21, 8, 8, 4, False, None, torch.bfloat16),
+    (37, 32, 4, 2, 8, True, None, torch.float32),     # the short path's cap
+    (37, 33, 4, 2, 8, True, None, torch.float32),     # one past: general
+    (37, 32, 4, 4, 16, False, 7, torch.bfloat16),
+    (37, 33, 4, 1, 16, True, 7, torch.bfloat16),
+    (9, 21, 8, 2, 8, False, None, torch.float32),
+    (9, 21, 8, 4, 16, True, None, torch.float32),
+    (9, 17, 8, 8, 4, True, 3, torch.bfloat16),
+    (3, 5, 6, 3, 4, False, 2, torch.float32),
+])
+def test_flash_attention_cuda_model_layout(cuda_device, b, s, hq, hkv, hd,
+                                           causal, window, dtype):
+    r = np.random.default_rng(b + s + hq + hd)
+    q = torch.from_numpy(r.normal(size=(b, s, hq, hd)).astype(np.float32))
+    k, v = (torch.from_numpy(r.normal(size=(b, s, hkv, hd)).astype(
+        np.float32)) for _ in range(2))
+    q, k, v = (x.to(cuda_device, dtype) for x in (q, k, v))
+    _hold_flash(q, k, v, causal, window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,route", [
+    ("batch_stride", "short_bulk"),     # batch stride 2 S H hd
+    ("sliced_batch", "short_bulk"),     # x[1:], rows still aligned
+    ("transposed", "short_loads"),      # (B, H, S, hd) storage
+    ("head_slice", "short_loads"),      # hd 4 of a wider last axis
+    ("broadcast", "short_loads"),       # k, v heads expanded, stride 0
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_cuda_strided(cuda_device, kind, route, dtype):
+    b, s, h, hd = 301, 21, 8, 4
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+
+    if kind == "batch_stride":
+        q, k, v = (randn(2 * b, s, h, hd)[::2] for _ in range(3))
+    elif kind == "sliced_batch":
+        q, k, v = (randn(b + 1, s, h, hd)[1:] for _ in range(3))
+    elif kind == "transposed":
+        q, k, v = (randn(b, h, s, hd).transpose(1, 2) for _ in range(3))
+    elif kind == "head_slice":
+        q, k, v = (randn(b, s, h, 2 * hd)[..., hd:] for _ in range(3))
+    else:
+        q = randn(b, s, h, hd)
+        k, v = (randn(b, s, 1, hd).expand(b, s, h, hd) for _ in range(2))
+    _hold_flash(q, k, v, causal=kind == "transposed", window=None)
+    assert fa_kernel.last_route == route
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make,route", [
+    (lambda z: (z(6, 21, 8, 4),) * 3, "short_bulk"),        # BST's layout
+    (lambda z: (z(6, 21, 8, 4)[::2], z(6, 21, 8, 4)[1::2],
+                z(6, 21, 8, 4)[:3]), "short_bulk"),           # batch steps
+    (lambda z: (z(6, 8, 21, 4).transpose(1, 2), z(6, 21, 8, 4),
+                z(6, 21, 8, 4)), "short_loads"),
+    (lambda z: (z(6, 21, 8, 4), z(6, 21, 8, 8)[..., :4],
+                z(6, 21, 8, 4)), "short_loads"),             # head slice
+    (lambda z: (z(6, 21, 8, 4), z(6, 21, 1, 4).expand(6, 21, 8, 4),
+                z(6, 21, 1, 4).expand(6, 21, 8, 4)), "short_loads"),
+    (lambda z: (z(6, 21, 8, 4), z(6, 21, 2, 4), z(6, 21, 2, 4)),
+     "short_bulk"),                                           # GQA
+    (lambda z: (z(2, 5, 3, 4, dtype=torch.bfloat16),) * 3,
+     "short_loads"),                                          # 120-byte rows
+    (lambda z: (z(2, 32, 4, 16),) * 3, "short_bulk"),         # the caps
+    (lambda z: (z(2, 33, 4, 16),) * 3, "general"),
+    (lambda z: (z(2, 21, 8, 32),) * 3, "general"),
+    (lambda z: (z(2, 32, 64, 16),) * 3, "general"),           # rows > 32 KB
+    (lambda z: (z(2, 40, 4, 16), z(2, 40, 4, 17)[..., 1:],
+                z(2, 40, 4, 17)[..., 1:]), "general"),        # K/V at 4 bytes
+])
+def test_flash_attention_cuda_route(cuda_device, make, route):
+    """The launcher's choice of path: the bulk copies need each batch row
+    of q, k and v to be one 16-byte aligned span a multiple of 16 bytes
+    long, and a 16-byte aligned batch stride."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+
+    def z(*shape, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=cuda_device)
+                * shape[-1] ** -0.25).to(dtype)
+
+    q, k, v = make(z)
+    _hold_flash(q, k, v, causal=False, window=None)
+    assert fa_kernel.last_route == route
 
 
 @pytest.mark.gpu

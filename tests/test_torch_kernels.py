@@ -341,6 +341,56 @@ def test_flash_attention_validation():
                                  torch.zeros((1, 8, 2, 4)))
 
 
+def _strided_qkv(kind, b, s, hq, hkv, hd, seed):
+    """Seeded q (B, S, Hq, hd) and k, v (B, S, Hkv, hd) as views that are
+    not contiguous: ``transposed`` reads (B, H, S, hd) storage through a
+    transpose; ``sliced`` takes every other batch row of a wider tensor
+    after the first (batch stride 2 S H hd); ``head_slice`` takes the
+    last hd of a last axis twice as wide; ``broadcast`` is ``sliced`` with
+    k and v one head expanded over Hkv (head stride 0)."""
+    r = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return torch.from_numpy(r.normal(size=shape).astype(np.float32))
+
+    def make(h):
+        if kind == "transposed":
+            return normal(b, h, s, hd).transpose(1, 2)
+        if kind == "head_slice":
+            return normal(b, s, h, 2 * hd)[..., hd:]
+        return normal(2 * b + 1, s, h, hd)[1::2]
+
+    if kind == "broadcast":
+        q = make(hq)
+        k, v = (normal(b, s, 1, hd).expand(b, s, hkv, hd) for _ in range(2))
+        return q, k, v
+    return make(hq), make(hkv), make(hkv)
+
+
+@pytest.mark.parametrize("kind", ["transposed", "sliced", "head_slice",
+                                  "broadcast"])
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("causal,window", [(False, None), (True, 5)])
+def test_flash_attention_strided_views_match_pallas_and_ref(kind, g, causal,
+                                                            window):
+    """BST's shape (S = 21, 8 query heads of 4) through views that are not
+    contiguous, with GQA groups of g: the port reads them as they are and
+    returns a contiguous (B, S, Hq, hd)."""
+    q, k, v = _strided_qkv(kind, 3, 21, 8, 8 // g, 4, seed=10 * g + causal)
+    assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    jq, jk, jv = (jnp.asarray(x.numpy()) for x in (q, k, v))
+    pallas = np.asarray(j_fa_ops.flash_attention(
+        jq, jk, jv, causal=causal, window=window, block_q=32, block_kv=32))
+    ref = np.asarray(j_fa_ops.flash_attention(
+        jq, jk, jv, causal=causal, window=window, use_kernel=False))
+    for use_kernel in (True, False):
+        out = t_fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                       use_kernel=use_kernel)
+        assert out.shape == (3, 21, 8, 4) and out.is_contiguous()
+        np.testing.assert_allclose(out.numpy(), pallas, rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(out.numpy(), ref, rtol=2e-5, atol=2e-5)
+
+
 # --------------------------------------------------------- embedding bag --
 
 @pytest.mark.parametrize("v,d,b,l,comb", [
