@@ -50,15 +50,36 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      CPU.  Then one more held-out batch, its classes spread over every
      cutoff (k from 10 to the pool of 1000), is executed on the card and
      held against each of its requests executed alone on the card and
-     against the same batch executed on the CPU.  Last, the path's
-     flash_attention call at the labelling and the served shape runs
-     under ``torch.profiler``: its CUDA activities must be the kernel
-     alone (after every timed phase, since the profiler is left loaded
-     in the process).
-  4. one JSON line with every kernel's launches, error and times.
-  5. the last line: {"ok": true, "device": {...}}.
+     against the same batch executed on the CPU.
+  4. the service layer (``RetrievalService``) on the card.  Over phase
+     2's servers, per knob, three fresh services (no census, shape 128
+     warmed, launch counters zeroed after the warmup): inline
+     (``serve_all`` a batch at a time) and FIFO-threaded (all 512
+     requests queued, then the workers started, so the batches are phase
+     2's) must equal phase 2's ``serve_batch`` output bit for bit, with 4
+     engine dispatches a batch and phase 2's launches; threaded as the
+     CLI serves (workers running, 100 ms deadlines) must give
+     well-formed lists and ``predict_classes``' classes.  Over phase 3's
+     funnel and batches, inline and FIFO-threaded must equal
+     ``Funnel.serve`` bit for bit, one flash_attention launch a batch.
+     Every trace must balance and validate.  One ``phase 4:`` line per
+     knob and for the funnel: p50/p99 of ``total_ms``, ``queue_ms``,
+     ``predict_ms`` and ``service_ms``, q/s, ``deadline_met``, per-stage
+     ms from the spans, dispatches and launches, threaded over inline
+     q/s, and inline over the same batches served just before by
+     ``serve_batch`` / ``Funnel.serve`` (``direct``).  Then ``python -m repro_torch.launch.serve`` runs as a
+     subprocess at the verify sizes (batch 30, off the pad grid) and its
+     trace and metrics snapshot must be valid.
+  5. the path's flash_attention call at the labelling and the served
+     shape under ``torch.profiler``: its CUDA activities must be the
+     kernel alone (after every timed phase, since the profiler is left
+     loaded in the process).
+  6. one JSON line with every kernel's launches (phases 2 and 3),
+     service launches (the inline and FIFO runs of phase 4), error and
+     times.
+  7. the last line: {"ok": true, "device": {...}}.
 
-With ``--profile DIR``, after phase 3 each knob's server and the funnel
+With ``--profile DIR``, after phase 5 each knob's server and the funnel
 serve their steady batches again, once on the host clock and once under
 ``torch.profiler``, and one ``profile:`` line each gives the wall ms
 per batch, the device-busy ms per batch (the union of the CUDA activity
@@ -811,7 +832,7 @@ def main_path(sys_, servers, batches):
             cpu_positions_differing=n_diff,
             cpu_stage_ms={k: v for k, v in want["timings"].items()})
         log(f"phase 2: {knob}: " + json.dumps(report[knob]))
-    return launches, report
+    return launches, report, served
 
 
 # ------------------------------------------------------------- phase 3 --
@@ -1007,7 +1028,7 @@ def funnel_path(funnel, batches, mixed):
     log("phase 3: funnel: " + json.dumps(report))
     log("phase 3: funnel mixed k: " + json.dumps(
         funnel_mixed_k(funnel, cpu, *mixed)))
-    return launches, report
+    return launches, report, served
 
 
 def funnel_mixed_k(funnel, cpu, uf, hist):
@@ -1047,6 +1068,218 @@ def funnel_mixed_k(funnel, cpu, uf, hist):
         alone_positions_differing=n_alone, alone_largest_gap_allowed=gap_alone,
         cpu_positions_differing=n_cpu, cpu_largest_gap_allowed=gap_cpu,
         cpu_card_stage2_max_abs_diff=diff, cpu_stage_ms=want["timings"])
+
+
+# ------------------------------------------------------------- phase 4 --
+
+def _service_run(backend, pad_multiple, payloads, mode, counters=()):
+    """Serve the batches of ``payloads`` through a fresh service as the
+    CLI builds it (no census, shape 128 warmed): inline (``serve_all`` a
+    batch at a time), ``fifo`` (every request queued, then the workers
+    started: the batches are the FIFO chunks whatever the threads'
+    timing) or ``threaded`` (workers running, ``serve_all`` a batch at a
+    time with a 100 ms deadline, as the CLI serves).  The kernel launch
+    ``counters`` (modules) are zeroed after the warmup.  Returns
+    (results per batch, summary, launches per counter)."""
+    import numpy as np
+    from repro_torch.obs import Observability, export
+    from repro_torch.serving.admission import AdmissionConfig
+    from repro_torch.serving.service import RetrievalService, WarmupPolicy
+    obs = Observability.create()
+    svc = RetrievalService(
+        backend, AdmissionConfig(max_batch=BATCH, pad_multiple=pad_multiple),
+        WarmupPolicy(census_path=None), obs=obs)
+    svc.warmup_now([BATCH])
+    d0 = obs.metrics.counters().get("engine.dispatches", 0)   # the warmup's
+    for mod in counters:
+        mod.n_launches = 0
+    t0 = time.perf_counter()
+    if mode == "fifo":
+        futs = [svc.submit_many(list(p), deadline_ms=1e6) for p in payloads]
+        svc.start()
+        results = [[f.result(timeout=600) for f in fs] for fs in futs]
+    else:
+        if mode == "threaded":
+            svc.start()
+        results = [svc.serve_all(list(p), deadline_ms=100.0)
+                   for p in payloads]
+    wall = time.perf_counter() - t0
+    launches = [mod.n_launches for mod in counters]
+    svc.stop()
+    if svc.warmup.failed:
+        raise AssertionError(f"warmup failed: {svc.warmup.failed}")
+    flat = [r for rs in results for r in rs]
+
+    def pct(key, per_batch=False):
+        xs = ([rs[0][key] for rs in results] if per_batch
+              else [r[key] for r in flat])
+        return [float(np.percentile(xs, 50)), float(np.percentile(xs, 99))]
+
+    stages = {}
+    for h in obs.trace.spans():
+        if h.name.startswith("engine.") and (h.attrs or {}).get("batch") \
+                is not None:
+            stages.setdefault(h.name, []).append(h.dur_ms)
+    counts = obs.trace.counts()
+    summary = dict(
+        requests=len(flat), qps=len(flat) / wall,
+        total_ms_p50_p99=pct("total_ms"), queue_ms_p50_p99=pct("queue_ms"),
+        predict_ms_p50_p99=pct("predict_ms", True),
+        service_ms_p50_p99=pct("service_ms", True),
+        predict_ms_per_batch=[rs[0]["predict_ms"] for rs in results],
+        service_ms_per_batch=[rs[0]["service_ms"] for rs in results],
+        deadline_met=sum(r["deadline_met"] for r in flat) / len(flat),
+        stage_ms={k: statistics.mean(v) for k, v in sorted(stages.items())},
+        batches_formed=dict(svc.queue.shape_counts),
+        dispatches_per_batch=(obs.metrics.counters().get(
+            "engine.dispatches", 0) - d0) / len(payloads),
+        trace=counts)
+    if counts["n_open"] or counts["n_begun"] != counts["n_ended"]:
+        raise AssertionError(f"{mode}: unbalanced trace {counts}")
+    errs = export.validate_chrome_trace(export.chrome_trace(obs.trace))
+    if errs:
+        raise AssertionError(f"{mode}: invalid Chrome trace {errs[:3]}")
+    return results, summary, launches
+
+
+def _direct(serve, batches) -> dict:
+    """The same batches served by the path's own call (``serve_batch``,
+    ``Funnel.serve``) just before the service runs, for an adjacent
+    comparison: q/s over the calls' wall time, median ``total_ms`` and
+    ``predict_ms``."""
+    wall, outs = 0.0, []
+    for args in batches:
+        t0 = time.perf_counter()
+        outs.append(serve(*args))
+        wall += time.perf_counter() - t0
+    return dict(qps=BATCH * len(batches) / wall,
+                total_ms_p50=statistics.median(
+                    o["timings"]["total_ms"] for o in outs),
+                predict_ms_p50=statistics.median(
+                    o["timings"]["predict_ms"] for o in outs))
+
+
+def service_path(sys_, servers, batches, served, funnel, fbatches,
+                 fserved):
+    """Phase 4: the service layer on the card over phase 2's servers and
+    batches and phase 3's funnel and batches.  Inline and FIFO-threaded
+    results must equal ``serve_batch`` / ``Funnel.serve`` bit for bit;
+    the threaded run as the CLI serves it is checked for well-formed
+    lists and classes.  Returns the launches of the inline and FIFO
+    windows, per kernel."""
+    import numpy as np
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.impact_scan import kernel as is_kernel
+    from repro_torch.kernels.topk import kernel as tk_kernel
+    from repro_torch.serving.service import EngineBackend, FunnelBackend
+
+    launches = {"impact_scan": 0, "topk": 0, "flash_attention": 0,
+                "embedding_bag": 0}
+    for knob in ("rho", "k"):
+        server = servers[knob][0]
+        backend = EngineBackend(server, query_len=batches[0].shape[1])
+        pad = server.engine.batch_multiple
+        want = sum(np.array(o["launches"]) for o in served[knob])
+        line = {"direct": _direct(server.serve_batch, [(qt,) for qt
+                                                       in batches])}
+        for mode in ("inline", "fifo", "threaded"):
+            results, summary, got = _service_run(
+                backend, pad, batches, mode, counters=(is_kernel, tk_kernel))
+            for b, (qt, res) in enumerate(zip(batches, results)):
+                ranked = np.stack([r["ranked"] for r in res])
+                classes = np.array([r["class"] for r in res])
+                if mode == "threaded":
+                    _check_ranked(ranked, sys_.cfg.n_docs)
+                    if not np.array_equal(classes,
+                                          server.predict_classes(qt)):
+                        raise AssertionError(f"service {knob} {mode} batch "
+                                             f"{b}: classes")
+                    continue
+                out = served[knob][b]
+                widths = np.array([r["width"] for r in res])
+                if not (np.array_equal(ranked, out["ranked"])
+                        and np.array_equal(classes, out["classes"])
+                        and np.array_equal(widths, out["widths"])):
+                    raise AssertionError(f"service {knob} {mode} batch {b} "
+                                         "differs from serve_batch")
+            if mode != "threaded":
+                if (summary["dispatches_per_batch"] != 4
+                        or list(got) != list(want)):
+                    raise AssertionError(
+                        f"service {knob} {mode}: dispatches per batch "
+                        f"{summary['dispatches_per_batch']}, launches "
+                        f"{got} (serve_batch: {want.tolist()})")
+                launches["impact_scan"] += got[0]
+                launches["topk"] += got[1]
+            summary["launches"] = dict(impact_scan=got[0], topk=got[1])
+            line[mode] = summary
+        line["threaded_qps_over_inline"] = (line["threaded"]["qps"]
+                                            / line["inline"]["qps"])
+        line["inline_qps_over_direct"] = (line["inline"]["qps"]
+                                          / line["direct"]["qps"])
+        log(f"phase 4: service {knob}: " + json.dumps(line))
+
+    backend = FunnelBackend(funnel, pad_multiple=8)
+    payloads = [list(zip(uf, hist)) for uf, hist in fbatches]
+    line = {"direct": _direct(funnel.serve, fbatches)}
+    for mode in ("inline", "fifo"):
+        results, summary, got = _service_run(
+            backend, 8, payloads, mode, counters=(fa_kernel,))
+        for b, res in enumerate(results):
+            out = fserved[b]
+            if not (np.array_equal(np.stack([r["ranked"] for r in res]),
+                                   out["ranked"])
+                    and np.array_equal([r["class"] for r in res],
+                                       out["classes"])
+                    and np.array_equal([r["width"] for r in res], out["k"])):
+                raise AssertionError(f"service funnel {mode} batch {b} "
+                                     "differs from Funnel.serve")
+        want = sum(o["launches"] for o in fserved)
+        if got[0] != want:
+            raise AssertionError(f"service funnel {mode}: {got[0]} "
+                                 f"flash_attention launches, not {want}")
+        launches["flash_attention"] += got[0]
+        summary["launches"] = dict(flash_attention=got[0])
+        line[mode] = summary
+    line["fifo_qps_over_inline"] = line["fifo"]["qps"] / line["inline"]["qps"]
+    line["inline_qps_over_direct"] = (line["inline"]["qps"]
+                                      / line["direct"]["qps"])
+    log("phase 4: service funnel: " + json.dumps(line))
+    return launches
+
+
+def serve_cli() -> None:
+    """The port's CLI as a user runs it, in a process of its own: its
+    exports must be a valid trace and a snapshot with the service and
+    engine counters."""
+    from repro_torch.obs import export
+    out = os.path.join(HERE, "build", "repro_torch")
+    os.makedirs(out, exist_ok=True)
+    trace = os.path.join(out, "serve_trace.json")
+    snap = os.path.join(out, "serve_metrics.jsonl")
+    for path in (trace, snap):
+        if os.path.exists(path):
+            os.remove(path)
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--knob", "rho",
+           "--batch", "30", "--batches", "3", "--n-docs", "2000",
+           "--n-queries", "256", "--census", "", "--trace-out", trace,
+           "--metrics-snapshot", snap]
+    log("phase 4: " + " ".join(cmd[1:]))
+    t0 = time.perf_counter()
+    sys.stdout.flush()
+    subprocess.run(cmd, cwd=HERE, check=True, timeout=600,
+                   env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+    with open(trace) as f:
+        errs = export.validate_chrome_trace(json.load(f))
+    with open(snap) as f:
+        counters = json.loads(f.read().splitlines()[-1])["counters"]
+    need = ("service.batches", "service.deadline_met", "engine.dispatches",
+            "engine.compiles")
+    if errs or any(k not in counters for k in need):
+        raise AssertionError(f"serve CLI exports: trace {errs[:3]}, "
+                             f"counters {counters}")
+    log(f"phase 4: serve CLI exit 0 in {time.perf_counter() - t0:.1f} s, "
+        f"trace valid, counters {json.dumps(counters)}")
 
 
 def _busy_us(events) -> float:
@@ -1157,12 +1390,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     sys_, servers, batches = build_servers()
-    launches, _ = main_path(sys_, servers, batches)
+    launches, _, served = main_path(sys_, servers, batches)
     funnel, fbatches, fmixed = build_funnel()
-    f_launches, _ = funnel_path(funnel, fbatches, fmixed)
+    f_launches, _, fserved = funnel_path(funnel, fbatches, fmixed)
     launches.update(flash_attention=f_launches["flash_attention"],
                     embedding_bag=f_launches["embedding_bag"])
-    log("phase 3: flash_attention's path call, CUDA activities per call: "
+    t0 = time.perf_counter()
+    service_launches = service_path(sys_, servers, batches, served, funnel,
+                                    fbatches, fserved)
+    serve_cli()
+    log(f"phase 4: {time.perf_counter() - t0:.1f} s")
+    log("phase 5: flash_attention's path call, CUDA activities per call: "
         + json.dumps(check_flash_activities(dev, fcfg.bst, fcfg.pool_depth)))
     if args.profile:
         targets = {knob: (server.serve_batch, [(qt,) for qt in batches])
@@ -1171,6 +1409,7 @@ def main() -> int:
         profile(targets, args.profile)
     for row in rows:
         row["launches"] = launches[row["name"]]
+        row["service_launches"] = service_launches[row["name"]]
         for extra in ("shape", "bytes", "select_ms", "max_abs_err_bf16",
                       "bit_equal", "ptxas", "device_ms", "library_device_ms",
                       "device_bound_share", "host_ms", "library_host_ms",

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "fence"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -17,3 +17,12 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available: pass device='cpu' to run on the CPU "
             "(the port never falls back to it on its own)")
     return dev
+
+
+def fence(device: torch.device) -> None:
+    """Wait for the work queued on the calling thread's current CUDA
+    stream of ``device`` (a no-op off CUDA).  Not the whole device: the
+    service runs predict on a stream of its own beside execute, and a
+    timing fence of one must not wait for the other's work."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()

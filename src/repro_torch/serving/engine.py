@@ -20,20 +20,23 @@ on the CPU.  Everything else is plain torch, where the JAX engine runs
 jnp.
 
 PyTorch runs eagerly and this engine keeps no program cache, so
-``n_compiles`` stays 0; capturing a CUDA graph per padded shape is later
-work.  Stage timings are fenced with ``torch.cuda.synchronize`` and the
-ranked lists leave the device once, through ``.cpu().numpy()``.
+``n_compiles`` and the ``engine.compiles`` counter stay 0; capturing a
+CUDA graph per padded shape is later work.  Each stage runs inside an
+``engine.<name>`` span (``bind_obs``; the JAX engine's names) and counts
+one dispatch; its timing is the span's, fenced inside the span on the
+calling thread's current CUDA stream, so a stage of one service thread
+does not wait for another thread's work.  The ranked lists leave the
+device once, through ``.cpu().numpy()``.
 Stage-2 noise qids are the query's batch position, as in the JAX engine.
 """
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch import obs as obs_lib
+from repro_torch.device import fence, resolve_device
 from repro_torch.retrieval import gold, jass
 from repro_torch.retrieval import topk as topk_lib
 from repro_torch.retrieval.index import block_doc_bounds
@@ -130,6 +133,18 @@ class ServingEngine:
         self.batch_multiple = cfg.pad_multiple
         # eager torch: no program cache, nothing is ever compiled
         self.n_compiles = 0
+        # observability: spans around stage boundaries + deterministic
+        # dispatch/compile counters (NULL until bind_obs)
+        self.trace = obs_lib.NULL_TRACE
+        self._m_dispatch = obs_lib.NULL_METRIC
+        self._m_compile = obs_lib.NULL_METRIC
+
+    def bind_obs(self, obs) -> None:
+        """Attach an observability handle: per-stage spans in ``serve``,
+        plus the dispatch and compile counters."""
+        self.trace = obs.trace
+        self._m_dispatch = obs.metrics.counter("engine.dispatches")
+        self._m_compile = obs.metrics.counter("engine.compiles")
 
     def padded_batch(self, n: int) -> int:
         return bucketing.pad_length(n, self.batch_multiple)
@@ -138,15 +153,16 @@ class ServingEngine:
         padded = bucketing.pad_rows(rows, self.batch_multiple, fill=fill)
         return torch.from_numpy(padded.astype(np.int32)).to(self.device)
 
-    def _timed(self, timings: dict, label: str, fn, *args, **kwargs):
-        """Run one stage between two device fences; record its ms."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        timings[label] = (time.perf_counter() - t0) * 1e3
+    def _timed(self, timings: dict, label: str, name: str, fn, *args,
+               **kwargs):
+        """Run one stage in its ``engine.<name>`` span, the device fence
+        inside it; ``timings[label]`` is the span's ms."""
+        fence(self.device)
+        self._m_dispatch.inc()
+        with self.trace.span("engine." + name) as sp:
+            out = fn(*args, **kwargs)
+            fence(self.device)
+        timings[label] = sp.dur_ms
         return out
 
     def _stage1(self, ds, im, seg_lo, seg_hi, pv, pool_width: int):
@@ -177,22 +193,24 @@ class ServingEngine:
         qids = torch.arange(qt.shape[0], dtype=torch.int32,
                             device=self.device)
         timings = {}
+        width = int(pool_width or self.max_k)
+        s1_name = "stage1" if self.cfg.knob == "rho" else f"stage1:{width}"
         ds, im, seg_lo, seg_hi, sdocs, s3 = self._timed(
-            timings, "gather_ms", _stage_gather, self.offsets, self.pdoc,
-            self.pimp, self.pscore, qt, cap=self.cfg.stream_cap,
+            timings, "gather_ms", "gather", _stage_gather, self.offsets,
+            self.pdoc, self.pimp, self.pscore, qt, cap=self.cfg.stream_cap,
             block_p=self.block_p, n_docs=self.n_docs)
-        pool = self._timed(timings, "stage1_ms", self._stage1, ds, im,
-                           seg_lo, seg_hi, pv,
-                           int(pool_width or self.max_k))
-        stage2 = self._timed(timings, "stage2_ms", _stage2, sdocs, s3,
-                             self.doc_len, qids, n_docs=self.n_docs,
+        pool = self._timed(timings, "stage1_ms", s1_name, self._stage1, ds,
+                           im, seg_lo, seg_hi, pv, width)
+        stage2 = self._timed(timings, "stage2_ms", "stage2", _stage2, sdocs,
+                             s3, self.doc_len, qids, n_docs=self.n_docs,
                              n_terms=qt.shape[1])
         if dv is None:
-            ranked = self._timed(timings, "rerank_ms", _stage_rerank,
-                                 stage2, pool, depth=self.cfg.rerank_depth)
+            ranked = self._timed(timings, "rerank_ms", "rerank",
+                                 _stage_rerank, stage2, pool,
+                                 depth=self.cfg.rerank_depth)
         else:
-            ranked = self._timed(timings, "rerank_ms", _stage_rerank_dyn,
-                                 stage2, pool, dv,
+            ranked = self._timed(timings, "rerank_ms", "rerank_dyn",
+                                 _stage_rerank_dyn, stage2, pool, dv,
                                  depth=self.cfg.rerank_depth)
         ranked = ranked[:n].cpu().numpy()
         return _pad_ranked(ranked, self.cfg.rerank_depth), timings

@@ -27,7 +27,7 @@ import torch
 from repro_torch.core import cascade as cascade_lib
 from repro_torch.core import knobs as knobs_lib
 from repro_torch.core import labeling, med
-from repro_torch.device import resolve_device
+from repro_torch.device import fence, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.recsys import bst as BS
 from repro_torch.models.recsys import retrieval_tower as RT
@@ -67,11 +67,6 @@ def _as_tensor(x, dtype, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     return torch.from_numpy(np.asarray(x)).to(device=device, dtype=dtype)
-
-
-def _fence(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def request_features(user_feats: torch.Tensor,
@@ -191,15 +186,15 @@ def _serve_single_dispatch(tower_params, bst_params, user_feats, hist_items,
     Records stage1_ms, stage2_ms and rank_ms (device-fenced) in
     ``timings``."""
     dev = user_feats.device
-    _fence(dev)
+    fence(dev)
     t0 = time.perf_counter()
     eff = torch.minimum(k_vec, depth_vec)
     ids, vals = RT.retrieve_topk(tower_params, tower_cfg, user_feats, max_k)
-    _fence(dev)
+    fence(dev)
     t1 = time.perf_counter()
     s2 = _bst_scores(bst_params, bst_cfg, hist_items, ids, vals,
                      norm_width=eff)
-    _fence(dev)
+    fence(dev)
     t2 = time.perf_counter()
     masked = torch.where(
         torch.arange(max_k, device=dev)[None, :] < eff[:, None], s2,
@@ -297,7 +292,7 @@ class Funnel:
     def serve(self, user_feats, hist_items) -> dict:
         """Predict, then execute; ``timings`` gains predict_ms and
         total_ms (host clock, device-fenced)."""
-        _fence(self.device)
+        fence(self.device)
         t0 = time.perf_counter()
         dcls = (self.predict(user_feats, hist_items, knob="depth")
                 if self.has_depth_knob else None)

@@ -1,6 +1,6 @@
 """Card-only tests of the port: the CUDA kernels against their plain
 versions, and the serving path and the recsys funnel on the card against
-the CPU.
+the CPU, and the service's threads on the card against its inline mode.
 
 Every test here carries the ``gpu`` marker and skips (in the
 ``cuda_device`` fixture) where no card is present.  The file imports no
@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import obs
 from repro_torch.core import cascade, experiment, labeling
 from repro_torch.kernels.embedding_bag import kernel as eb_kernel
 from repro_torch.kernels.embedding_bag import ref as eb_ref
@@ -37,7 +38,7 @@ from repro_torch.kernels.topk.edge_scores import KINDS, edge_scores
 from repro_torch.models import layers
 from repro_torch.models.recsys import bst, retrieval_tower
 from repro_torch.retrieval.index import block_doc_bounds
-from repro_torch.serving import funnel, pipeline
+from repro_torch.serving import admission, funnel, pipeline, service
 
 
 @pytest.fixture
@@ -185,6 +186,63 @@ def test_serve_batch_on_card_matches_cpu(cuda_device, knob):
     np.testing.assert_array_equal(a["ranked"], b["ranked"])
     np.testing.assert_array_equal(a["ranked"],
                                   gpu.serve_batch_reference(qt)["ranked"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("knob", ["rho", "k"])
+def test_service_threaded_equals_inline_on_card(cuda_device, knob):
+    """Threaded (requests queued before the workers start, so the batches
+    are the FIFO chunks) equals inline, predict on a stream of its own;
+    the engine's stage spans, fenced on the exec thread's stream, stay
+    inside the batch's ``execute`` span (``service_ms``)."""
+    sys_ = experiment.build_system(experiment.ExperimentConfig(
+        n_docs=1500, vocab=4000, n_queries=96, stream_cap=256,
+        pool_depth=400, gold_depth=100, query_batch=48, seed=3),
+        device=cuda_device)
+    cuts = sys_.k_cutoffs if knob == "k" else sys_.rho_cutoffs
+    med = experiment.med_tables(sys_, knob, metrics=("rbp",))["rbp"]
+    labels = labeling.envelope_labels(med, 0.05).numpy()
+    casc = cascade.train_cascade(sys_.features, labels, n_cutoffs=len(cuts),
+                                 forest_kwargs=dict(n_trees=5, max_depth=4),
+                                 device=cuda_device)
+    server = pipeline.RetrievalServer(
+        sys_.index, casc, pipeline.ServingConfig(
+            knob=knob, cutoffs=cuts, rerank_depth=30, stream_cap=256),
+        device=cuda_device)
+    qt = sys_.queries.terms[:37]
+
+    def make():
+        o = obs.Observability.create()
+        return o, service.RetrievalService(
+            service.EngineBackend(server, query_len=qt.shape[1]),
+            admission.AdmissionConfig(max_batch=16, pad_multiple=8),
+            service.WarmupPolicy(census_path=None), obs=o)
+
+    _, svc = make()
+    inline = svc.serve_all(list(qt), deadline_ms=1e6)
+    o, svc = make()
+    futs = svc.submit_many(list(qt), deadline_ms=1e6)
+    with svc:
+        threaded = [f.result(timeout=120.0) for f in futs]
+    for a, b in zip(inline, threaded):
+        np.testing.assert_array_equal(a["ranked"], b["ranked"])
+        assert a["class"] == b["class"] and a["width"] == b["width"]
+    for lo, hi in ((0, 16), (16, 32), (32, 37)):
+        np.testing.assert_array_equal(
+            np.stack([r["ranked"] for r in threaded[lo:hi]]),
+            server.serve_batch(qt[lo:hi])["ranked"])
+    spans = o.trace.spans()
+    executes = {h.attrs["batch"]: h for h in spans if h.name == "execute"}
+    assert len(executes) == 3
+    for bseq, ex in executes.items():
+        # the warmup thread's runs carry no batch
+        stages = [h for h in spans if h.name.startswith("engine.")
+                  and (h.attrs or {}).get("batch") == bseq]
+        assert len(stages) == 4
+        assert all(ex.t0 <= h.t0 and h.t1 <= ex.t1 for h in stages)
+        assert sum(h.dur_ms for h in stages) <= ex.dur_ms
+    assert o.trace.counts()["n_open"] == 0
+    assert not svc.warmup.failed
 
 
 @pytest.mark.gpu

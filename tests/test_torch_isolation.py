@@ -38,6 +38,12 @@ def _imported_roots(path):
 def test_port_imports_neither_jax_nor_repro():
     files = _port_files()
     assert len(files) > 20 and os.path.exists(files[0])
+    scanned = {os.path.relpath(f, os.path.join(ROOT, "src", "repro_torch"))
+               for f in files}
+    assert {"obs/metrics.py", "obs/trace.py", "obs/__init__.py",
+            "obs/export.py", "serving/admission.py", "serving/server.py",
+            "serving/service.py", "core/tradeoff.py",
+            "launch/serve.py"} <= scanned
     bad = {(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN}
     assert not bad, sorted(bad)
@@ -46,6 +52,7 @@ def test_port_imports_neither_jax_nor_repro():
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from repro_torch.core import experiment
     from repro_torch.device import resolve_device
+    from repro_torch.launch import serve
     from repro_torch.serving import pipeline
     from repro_torch.serving.engine import ServingEngine
 
@@ -59,3 +66,5 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         experiment.build_system(experiment.ExperimentConfig(
             n_docs=50, vocab=80, n_queries=4))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--n-docs", "50", "--n-queries", "4", "--census", ""])
