@@ -11,8 +11,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      bit-equal, topk's tie-heavy stage-1 rows, signed zeros and -inf
      scores and impact_scan's doc ranges wider than one block included;
      flash_attention within 2e-5 in float32 and 2e-2 in bfloat16;
-     embedding_bag within rtol 1e-5 / atol 1e-6, and whether it was
-     bit-equal); CUDA-event times of one call of the kernel, of the
+     embedding_bag within rtol 1e-5 / atol 1e-6 in float32, and whether
+     it was bit-equal, and bit-equal in bfloat16); CUDA-event times of one
+     call of the kernel, of the
      plain version and of one library call on an idle card, the host's
      work in the call included (``ms``, ``plain_ms``, ``library_ms``),
      the kernel's time over the library call's and its share of the
@@ -54,7 +55,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   4. the service layer (``RetrievalService``) on the card.  Over phase
      2's servers, per knob, three fresh services (no census, shape 128
      warmed, launch counters zeroed after the warmup): inline
-     (``serve_all`` a batch at a time) and FIFO-threaded (all 512
+     (``serve_all`` a batch at a time; ``reset_stats`` after the
+     warmup) and FIFO-threaded (all 512
      requests queued, then the workers started, so the batches are phase
      2's) must equal phase 2's ``serve_batch`` output bit for bit, with 4
      engine dispatches a batch and phase 2's launches; threaded as the
@@ -72,12 +74,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      trace and metrics snapshot must be valid.
   5. the path's flash_attention call at the labelling and the served
      shape under ``torch.profiler``: its CUDA activities must be the
-     kernel alone (after every timed phase, since the profiler is left
-     loaded in the process).
-  6. one JSON line with every kernel's launches (phases 2 and 3),
+     kernel alone (after every timed phase, phase 6 included, since the
+     profiler is left loaded in the process).
+  6. (run between phases 4 and 5) the offline end of the main path on
+     the card at paperish, over phase 2's system and MED_RBP tables:
+     ``run_methods`` (forests fitted on the host, held-out folds
+     predicted on the card, 3 folds, forests of 10 trees of depth 6) in
+     Table 6's setting (ρ, every method) and Table 4's (k, the cascade
+     only).  Every prediction must lie in [0, c] and every table row
+     must equal the row recomputed from the labels or predictions; the
+     rows, the wall time and its split into host fitting and fenced
+     device prediction are printed.  Fold 0 of ρ is refitted with the
+     same seeds: its cascade and MultiLabel classes on the card, on the
+     CPU from the same forests and from ``run_methods`` must be equal.
+     Then per-node thresholds tuned on fold 0 of ρ, Algorithm 2 (``predict_sequential``) equal to
+     ``predict_batched`` on 64 rows at t = 0.8, an MLP cascade trained on
+     the card whose classes equal the CPU's from the same parameters,
+     and ``python -m repro_torch.examples.quickstart`` with ``--device
+     cuda`` and ``--device cpu``, whose tables must be equal.
+  7. one JSON line with every kernel's launches (phases 2 and 3),
      service launches (the inline and FIFO runs of phase 4), error and
      times.
-  7. the last line: {"ok": true, "device": {...}}.
+  8. the last line: {"ok": true, "device": {...}}.
 
 With ``--profile DIR``, after phase 5 each knob's server and the funnel
 serve their steady batches again, once on the host clock and once under
@@ -666,6 +684,7 @@ def check_embedding_bag(dev):
     run(*make(100_000, 32, 4096, 1, seed=3), False)
     run(*make(1000, 5, 300, 4, seed=4, pad_rows=(1,)), True)
     run(*make(500, 200, 64, 3, seed=5), False)
+    bf16 = check_embedding_bag_bf16(table, ids, make)
 
     mask = ids >= 0
     flat = ids[mask].long()                    # row-major: slot order
@@ -684,8 +703,62 @@ def check_embedding_bag(dev):
         **timings(lambda: K.embedding_bag_kernel(table, ids),
                   lambda: R.embedding_bag_ref(table, ids),
                   lambda: F.embedding_bag(flat, table, offsets, mode="sum")),
-        bound_ms=b_ms, bound_by=b_by,
+        bound_ms=b_ms, bound_by=b_by, bf16=bf16,
         shape=f"V=1000000 D=32 B={b} L={l} live={live} sum", bytes=n_bytes)
+
+
+def check_embedding_bag_bf16(table, ids, make) -> dict:
+    """The bfloat16 instantiation: each add rounded to bfloat16, as the
+    Pallas kernel accumulates in the table's dtype.  Held bit-equal to
+    the plain version, which rounds the same adds in the same order
+    (``max_abs_err`` is printed as the reading); at the main shape (the float32 row's table and
+    ids cast to bfloat16), the times of the kernel, its plain version
+    and ``F.embedding_bag`` on the same bfloat16 table, and the bound
+    at 2 bytes an element."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.embedding_bag import kernel as K
+    from repro_torch.kernels.embedding_bag import ref as R
+
+    max_err = 0.0
+
+    def run(t, i, mean):
+        nonlocal max_err
+        t = t.to(torch.bfloat16)
+        got = K.embedding_bag_kernel(t, i, mean=mean)
+        want = R.embedding_bag_ref(t, i, mean=mean)
+        if got.dtype != torch.bfloat16:
+            raise AssertionError(f"bfloat16 embedding_bag gave {got.dtype}")
+        max_err = max(max_err, float((got.float() - want.float()).abs()
+                                     .max()))
+        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            raise AssertionError(f"bfloat16 embedding_bag is not bit-equal "
+                                 f"to its plain version at {tuple(t.shape)} "
+                                 f"{tuple(i.shape)} mean={mean}")
+
+    for mean in (False, True):
+        run(table, ids, mean)
+    run(*make(100_000, 32, 1024, 8, seed=6, pad_rows=(3,)), True)
+    run(*make(1000, 5, 300, 4, seed=7, pad_rows=(1,)), True)
+    run(*make(500, 200, 64, 3, seed=8), False)
+    run(*make(2000, 8, 99, 20, seed=9), True)
+
+    tb = table.to(torch.bfloat16)
+    mask = ids >= 0
+    flat = ids[mask].long()
+    counts = mask.sum(dim=1)
+    offsets = torch.cumsum(counts, 0) - counts
+    live = int(counts.sum())
+    b, l = ids.shape
+    d = tb.shape[1]
+    n_bytes = live * d * 2 + b * l * 4 + b * d * 2
+    b_ms, b_by = bound_ms(n_bytes, live * d)
+    t = timings(lambda: K.embedding_bag_kernel(tb, ids),
+                lambda: R.embedding_bag_ref(tb, ids),
+                lambda: F.embedding_bag(flat, tb, offsets, mode="sum"))
+    return dict(max_abs_err=max_err, **t,
+                bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
+                device_bound_share=b_ms / t["device_ms"])
 
 
 # ------------------------------------------------------------- phase 2 --
@@ -738,7 +811,8 @@ def build_servers():
     """The paperish system, its MED tables and envelope labels, and one
     trained ``RetrievalServer`` per knob on the card.  Cascades train
     on every query but the last ``BATCH * N_BATCHES``, which are served.
-    Returns (system, {knob: (server, cascade, config)}, batches)."""
+    Returns (system, {knob: (server, cascade, config)}, batches,
+    {knob: MED_RBP table})."""
     import numpy as np
     from repro_torch.core import cascade as cascade_lib
     from repro_torch.core import experiment as E
@@ -754,11 +828,11 @@ def build_servers():
     n_train = cfg.n_queries - n_serve
     log(f"phase 2: cascades train on queries [0, {n_train}) and serve the "
         f"last {n_serve}")
-    servers = {}
+    servers, meds = {}, {}
     for knob in ("rho", "k"):
         t0 = time.perf_counter()
         cuts = sys_.k_cutoffs if knob == "k" else sys_.rho_cutoffs
-        med = E.med_tables(sys_, knob, metrics=("rbp",))["rbp"]
+        med = meds[knob] = E.med_tables(sys_, knob, metrics=("rbp",))["rbp"]
         t_med = time.perf_counter() - t0
         labels = labeling.envelope_labels(med, TAU).numpy()
         casc = cascade_lib.train_cascade(
@@ -774,7 +848,7 @@ def build_servers():
             f"{time.perf_counter() - t0 - t_med:.1f} s")
     terms = sys_.queries.terms[n_train:]
     batches = [terms[b * BATCH:(b + 1) * BATCH] for b in range(N_BATCHES)]
-    return sys_, servers, batches
+    return sys_, servers, batches, meds
 
 
 def main_path(sys_, servers, batches):
@@ -1090,6 +1164,9 @@ def _service_run(backend, pad_multiple, payloads, mode, counters=()):
         backend, AdmissionConfig(max_batch=BATCH, pad_multiple=pad_multiple),
         WarmupPolicy(census_path=None), obs=obs)
     svc.warmup_now([BATCH])
+    svc.reset_stats()
+    if svc.stats().n_queries:
+        raise AssertionError("reset_stats left batch records")
     d0 = obs.metrics.counters().get("engine.dispatches", 0)   # the warmup's
     for mod in counters:
         mod.n_launches = 0
@@ -1282,6 +1359,200 @@ def serve_cli() -> None:
         f"trace valid, counters {json.dumps(counters)}")
 
 
+# ------------------------------------------------------------- phase 6 --
+
+#: forests of the offline phase: the phase-2 cascades' size; 3 folds as
+#: the JAX package's benchmarks/paper_tables.py runs them
+OFFLINE_FOREST = dict(n_trees=10, max_depth=6)
+OFFLINE_FOLDS = 3
+#: an MLP node's class-0 probability on the card and on the CPU from the
+#: same parameters (float32 products in another order)
+MLP_P0_ATOL = 1e-6
+
+
+def _check_methods(name, res, med, cuts):
+    """Predictions in [0, c]; the Oracle row and each method's row
+    recomputed from the labels and the predictions."""
+    import numpy as np
+    from repro_torch.core import tradeoff
+    c = len(cuts)
+    hor = tradeoff.horizon(med, cuts)
+    want = [tradeoff.interp_gain(tradeoff.method_point(
+        "Oracle", med, res.labels, cuts), hor)]
+    for method, pred in res.preds.items():
+        if pred.shape != res.labels.shape or pred.min() < 0 \
+                or pred.max() > c:
+            raise AssertionError(f"{name} {method}: predictions outside "
+                                 f"[0, {c}]")
+        want.append(tradeoff.interp_gain(tradeoff.method_point(
+            method, med, pred, cuts), hor))
+    if res.table != want:
+        raise AssertionError(f"{name}: table rows differ from the rows "
+                             "recomputed from the predictions")
+    if not np.isfinite([r["pred_med"] for r in res.table]).all():
+        raise AssertionError(f"{name}: a method's MED is not finite")
+
+
+def offline_path(sys_, meds) -> None:
+    """Phase 6: the offline end of the main path on the card at paperish
+    (``run_methods``: forests fitted on the host, held-out folds
+    predicted on the card): Table 6's setting on the ρ knob with every
+    method, Table 4's on the k knob with the cascade only; fold 0's
+    cascade and MultiLabel classes on the card, on the CPU and from
+    ``run_methods`` (equal); per-node thresholds and Algorithm 2 on one
+    fold; an MLP cascade trained on the
+    card; the quickstart driver on the card and on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.core import baselines as bl
+    from repro_torch.core import cascade as cascade_lib
+    from repro_torch.core import experiment as E
+    from repro_torch.core import labeling, tradeoff
+    from repro_torch.device import fence
+
+    dev = sys_.device
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    results = {}
+    for knob, table, kinds in (("rho", "table6", ("cascade", "multilabel",
+                                                  "metacost")),
+                               ("k", "table4", ("cascade",))):
+        cuts = sys_.k_cutoffs if knob == "k" else sys_.rho_cutoffs
+        t0 = time.perf_counter()
+        res = E.run_methods(sys_, meds[knob], cuts, tau=TAU,
+                            n_folds=OFFLINE_FOLDS, kinds=kinds,
+                            forest_kwargs=OFFLINE_FOREST)
+        wall = time.perf_counter() - t0
+        _check_methods(f"{table} {knob}", res, meds[knob], cuts)
+        results[knob] = res
+        rows = [[r["method"], r["pred_k"], r["pred_med"], r["fixed_k"],
+                 r["k_gain_pct"], r["fixed_med"], r["med_gain_pct"]]
+                for r in res.table]
+        log(f"phase 6: {table} ({knob}, MED_RBP <= {TAU}, "
+            f"{sys_.queries.n_queries} queries, {OFFLINE_FOLDS} folds, "
+            f"{smi}): " + json.dumps({
+                "columns": ["method", "mean_cutoff", "realized_med",
+                            "fixed_cutoff", "gain_pct", "fixed_med",
+                            "med_gain_pct"],
+                "rows": rows, "wall_s": wall,
+                "host_fit_s": res.seconds["fit"],
+                "device_predict_s": res.seconds["predict"],
+                "labels": np.bincount(res.labels,
+                                      minlength=len(cuts) + 1).tolist()}))
+
+    # per-node thresholds and Algorithm 2 on fold 0 of the rho table
+    cuts, med = sys_.rho_cutoffs, meds["rho"]
+    labels = labeling.envelope_labels(med, TAU).numpy()
+    folds = labeling.stratified_folds(labels, OFFLINE_FOLDS, seed=0)
+    tr, te = folds != 0, folds == 0
+    x = sys_.features
+    casc = cascade_lib.train_cascade(x[tr], labels[tr], n_cutoffs=len(cuts),
+                                     forest_kwargs=OFFLINE_FOREST,
+                                     device=dev)
+    t0 = time.perf_counter()
+    tv = cascade_lib.tune_thresholds(casc, x[te], med[te], cuts, TAU)
+    t_tune = time.perf_counter() - t0
+    xt = torch.from_numpy(x[te]).to(dev)
+    tuned = {}
+    for name, t in (("tuned", tv), ("t0.8", 0.8), ("t0.85", 0.85)):
+        pred = cascade_lib.predict_batched(casc, xt, t).cpu().numpy()
+        tuned[name] = dict(
+            mean_cutoff=tradeoff.mean_cutoff_value(pred, np.asarray(cuts)),
+            in_envelope=tradeoff.pct_under_target(med[te], pred, TAU))
+    # run_methods's fold-0 forests refitted (same seed): the card's
+    # classes, its CPU classes from the same forests and the rows
+    # run_methods gave must all be equal at paperish
+    ml = bl.train_multilabel(x[tr], labels[tr], len(cuts) + 1, seed=0)
+    xh = torch.from_numpy(x[te])
+    host = casc.to("cpu")
+    same = {}
+    for name, card, cpu in (
+            *((f"cascade_t{t}",
+               cascade_lib.predict_batched(casc, xt, t),
+               cascade_lib.predict_batched(host, xh, t))
+              for t in (0.75, 0.80, 0.85)),
+            ("multilabel", bl.predict_multilabel(ml, xt),
+             bl.predict_multilabel(ml, xh))):
+        card = card.cpu().numpy()
+        if not (np.array_equal(card, cpu.numpy())
+                and np.array_equal(card, results["rho"].preds[name][te])):
+            raise AssertionError(f"{name}: fold-0 classes differ between "
+                                 "the card, the CPU and run_methods")
+        same[name] = int(te.sum())
+    n_seq = 64
+    batched = cascade_lib.predict_batched(casc, xt[:n_seq], 0.8).cpu().numpy()
+    t0 = time.perf_counter()
+    seq = [cascade_lib.predict_sequential(casc, row, 0.8)
+           for row in x[te][:n_seq]]
+    t_seq = time.perf_counter() - t0
+    if not np.array_equal(seq, batched):
+        raise AssertionError("predict_sequential differs from "
+                             "predict_batched at t = 0.8")
+    log(f"phase 6: thresholds (rho, fold 0 of {OFFLINE_FOLDS}): "
+        + json.dumps({"card_cpu_run_methods_rows_equal": same,
+                      "thresholds": tv.tolist(), "tune_s": t_tune,
+                      "held_out": int(te.sum()), "by_threshold": tuned,
+                      "sequential_rows": n_seq,
+                      "sequential_equals_batched": True,
+                      "sequential_ms_per_query": t_seq * 1e3 / n_seq}))
+
+    # an MLP cascade trained on the card, its classes against the CPU's
+    t0 = time.perf_counter()
+    mlp = cascade_lib.train_cascade(x[tr], labels[tr], n_cutoffs=len(cuts),
+                                    kind="mlp", device=dev)
+    fence(dev)
+    t_train = time.perf_counter() - t0
+    p_card = mlp.proba0(xt).cpu()
+    p_host = mlp.to("cpu").proba0(torch.from_numpy(x[te]))
+    diff = float((p_card - p_host).abs().max())
+    near = ((p_card - 0.8).abs() <= MLP_P0_ATOL).any(dim=1)
+    got = cascade_lib.classes_from_proba(p_card, 0.8)
+    want = cascade_lib.classes_from_proba(p_host, 0.8)
+    flips = int((got != want).sum())
+    if diff > MLP_P0_ATOL or not torch.equal(got[~near], want[~near]):
+        raise AssertionError(f"mlp cascade: card and CPU differ (max p0 "
+                             f"diff {diff}, {flips} classes)")
+    pred = got.numpy()
+    log("phase 6: mlp cascade (rho, fold 0, default train_mlp): "
+        + json.dumps({
+            "train_s": t_train, "max_p0_abs_diff_card_cpu": diff,
+            "rows_within_atol_of_t": int(near.sum()),
+            "classes_differing": flips,
+            "mean_cutoff_t0.8": tradeoff.mean_cutoff_value(
+                pred, np.asarray(cuts)),
+            "in_envelope_t0.8": tradeoff.pct_under_target(med[te], pred,
+                                                          TAU)}))
+    quickstart_cli()
+
+
+def quickstart_cli() -> None:
+    """``python -m repro_torch.examples.quickstart`` as a user runs it,
+    on the card and on the CPU: the two tables must be equal (forests
+    fitted on the host; predictions add the trees in the same order on
+    both devices)."""
+    tables, walls = {}, {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.examples.quickstart",
+             "--device", device], cwd=HERE, check=True, timeout=600,
+            capture_output=True, text=True,
+            env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+        ).stdout
+        walls[device] = time.perf_counter() - t0
+        lines = out.splitlines()
+        head = next(i for i, ln in enumerate(lines) if "mean-k" in ln)
+        tables[device] = lines[head:head + 6]
+    if tables["cuda"] != tables["cpu"] or len(tables["cuda"]) != 6:
+        raise AssertionError(f"quickstart tables differ: {tables}")
+    for ln in tables["cuda"]:
+        log("phase 6: quickstart |" + ln)
+    log("phase 6: quickstart " + json.dumps({
+        "tables_equal": True, "wall_s_cuda": walls["cuda"],
+        "wall_s_cpu": walls["cpu"]}))
+
+
 def _busy_us(events) -> float:
     """Length of the union of the events' [start, end] intervals (us)."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -1389,7 +1660,7 @@ def main() -> int:
         f"({time.perf_counter() - t0:.1f} s)")
     torch.cuda.empty_cache()
 
-    sys_, servers, batches = build_servers()
+    sys_, servers, batches, meds = build_servers()
     launches, _, served = main_path(sys_, servers, batches)
     funnel, fbatches, fmixed = build_funnel()
     f_launches, _, fserved = funnel_path(funnel, fbatches, fmixed)
@@ -1400,6 +1671,9 @@ def main() -> int:
                                     fbatches, fserved)
     serve_cli()
     log(f"phase 4: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    offline_path(sys_, meds)
+    log(f"phase 6: {time.perf_counter() - t0:.1f} s")
     log("phase 5: flash_attention's path call, CUDA activities per call: "
         + json.dumps(check_flash_activities(dev, fcfg.bst, fcfg.pool_depth)))
     if args.profile:

@@ -11,8 +11,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers
 from repro_torch.retrieval.index import InvertedIndex, TermStats
 
-__all__ = ["index_from_numpy", "cascade_from_numpy", "tower_from_numpy",
-           "bst_from_numpy"]
+__all__ = ["index_from_numpy", "cascade_from_numpy", "mlp_from_numpy",
+           "tower_from_numpy", "bst_from_numpy"]
 
 _FOREST_TABLES = {"feature": np.int32, "thresh": np.float32,
                   "left": np.int32, "right": np.int32, "leaf": np.float32}
@@ -43,18 +43,34 @@ def index_from_numpy(*, offsets, postings_doc, postings_impact,
 
 def cascade_from_numpy(kind: str, node_params, max_depth: int,
                        n_cutoffs: int, *, device=None) -> Cascade:
-    """A ``Cascade`` from per-node forest tables (dicts of arrays keyed
-    feature/thresh/left/right/leaf).  Only the forest kind is ported."""
-    if kind != "forest":
-        raise ValueError(f"node kind {kind!r} is not ported (forest only)")
+    """A ``Cascade`` from per-node parameters: forest tables (dicts of
+    arrays keyed feature/thresh/left/right/leaf) or MLP states (see
+    ``mlp_from_numpy``)."""
+    if kind not in ("forest", "mlp"):
+        raise ValueError(f"unknown node kind {kind!r}")
     if len(node_params) != n_cutoffs:
         raise ValueError(f"{len(node_params)} node tables for "
                          f"{n_cutoffs} cutoffs")
     dev = resolve_device(device)
-    params = [{k: _put(p[k], dt, dev) for k, dt in _FOREST_TABLES.items()}
-              for p in node_params]
+    if kind == "forest":
+        params = [{k: _put(p[k], dt, dev)
+                   for k, dt in _FOREST_TABLES.items()}
+                  for p in node_params]
+    else:
+        params = [mlp_from_numpy(p, device=dev) for p in node_params]
     return Cascade(kind=kind, nodes=[], node_params=params,
                    max_depth=max_depth, n_cutoffs=n_cutoffs)
+
+
+def mlp_from_numpy(state: dict, *, device=None) -> dict:
+    """The state ``core.mlp.mlp_predict_proba`` takes, from the JAX
+    package's ``MLPClassifier.as_jax()`` tree (``{"params": {"layers":
+    [{"w", "b"}, ...]}, "mean", "std"}`` of float32 arrays)."""
+    _check_keys(state, ("params", "mean", "std"), "MLP state")
+    _check_keys(state["params"], ("layers",), "MLP params")
+    for lyr in state["params"]["layers"]:
+        _check_keys(lyr, _LINEAR, "MLP layer")
+    return layers.to_device(_as_f32(state), resolve_device(device))
 
 
 _LINEAR = ("w", "b")

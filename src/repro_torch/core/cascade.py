@@ -1,11 +1,20 @@
-"""LRCascade (paper Algorithm 2 + Figure 5), forest nodes.
+"""LRCascade (paper Algorithm 2 + Figure 5).
 
 A left-to-right chain of c binary classifiers, one per cutoff boundary.
 Node i answers "does cutoff i suffice?" (class 0); a query exits at the
 first node whose class-0 probability exceeds its threshold, else takes
-the maximal class c.  ``predict_batched`` evaluates every node for the
-whole batch and takes the first firing node.  The JAX package's ``mlp``
-node kind is not ported yet.
+the maximal class c.
+
+  * ``predict_sequential``: the literal Algorithm 2 for one query, a
+    host loop that exits at the first firing node.
+  * ``predict_batched``: every node for the whole batch, then the first
+    firing node.  Identical outputs (tested).
+
+Nodes are forests (fitted on the host, evaluated on the tables' device)
+or MLPs (trained on the device).  ``tune_thresholds`` picks per-node
+thresholds on a validation fold.  The JAX package's warm-started forest
+refits (``warm``, ``warm_frac``) belong to the online loop and are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -17,9 +26,12 @@ import torch
 
 from repro_torch.core import forest as forest_lib
 from repro_torch.core import labeling
+from repro_torch.core import mlp as mlp_lib
 from repro_torch.device import resolve_device
+from repro_torch.models.layers import to_device
 
 __all__ = ["Cascade", "train_cascade", "predict_batched",
+           "predict_sequential", "tune_thresholds",
            "proba0_from_params", "classes_from_proba"]
 
 
@@ -36,18 +48,18 @@ def _check_features(x: torch.Tensor) -> None:
             "corrupt features")
 
 
-def _check_kind(kind: str) -> None:
-    if kind != "forest":
-        raise ValueError(f"node kind {kind!r} is not ported (forest only)")
+def _node_proba(kind: str, params, x: torch.Tensor,
+                max_depth: int) -> torch.Tensor:
+    if kind == "forest":
+        return forest_lib.forest_predict_proba(params, x, max_depth)
+    return mlp_lib.mlp_predict_proba(params, x)
 
 
 def proba0_from_params(kind: str, node_params, x: torch.Tensor,
                        max_depth: int) -> torch.Tensor:
     """(B, c) class-0 probabilities from an explicit per-node parameter
     list (the form the server keeps swappable)."""
-    _check_kind(kind)
-    cols = [forest_lib.forest_predict_proba(p, x, max_depth)[:, 0]
-            for p in node_params]
+    cols = [_node_proba(kind, p, x, max_depth)[:, 0] for p in node_params]
     return torch.stack(cols, dim=1)
 
 
@@ -67,9 +79,9 @@ def classes_from_proba(p0: torch.Tensor, t) -> torch.Tensor:
 class Cascade:
     """c binary nodes; node i was trained on Algorithm 1's set B_i."""
 
-    kind: str                      # "forest"
-    nodes: list                    # per-node host models (Forest)
-    node_params: list              # per-node dicts of tensors
+    kind: str                      # "forest" | "mlp"
+    nodes: list                    # per-node host models
+    node_params: list              # per-node trees of tensors
     max_depth: int = 0
     n_cutoffs: int = 9
 
@@ -79,11 +91,15 @@ class Cascade:
         return proba0_from_params(self.kind, self.node_params, x,
                                   self.max_depth)
 
+    @property
+    def device(self) -> torch.device:
+        """The device of the node parameters."""
+        p = self.node_params[0]
+        return (p["feature"] if self.kind == "forest" else p["mean"]).device
+
     def to(self, device) -> "Cascade":
-        """The same cascade with its node tables on ``device``."""
-        dev = resolve_device(device)
-        params = [{k: v.to(dev) for k, v in p.items()}
-                  for p in self.node_params]
+        """The same cascade with its node parameters on ``device``."""
+        params = to_device(self.node_params, resolve_device(device))
         return Cascade(self.kind, self.nodes, params, self.max_depth,
                        self.n_cutoffs)
 
@@ -91,25 +107,82 @@ class Cascade:
 def train_cascade(x: np.ndarray, labels: np.ndarray, *, n_cutoffs: int,
                   kind: str = "forest", seed: int = 0,
                   forest_kwargs: dict | None = None,
+                  mlp_kwargs: dict | None = None,
                   device=None) -> Cascade:
-    """Train one binary node per cutoff boundary (Algorithm 1 data) on
-    the host; the node tables go to ``device``."""
-    _check_kind(kind)
+    """Train one binary node per cutoff boundary (Algorithm 1 data).
+    Forests are fitted on the host and their tables go to ``device``;
+    MLPs train on ``device``."""
+    if kind not in ("forest", "mlp"):
+        raise ValueError(f"unknown node kind {kind!r}")
     dev = resolve_device(device)
     binary = labeling.multiclass_to_binary(labels, n_cutoffs)
     nodes, params = [], []
     depth = 0
     for i in range(n_cutoffs):
-        kw = dict(n_trees=25, max_depth=8, seed=seed + i)
-        kw.update(forest_kwargs or {})
-        f = forest_lib.train_forest(x, binary[i], n_classes=2, **kw)
-        nodes.append(f)
-        params.append(f.as_torch(dev))
-        depth = f.max_depth
+        if kind == "forest":
+            kw = dict(n_trees=25, max_depth=8, seed=seed + i)
+            kw.update(forest_kwargs or {})
+            node = forest_lib.train_forest(x, binary[i], n_classes=2, **kw)
+            depth = node.max_depth
+        else:
+            kw = dict(seed=seed + i)
+            kw.update(mlp_kwargs or {})
+            node = mlp_lib.train_mlp(x, binary[i], n_classes=2, device=dev,
+                                     **kw)
+        nodes.append(node)
+        params.append(node.as_torch(dev))
     return Cascade(kind=kind, nodes=nodes, node_params=params,
                    max_depth=depth, n_cutoffs=n_cutoffs)
 
 
 def predict_batched(cascade: Cascade, x: torch.Tensor, t) -> torch.Tensor:
-    """Vectorized Algorithm 2: (B,) predicted cutoff index in [0, c]."""
+    """Vectorized Algorithm 2: (B,) predicted cutoff index in [0, c].
+
+    ``t`` is a scalar confidence threshold or a per-node vector of c
+    thresholds (the paper's "variable cutoff thresholds" extension)."""
     return classes_from_proba(cascade.proba0(x), t)
+
+
+def tune_thresholds(cascade: Cascade, x: np.ndarray, med_table: np.ndarray,
+                    cutoff_values, tau: float,
+                    grid=(0.6, 0.7, 0.75, 0.8, 0.85, 0.9),
+                    min_compliance: float = 0.95) -> np.ndarray:
+    """Per-node threshold tuning on a validation fold (paper section 5:
+    "initial efforts towards variable cutoff thresholds").
+
+    Greedy left-to-right: for node i, pick the smallest threshold whose
+    *marginal exits* stay ``min_compliance`` inside the envelope.  The
+    probabilities come from the cascade's device; the comparisons with
+    the grid's Python floats stay in numpy, as in the reference."""
+    c = cascade.n_cutoffs
+    xt = torch.tensor(x, dtype=torch.float32, device=cascade.device)
+    p0 = cascade.proba0(xt).cpu().numpy()        # (B, c)
+    thresholds = np.full(c, grid[-1], np.float32)
+    exited = np.zeros(len(x), bool)
+    for i in range(c):
+        best = grid[-1]
+        for t in grid:                           # ascending
+            exits = (~exited) & (p0[:, i] > t)
+            if exits.sum() == 0:
+                continue
+            ok = (med_table[exits, i] <= tau).mean()
+            if ok >= min_compliance:
+                best = t
+                break
+        thresholds[i] = best
+        exited |= (~exited) & (p0[:, i] > best)
+    return thresholds
+
+
+def predict_sequential(cascade: Cascade, x_row: np.ndarray,
+                       t: float) -> int:
+    """Literal Algorithm 2 for a single query: evaluate nodes left to
+    right on the cascade's device and exit at the first whose class-0
+    probability exceeds ``t`` (one host read per node)."""
+    xr = torch.tensor(x_row, dtype=torch.float32,
+                      device=cascade.device)[None, :]
+    for i, p in enumerate(cascade.node_params):
+        pr = _node_proba(cascade.kind, p, xr, cascade.max_depth)
+        if float(pr[0, 0]) > t:                  # predicts 0 with Pr > t
+            return i
+    return cascade.n_cutoffs

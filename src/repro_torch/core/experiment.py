@@ -1,29 +1,34 @@
-"""Experiment harness: the system build and the MED tables.
+"""Experiment harness for the paper's tables.
 
   1. corpus + impact-ordered index + query log,
   2. per query: gold run + candidate runs at the 9 cutoffs, MED tables
      (k knob: second-stage restriction semantics; rho knob: exhaustive
      vs anytime),
-  3. the 70 static pre-retrieval features.
-
-``run_methods`` and the baselines of the JAX package are not ported yet.
+  3. the 70 static pre-retrieval features,
+  4. envelope labeling at tau + stratified folds,
+  5. train LRCascade + MultiLabel + MetaCost per fold (forests fitted on
+     the host), predict the held-out fold on the system's device,
+  6. tradeoff accounting against the fixed-cutoff horizon (Tables 4-6).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
+from repro_torch.core import baselines as bl
+from repro_torch.core import cascade as cascade_lib
 from repro_torch.core import features as feat_lib
-from repro_torch.core import labeling, med
-from repro_torch.device import resolve_device
+from repro_torch.core import labeling, med, tradeoff
+from repro_torch.device import fence, resolve_device
 from repro_torch.retrieval import corpus as corpus_lib
 from repro_torch.retrieval import gold, index as index_lib, jass
 
-__all__ = ["ExperimentConfig", "System", "build_system", "med_tables",
-           "K_CUTOFFS_SMALL"]
+__all__ = ["ExperimentConfig", "System", "MethodResults", "build_system",
+           "med_tables", "run_methods", "K_CUTOFFS_SMALL"]
 
 #: paper cutoffs; the harness caps k at the gold-pool depth
 K_CUTOFFS_SMALL = (20, 50, 100, 200, 500, 1000, 2000, 5000, 10000)
@@ -136,3 +141,85 @@ def _accumulate_med(out, metrics, sl, ci, a_run, b_run, p):
         out["dcg"][sl, ci] = med.med_dcg(a_run, b_run).cpu().numpy()
     if "err" in metrics:
         out["err"][sl, ci] = med.med_err(a_run, b_run).cpu().numpy()
+
+
+@dataclasses.dataclass
+class MethodResults:
+    """Held-out predictions per method + the evaluation table rows.
+
+    ``seconds``: wall time of the forest fitting on the host (``fit``,
+    MetaCost's bagged predictions included) and of the held-out
+    predictions on the device, fenced (``predict``)."""
+
+    labels: np.ndarray
+    preds: dict[str, np.ndarray]
+    table: list[dict]
+    horizon: list
+    seconds: dict
+
+
+def run_methods(sys: System, med_table: np.ndarray, cutoffs, tau: float,
+                thresholds=(0.75, 0.80, 0.85), n_folds: int = 3,
+                kinds=("cascade", "multilabel", "metacost"),
+                forest_kwargs: dict | None = None,
+                seed: int = 0) -> MethodResults:
+    """Cross-validated predictions for every method (paper Tables 4-6).
+    ``forest_kwargs`` reaches the cascade only; MultiLabel and MetaCost
+    keep their own forest sizes, as in the JAX package."""
+    dev = sys.device
+    labels = labeling.envelope_labels(med_table, tau).numpy()
+    c = len(cutoffs)
+    folds = labeling.stratified_folds(labels, n_folds, seed=seed)
+    x = sys.features
+    preds: dict[str, np.ndarray] = {
+        f"cascade_t{t}": np.zeros(len(labels), np.int64)
+        for t in thresholds if "cascade" in kinds}
+    if "multilabel" in kinds:
+        preds["multilabel"] = np.zeros(len(labels), np.int64)
+    if "metacost" in kinds:
+        preds["metacost"] = np.zeros(len(labels), np.int64)
+    seconds = {"fit": 0.0, "predict": 0.0}
+
+    def fit(train, *args, **kw):
+        t0 = time.perf_counter()
+        out = train(*args, **kw)
+        seconds["fit"] += time.perf_counter() - t0
+        return out
+
+    def predict(name, te, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        fence(dev)
+        seconds["predict"] += time.perf_counter() - t0
+        preds[name][te] = out.cpu().numpy()
+
+    for f in range(n_folds):
+        tr, te = folds != f, folds == f
+        if te.sum() == 0:
+            continue
+        xt = torch.from_numpy(x[te]).to(dev)
+        if "cascade" in kinds:
+            casc = fit(cascade_lib.train_cascade, x[tr], labels[tr],
+                       n_cutoffs=c, seed=seed + f,
+                       forest_kwargs=forest_kwargs, device=dev)
+            for t in thresholds:
+                predict(f"cascade_t{t}", te, cascade_lib.predict_batched,
+                        casc, xt, t)
+        if "multilabel" in kinds:
+            ml = fit(bl.train_multilabel, x[tr], labels[tr], c + 1,
+                     seed=seed + f)
+            predict("multilabel", te, bl.predict_multilabel, ml, xt)
+        if "metacost" in kinds:
+            mc = fit(bl.train_metacost, x[tr], labels[tr], c + 1, n_bags=5,
+                     seed=seed + f, device=dev)
+            predict("metacost", te, bl.predict_multilabel, mc, xt)
+
+    hor = tradeoff.horizon(med_table, cutoffs)
+    table = []
+    oracle_pt = tradeoff.method_point("Oracle", med_table, labels, cutoffs)
+    table.append(tradeoff.interp_gain(oracle_pt, hor))
+    for name, pr in preds.items():
+        pt = tradeoff.method_point(name, med_table, pr, cutoffs)
+        table.append(tradeoff.interp_gain(pt, hor))
+    return MethodResults(labels=labels, preds=preds, table=table,
+                         horizon=hor, seconds=seconds)

@@ -2,7 +2,8 @@
 
 A query's ordinal class is the minimal cutoff index whose MED is inside
 the effectiveness envelope (MED <= tau), or c when none is.
-Algorithm 1 turns the c-way problem into c binary training sets.
+Algorithm 1 turns the c-way problem into c binary training sets, and
+``stratified_folds`` splits queries for cross-validation.
 """
 
 from __future__ import annotations
@@ -10,8 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["envelope_labels", "multiclass_to_binary", "K_CUTOFFS",
-           "RHO_FRACTIONS"]
+__all__ = ["envelope_labels", "multiclass_to_binary", "stratified_folds",
+           "K_CUTOFFS", "RHO_FRACTIONS"]
 
 #: the paper's 9 candidate-pool cutoffs
 K_CUTOFFS = (20, 50, 100, 200, 500, 1000, 2000, 5000, 10000)
@@ -39,3 +40,17 @@ def multiclass_to_binary(labels: np.ndarray, n_cutoffs: int) -> np.ndarray:
     labels = np.asarray(labels)
     i = np.arange(n_cutoffs)[:, None]
     return (labels[None, :] > i).astype(np.int64)
+
+
+def stratified_folds(labels: np.ndarray, n_folds: int = 10,
+                     seed: int = 13) -> np.ndarray:
+    """Per-query fold id, stratified by class (Weka StratifiedRemoveFolds
+    stand-in): within each class, shuffled round-robin assignment."""
+    labels = np.asarray(labels)
+    rng = np.random.default_rng(seed)
+    fold = np.zeros(len(labels), np.int32)
+    for cls in np.unique(labels):
+        idx = np.flatnonzero(labels == cls)
+        rng.shuffle(idx)
+        fold[idx] = np.arange(len(idx)) % n_folds
+    return fold

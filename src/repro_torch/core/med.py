@@ -7,7 +7,8 @@ query axis.  For RBP and DCG (binary gains)
 
     MED = max( sum_d max(0, w_A(d) - w_B(d)),  sum_d max(0, w_B(d) - w_A(d)) )
 
-and ERR uses the diff-set greedy assignment, as in the JAX package.
+and ERR and AP (``med_map``) use the diff-set greedy assignment, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -15,8 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["rank_in", "med_rbp", "med_dcg", "med_err", "rbp_weights",
-           "dcg_weights"]
+__all__ = ["rank_in", "med_rbp", "med_dcg", "med_err", "med_map",
+           "med_all", "rbp_weights", "dcg_weights"]
 
 PAD = -1
 
@@ -101,3 +102,33 @@ def med_err(a: torch.Tensor, b: torch.Tensor, eval_depth: int = 20,
         return _err_gain(x, diff, eval_depth, r_max)
 
     return torch.maximum(one(a, b), one(b, a))
+
+
+def med_map(a: torch.Tensor, b: torch.Tensor, n_rel: int = 1) -> torch.Tensor:
+    """Greedy MED under (binary) average precision with a fixed relevant-
+    set size: the first ``n_rel`` symmetric-difference docs of the
+    advantaged list are graded relevant.  Exact for disjoint lists with
+    n_rel >= |A|."""
+
+    def ap_gain(x, y):
+        i = torch.arange(x.shape[-1], dtype=torch.float32, device=x.device)
+        diff = (rank_in(x, y) < 0) & (x != PAD)
+        order = torch.cumsum(diff.to(torch.int32), dim=-1)
+        active = diff & (order <= n_rel)
+        hits = torch.cumsum(active.to(torch.float32), dim=-1)
+        prec = torch.where(active, hits / (i + 1.0),
+                           torch.zeros((), device=x.device))
+        return prec.sum(dim=-1) / n_rel
+
+    return torch.maximum(ap_gain(a, b), ap_gain(b, a))
+
+
+def med_all(a: torch.Tensor, b: torch.Tensor, *, p: float = 0.95,
+            eval_depth: int = 20) -> dict[str, torch.Tensor]:
+    """The MED variants used by the paper, as a dict of (Q,) tensors."""
+    return {
+        "rbp": med_rbp(a, b, p=p),
+        "dcg": med_dcg(a, b, eval_depth=eval_depth),
+        "err": med_err(a, b, eval_depth=eval_depth),
+        "map": med_map(a, b),
+    }

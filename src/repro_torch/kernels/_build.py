@@ -43,7 +43,7 @@ KERNELS = {
                          _I, _I, _I, _I, _I, ctypes.c_float,
                          ctypes.POINTER(_I), _P]),
     "embedding_bag": ("embedding_bag_launch",
-                      [_P, _P, _P, _L, _I, _I, _I, _I, _P]),
+                      [_P, _P, _P, _L, _I, _I, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -8,7 +8,9 @@ and the bound (bytes: the gathered rows, the ids and the output).
 
 Slots are added left to right, as the TPU kernel's grid adds them;
 padding slots (-1) add nothing, ``mean`` divides by max(count, 1), and a
-bag of padding only gives zeros.  ``embedding_bag_kernel`` launches the
+bag of padding only gives zeros.  The table is float32 or bfloat16 and
+the output takes its type; a bfloat16 sum is rounded after every add, as
+the Pallas kernel accumulates in the output's type.  ``embedding_bag_kernel`` launches the
 kernel on a CUDA tensor and runs ``ref.embedding_bag_ref`` (the same slot
 order in plain torch) on a CPU tensor; ``n_launches`` counts launches.
 """
@@ -26,11 +28,14 @@ __all__ = ["embedding_bag_kernel", "n_launches"]
 #: kernel launches since the last reset
 n_launches = 0
 
+#: the table dtypes the kernel takes, and the launcher's code of each
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
 
 def embedding_bag_kernel(table: torch.Tensor, ids: torch.Tensor, *,
                          mean: bool = False) -> torch.Tensor:
-    """table: (V, D) float32; ids: (B, L) integer, -1 padded, each in
-    [-1, V) -> (B, D) float32."""
+    """table: (V, D) float32 or bfloat16; ids: (B, L) integer, -1 padded,
+    each in [-1, V) -> (B, D) in the table's dtype."""
     global n_launches
     dev = table.device
     if dev.type == "cpu":
@@ -38,20 +43,20 @@ def embedding_bag_kernel(table: torch.Tensor, ids: torch.Tensor, *,
     if dev.type != "cuda":
         raise ValueError(f"embedding_bag runs on cuda or cpu, not {dev}")
     check_shapes(table, ids)
-    if table.dtype != torch.float32:
-        raise ValueError(f"the embedding_bag kernel takes a float32 table, "
-                         f"got {table.dtype}")
+    if table.dtype not in _DTYPES:
+        raise ValueError(f"the embedding_bag kernel takes a float32 or "
+                         f"bfloat16 table, got {table.dtype}")
     if ids.device != dev:
         raise ValueError("table and ids must be on one device")
     t = table.contiguous()
     i = ids.to(torch.int32).contiguous()
     bsz, n_slots = i.shape
     d = t.shape[1]
-    out = torch.empty((bsz, d), dtype=torch.float32, device=dev)
-    vec = 4 if d % 4 == 0 and t.data_ptr() % 16 == 0 else 1
+    out = torch.empty((bsz, d), dtype=t.dtype, device=dev)
+    wide = int(d * t.element_size() % 16 == 0 and t.data_ptr() % 16 == 0)
     launch = _build.library("embedding_bag")
     err = launch(t.data_ptr(), i.data_ptr(), out.data_ptr(), bsz, n_slots, d,
-                 vec, int(mean), _build.stream(dev))
+                 wide, _DTYPES[t.dtype], int(mean), _build.stream(dev))
     _build.check(err, "embedding_bag")
     n_launches += 1
     return out

@@ -3,12 +3,9 @@
 A user tower embeds the request, and each request is scored against
 ``n_candidates`` item embeddings as one matrix product and a top-k.
 The products are plain ``torch.matmul`` (the JAX package leaves them to
-XLA); the top-k is ``torch.topk`` followed by a stable re-sort of the
-selected (value, index) pairs, descending value and ties to the lower
-index, which is ``jax.lax.top_k``'s order.  What remains open at the
-k-th boundary: where several items tie with the k-th score,
-``torch.topk`` may select any of them, and ``jax.lax.top_k`` the lowest
-indices.  ``tower_loss`` waits for the training slice.
+XLA).  The top-k selects what ``jax.lax.top_k`` selects, in its order:
+descending score, ``+0.0`` above ``-0.0``, and ties to the lower id, at
+the k-th boundary too.  ``tower_loss`` waits for the training slice.
 """
 
 from __future__ import annotations
@@ -22,7 +19,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 
 __all__ = ["TowerConfig", "init_tower", "user_embed", "score_candidates",
-           "retrieve_topk"]
+           "top_k", "retrieve_topk"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,15 +78,55 @@ def score_candidates(params: dict, cfg: TowerConfig,
     return (u @ params["items"].T).to(torch.float32)
 
 
+def _keys(scores: torch.Tensor) -> torch.Tensor:
+    """Order-preserving int32 keys of float32 scores: the bits, with the
+    magnitude bits flipped where the sign is set (``-0.0`` keys below
+    ``+0.0``)."""
+    bits = scores.view(torch.int32)
+    return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+
+
+def _top_k_keyed(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """The ids ``top_k`` selects, by one ``torch.topk`` over distinct
+    int64 keys: the score's key in the high half, the flipped id in the
+    low half."""
+    n = scores.shape[1]
+    key = _keys(scores).to(torch.int64)
+    key <<= 32
+    key |= torch.arange(n - 1, -1, -1, dtype=torch.int64,
+                        device=scores.device)
+    return (n - 1) - (torch.topk(key, k, dim=1).values & 0xFFFFFFFF)
+
+
+def top_k(scores: torch.Tensor, k: int):
+    """``jax.lax.top_k`` of (B, N) float32 scores: ids (int64) and values
+    of the k largest per row, descending, ``+0.0`` above ``-0.0``, ties
+    to the lower id (at the k-th boundary too).
+
+    A float32 ``torch.topk`` of k + 1 selects exactly unless the
+    (k+1)-th score equals the k-th (``-0.0`` and ``+0.0`` compare equal,
+    so a zero left out counts): only then may a tie be cut at the
+    boundary, and ``_top_k_keyed`` selects again.  A blocking read of
+    one flag from the card decides, so every call on a CUDA tensor
+    waits for the card there (a sync on the funnel's stage 1, which
+    stops the call from being captured in a CUDA graph).  The selection
+    is then ordered by key, ties to the lower id."""
+    n = scores.shape[1]
+    vals, idx = torch.topk(scores, min(k + 1, n), dim=1)
+    if 0 < k < n and bool((vals[:, k] == vals[:, k - 1]).any()):
+        idx = _top_k_keyed(scores, k)
+    else:
+        idx = idx[:, :k]
+        idx = idx.gather(1, torch.sort(idx, dim=1, stable=True).indices)
+        order = torch.sort(_keys(scores.gather(1, idx)), dim=1,
+                           descending=True, stable=True).indices
+        idx = idx.gather(1, order)
+    return idx, scores.gather(1, idx)
+
+
 def retrieve_topk(params: dict, cfg: TowerConfig, user_feats: torch.Tensor,
                   k: int):
     """Candidate generation: top-k item ids (int32) and scores per
-    request, descending score, ties to the lower id."""
-    scores = score_candidates(params, cfg, user_feats)
-    vals, idx = torch.topk(scores, k, dim=1)
-    # make the order explicit: a stable sort by id, then a stable sort
-    # by descending score
-    by_id = torch.sort(idx, dim=1, stable=True).indices
-    vals, idx = vals.gather(1, by_id), idx.gather(1, by_id)
-    order = torch.sort(vals, dim=1, descending=True, stable=True).indices
-    return idx.gather(1, order).to(torch.int32), vals.gather(1, order)
+    request, as ``jax.lax.top_k`` gives them (``top_k``)."""
+    idx, vals = top_k(score_candidates(params, cfg, user_feats), k)
+    return idx.to(torch.int32), vals

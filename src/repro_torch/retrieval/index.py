@@ -74,6 +74,12 @@ class InvertedIndex:
     def device(self) -> torch.device:
         return self.postings_doc.device
 
+    def postings_of(self, term: int) -> slice:
+        """The term's postings as a slice of the CSR arrays (one host
+        read of the two offsets)."""
+        lo, hi = self.offsets[term:term + 2].tolist()
+        return slice(lo, hi)
+
     def to(self, device) -> "InvertedIndex":
         """A copy of every tensor on ``device``."""
         dev = resolve_device(device)

@@ -142,7 +142,8 @@ class RetrievalServer:
                 f"knob {knob!r}: cascade has {casc.n_cutoffs} nodes but "
                 f"the grid has {self.knobs[knob].n_cutoffs} cutoffs")
         if casc.kind != "forest":
-            raise ValueError(f"node kind {casc.kind!r} is not ported")
+            raise ValueError(f"node kind {casc.kind!r}: the port's server "
+                             "serves forest cascades only")
         cap = forest_lib.node_capacity(casc.max_depth)
         node_params = [
             forest_lib.pad_forest_params(

@@ -785,6 +785,12 @@ class RetrievalService:
         """Explicit synchronous warmup (deploy-time escape hatch)."""
         return self.warmup.prewarm(self.backend, sizes)
 
+    def reset_stats(self) -> None:
+        """Drop accumulated batch records (e.g. after a warmup pass, so
+        reported percentiles reflect steady state only)."""
+        with self._lock:
+            self._records.clear()
+
     def stats(self) -> ServerStats:
         """Aggregate service-side accounting into a ServerStats.
 

@@ -15,12 +15,22 @@ Tolerances, with their reasons:
     ranked lists are equal.
   * flash_attention: 2e-5 in float32, 2e-2 in bfloat16 (against the
     plain softmax: exp and the order of sums differ).
-  * embedding_bag: bit-equal; the kernel and its plain version both add
-    the slots left to right.
+  * embedding_bag: bit-equal, in float32 and in bfloat16; the kernel and
+    its plain version both add the slots left to right, a bfloat16 sum
+    rounded after every add.
+  * retrieve_topk's selection (``top_k``) at the funnel's 1 M width:
+    ids and value bits equal to the CPU's.
+  * run_methods on the card: labels, predictions and table equal to the
+    CPU's (host-fitted forests, trees added in the same order); an MLP
+    cascade's classes on the card equal its classes on the CPU from the
+    same parameters, except where a node's probability lies within 1e-6
+    of the threshold (float32 products in another order), left out.
   * funnel: classes and k equal; ranked lists equal except where two
     items' stage-2 scores lie within 1e-5 (float32 products in another
     order on the card than on the CPU).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -188,13 +198,8 @@ def test_serve_batch_on_card_matches_cpu(cuda_device, knob):
                                   gpu.serve_batch_reference(qt)["ranked"])
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("knob", ["rho", "k"])
-def test_service_threaded_equals_inline_on_card(cuda_device, knob):
-    """Threaded (requests queued before the workers start, so the batches
-    are the FIFO chunks) equals inline, predict on a stream of its own;
-    the engine's stage spans, fenced on the exec thread's stream, stay
-    inside the batch's ``execute`` span (``service_ms``)."""
+def _card_server(cuda_device, knob):
+    """A tiny system's server on the card and 37 of its queries."""
     sys_ = experiment.build_system(experiment.ExperimentConfig(
         n_docs=1500, vocab=4000, n_queries=96, stream_cap=256,
         pool_depth=400, gold_depth=100, query_batch=48, seed=3),
@@ -209,7 +214,17 @@ def test_service_threaded_equals_inline_on_card(cuda_device, knob):
         sys_.index, casc, pipeline.ServingConfig(
             knob=knob, cutoffs=cuts, rerank_depth=30, stream_cap=256),
         device=cuda_device)
-    qt = sys_.queries.terms[:37]
+    return server, sys_.queries.terms[:37]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("knob", ["rho", "k"])
+def test_service_threaded_equals_inline_on_card(cuda_device, knob):
+    """Threaded (requests queued before the workers start, so the batches
+    are the FIFO chunks) equals inline, predict on a stream of its own;
+    the engine's stage spans, fenced on the exec thread's stream, stay
+    inside the batch's ``execute`` span (``service_ms``)."""
+    server, qt = _card_server(cuda_device, knob)
 
     def make():
         o = obs.Observability.create()
@@ -392,6 +407,124 @@ def test_embedding_bag_cuda_matches_plain(cuda_device, v, d, b, l, mean):
     ref = eb_ref.embedding_bag_ref(table, ids, mean=mean)
     assert torch.equal(out, ref)
     assert not out[::7].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("v,d,b,l,mean", [
+    (100_000, 32, 1024, 8, False), (5000, 64, 300, 7, True),
+    (300, 5, 90, 4, True), (50, 200, 33, 3, False), (1000, 8, 77, 20, True),
+])
+def test_embedding_bag_cuda_bfloat16_matches_plain(cuda_device, v, d, b, l,
+                                                   mean):
+    r = np.random.default_rng(v + d + l)
+    table = torch.from_numpy(r.normal(0, d ** -0.5, (v, d)).astype(
+        np.float32)).to(device=cuda_device, dtype=torch.bfloat16)
+    ids = r.integers(-1, v, (b, l)).astype(np.int32)
+    ids[::7] = -1
+    ids = torch.from_numpy(ids).to(cuda_device)
+    before = eb_kernel.n_launches
+    out = eb_kernel.embedding_bag_kernel(table, ids, mean=mean)
+    assert eb_kernel.n_launches == before + 1
+    assert out.dtype == torch.bfloat16
+    ref = eb_ref.embedding_bag_ref(table, ids, mean=mean)
+    assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+    assert not out[::7].any()
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        eb_kernel.embedding_bag_kernel(table.half(), ids)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [3, 100, 1000])
+def test_top_k_cuda_boundary_ties_at_the_funnel_width(cuda_device, k):
+    """1 M candidates a row, the k-th score tied many times over, and
+    mixed-sign zeros: the card selects what the CPU selects."""
+    r = np.random.default_rng(k)
+    scores = np.round(r.normal(size=(4, 1_000_000)) * 3).astype(np.float32)
+    scores[1] = np.where(r.random(1_000_000) < 0.5, 0.0, -0.0)
+    scores[1, 7] = 1.0
+    scores[2, :] = 1.0
+    scores[2, 123_456] = 2.0
+    scores[3] = r.normal(size=1_000_000)
+    # rows 0-2 tie at the k-th score (the keyed selection); row 3 alone
+    # has no tie (the float32 selection)
+    for rows in (slice(0, 4), slice(3, 4)):
+        got = retrieval_tower.top_k(
+            torch.from_numpy(scores[rows]).to(cuda_device), k)
+        want = retrieval_tower.top_k(torch.from_numpy(scores[rows]), k)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu().view(torch.int32),
+                           want[1].view(torch.int32))
+    assert want[0][0, :3].tolist() == retrieval_tower.top_k(
+        torch.from_numpy(scores), k)[0][3, :3].tolist()
+    assert retrieval_tower.top_k(torch.from_numpy(scores[2:3]), k)[0][
+        0, :3].tolist() == [123_456, 0, 1][:k]
+
+
+@pytest.mark.gpu
+def test_service_reset_stats_and_handoff_depth_on_card(cuda_device):
+    server, qt = _card_server(cuda_device, "rho")
+    svc = service.RetrievalService(
+        service.EngineBackend(server, query_len=qt.shape[1]),
+        admission.AdmissionConfig(max_batch=16, pad_multiple=8),
+        service.WarmupPolicy(census_path=None))
+    svc.warmup_now([16])
+    warm = svc.serve_all(list(qt[:16]), deadline_ms=1e6)
+    svc.reset_stats()
+    assert svc.stats().n_queries == 0 and svc.stats().latencies_ms == []
+    futs = svc.submit_many(list(qt), deadline_ms=1e6)
+    with svc:
+        got = [f.result(timeout=120.0) for f in futs]
+    stats = svc.stats()
+    assert stats.n_queries == len(qt) and len(stats.service_ms) == 3
+    for a, b in zip(warm, got):
+        np.testing.assert_array_equal(a["ranked"], b["ranked"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("knob", ["rho", "k"])
+def test_run_methods_on_card_matches_cpu(cuda_device, knob):
+    cfg = experiment.ExperimentConfig(
+        n_docs=1500, vocab=4000, n_queries=96, stream_cap=256,
+        pool_depth=400, gold_depth=100, query_batch=48, seed=3)
+    sys_ = experiment.build_system(cfg, device=cuda_device)
+    cuts = sys_.k_cutoffs if knob == "k" else sys_.rho_cutoffs
+    med = experiment.med_tables(sys_, knob, metrics=("rbp",))["rbp"]
+    kw = dict(tau=0.05, n_folds=3, forest_kwargs=dict(n_trees=6,
+                                                      max_depth=5))
+    gpu = experiment.run_methods(sys_, med, cuts, **kw)
+    cpu_sys = dataclasses.replace(sys_, index=sys_.index.to("cpu"))
+    cpu = experiment.run_methods(cpu_sys, med, cuts, **kw)
+    np.testing.assert_array_equal(gpu.labels, cpu.labels)
+    for name, pred in cpu.preds.items():
+        np.testing.assert_array_equal(gpu.preds[name], pred)
+    assert gpu.table == cpu.table
+    # tuned thresholds and Algorithm 2 on the card, an MLP cascade
+    casc = cascade.train_cascade(sys_.features[:64], gpu.labels[:64],
+                                 n_cutoffs=len(cuts), device=cuda_device,
+                                 forest_kwargs=dict(n_trees=6, max_depth=5))
+    tv = cascade.tune_thresholds(casc, sys_.features[64:], med[64:], cuts,
+                                 0.05)
+    assert torch.equal(
+        cascade.predict_batched(casc, torch.from_numpy(
+            sys_.features[64:]).to(cuda_device), tv).cpu(),
+        cascade.predict_batched(casc.to("cpu"),
+                                torch.from_numpy(sys_.features[64:]), tv))
+    x = torch.from_numpy(sys_.features)
+    batched = cascade.predict_batched(casc, x.to(cuda_device), 0.8).cpu()
+    for i in range(32):
+        assert cascade.predict_sequential(casc, sys_.features[i],
+                                          0.8) == batched[i]
+    mlp = cascade.train_cascade(sys_.features, gpu.labels,
+                                n_cutoffs=len(cuts), kind="mlp",
+                                mlp_kwargs=dict(epochs=3, batch=32),
+                                device=cuda_device)
+    p_gpu = mlp.proba0(x.to(cuda_device)).cpu()
+    p_cpu = mlp.to("cpu").proba0(x)
+    assert torch.allclose(p_gpu, p_cpu, rtol=1e-5, atol=1e-6)
+    near = ((p_gpu - 0.8).abs() <= 1e-6).any(dim=1)
+    got = cascade.classes_from_proba(p_gpu, 0.8)
+    want = cascade.classes_from_proba(p_cpu, 0.8)
+    assert torch.equal(got[~near], want[~near])
 
 
 @pytest.mark.gpu

@@ -5,6 +5,7 @@ no device ask for CUDA and raise without it."""
 import ast
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -43,15 +44,17 @@ def test_port_imports_neither_jax_nor_repro():
     assert {"obs/metrics.py", "obs/trace.py", "obs/__init__.py",
             "obs/export.py", "serving/admission.py", "serving/server.py",
             "serving/service.py", "core/tradeoff.py",
-            "launch/serve.py"} <= scanned
+            "launch/serve.py", "core/baselines.py", "core/mlp.py",
+            "examples/quickstart.py"} <= scanned
     bad = {(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN}
     assert not bad, sorted(bad)
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
-    from repro_torch.core import experiment
+    from repro_torch.core import experiment, mlp
     from repro_torch.device import resolve_device
+    from repro_torch.examples import quickstart
     from repro_torch.launch import serve
     from repro_torch.serving import pipeline
     from repro_torch.serving.engine import ServingEngine
@@ -68,3 +71,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
             n_docs=50, vocab=80, n_queries=4))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--n-docs", "50", "--n-queries", "4", "--census", ""])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        quickstart.main([])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mlp.train_mlp(np.zeros((4, 2), np.float32), np.zeros(4),
+                      n_classes=2)

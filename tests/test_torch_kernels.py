@@ -11,7 +11,10 @@ against the jnp oracles.  Tolerances, with their reasons:
     of sums differ between online and plain softmax).
   * embedding_bag: bit-equal to the Pallas kernel (both add the slots
     left to right); rtol 1e-5 / atol 1e-6 against the jnp oracle, which
-    sums the slot axis in its own order.
+    sums the slot axis in its own order.  In bfloat16 the Pallas kernel
+    and the port round the sum after every slot, and the jnp oracle
+    (``bag_fixed``) sums in float32 and rounds once: against it the
+    error is held to the bound of L rounded adds, L * 2^-8 * sum |row|.
 The CUDA kernels themselves are compared with the plain versions on the
 card (tests/test_torch_gpu.py and chip_smoke.py).
 """
@@ -417,6 +420,37 @@ def test_embedding_bag_matches_pallas_and_oracle(v, d, b, l, comb):
     np.testing.assert_allclose(ref.numpy(), np.asarray(
         j_eb_ops.embedding_bag(jt, ji, combiner=comb, use_kernel=False)),
         rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("v,d,b,l,comb", [
+    (50, 8, 6, 5, "sum"), (1000, 32, 300, 8, "mean"), (500, 16, 200, 20,
+                                                       "sum"),
+    (40, 5, 9, 4, "mean"),
+])
+def test_embedding_bag_bfloat16_matches_pallas_and_bag_fixed(v, d, b, l,
+                                                             comb):
+    """A bfloat16 table: the output stays bfloat16, bit-equal to the
+    Pallas kernel, which accumulates in the table's dtype."""
+    r = np.random.default_rng(v + d + l)
+    table = r.normal(0, d ** -0.5, (v, d)).astype(np.float32)
+    ids = r.integers(0, v, (b, l)).astype(np.int32)
+    ids[r.random((b, l)) < 0.3] = -1
+    ids[1] = -1                                    # a bag of padding only
+    jt, ji = jnp.asarray(table, jnp.bfloat16), jnp.asarray(ids)
+    pallas = j_eb_kernel.embedding_bag_kernel(jt, ji, mean=comb == "mean",
+                                              interpret=True)
+    tt = torch.from_numpy(table).to(torch.bfloat16)
+    out = t_eb_ops.embedding_bag(
+        tt, torch.from_numpy(ids), combiner=comb)
+    assert out.dtype == torch.bfloat16 and not out[1].any()
+    np.testing.assert_array_equal(
+        out.view(torch.int16).numpy(),
+        np.asarray(pallas).view(np.int16))
+    oracle = np.asarray(j_embedding.bag_fixed(jt, ji, comb), np.float32)
+    rows = np.abs(tt.float().numpy()[np.maximum(ids, 0)])
+    bound = l * 2.0 ** -8 * (rows * (ids >= 0)[..., None]).sum(1)
+    assert (np.abs(out.float().numpy() - oracle)
+            <= bound).all()
 
 
 def test_embedding_bag_all_padding_and_validation():

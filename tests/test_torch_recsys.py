@@ -258,6 +258,47 @@ def test_retrieve_topk_ties_go_to_the_lower_id():
     assert vals[0].tolist() == [1.0, 1.0, 1.0, 0.5]
 
 
+def _boundary_scores():
+    """Rows whose k-th score ties: 64 items at 1.0 and one at 2.0;
+    mixed-sign zeros; rounded normals, heavy with ties."""
+    r = np.random.default_rng(8)
+    tie = np.ones(65, np.float32)
+    tie[5] = 2.0
+    zeros = np.full(65, -1.0, np.float32)
+    zeros[:6] = [0.0, -0.0, -0.0, 0.0, 1.0, -1.0]
+    zeros[[30, 31]] = [-0.0, 0.0]
+    rounded = np.round(r.normal(size=(3, 65)) * 2).astype(np.float32)
+    rounded[0, :9] = -0.0
+    return np.stack([tie, zeros, -tie, *rounded])
+
+
+@pytest.mark.parametrize("k", [1, 3, 10, 40, 65])
+def test_top_k_equals_lax_top_k_at_the_boundary(k):
+    """Where the k-th score ties, the lowest ids win, and +0.0 ranks
+    above -0.0, as ``jax.lax.top_k`` has it (the 64-way tie selects
+    [5, 0, 1] at k = 3)."""
+    import jax
+    scores = _boundary_scores()
+    jv, ji = jax.lax.top_k(jnp.asarray(scores), k)
+    ti, tv = t_rt.top_k(torch.from_numpy(scores), k)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy().view(np.int32),
+                                  np.asarray(jv).view(np.int32))
+    if k == 3:
+        assert ti[0].tolist() == [5, 0, 1]
+        assert ti[1].tolist() == [4, 0, 3]
+    # the tie-free rows take the float32 selection, the others the keyed
+    # one; both select alike where both apply
+    free = np.round(np.random.default_rng(k).permutation(65) - 30.0)
+    free = np.stack([free, -free, free * 0.5]).astype(np.float32)
+    free[:, 3] = -0.0
+    jv, ji = jax.lax.top_k(jnp.asarray(free), k)
+    ti, _ = t_rt.top_k(torch.from_numpy(free), k)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(
+        t_rt._top_k_keyed(torch.from_numpy(free), k).numpy(), np.asarray(ji))
+
+
 @pytest.mark.parametrize("bst_kw", [
     BST_KW, dataclasses.asdict(t_configs.bst_smoke_config())])
 def test_bst_logits_match_jax(bst_kw):

@@ -166,6 +166,40 @@ def test_engine_service_matches_serve_batch_and_jax(servers, knob, mode):
     assert stats.n_compiles == 0
 
 
+def test_reset_stats_and_handoff_depth_as_the_jax_service(servers):
+    """``reset_stats`` drops the batch records (the deadline counters
+    stay, as in the JAX package); after the same calls both services
+    report the same stats.  The hand-off holds the JAX service's default
+    depth."""
+    (js, ts), terms = servers[0]["k"], servers[1]
+    got, want = [], []
+    for mod, server, out in ((t_service, ts, got), (j_service, js, want)):
+        svc = mod.RetrievalService(
+            mod.EngineBackend(server, query_len=terms.shape[1]),
+            mod.AdmissionConfig(max_batch=16, pad_multiple=8))
+        assert svc._handoff.maxsize == 2
+        svc.serve_all(list(terms[:N]))
+        svc.reset_stats()
+        out.append(svc.stats())
+        svc.serve_all(list(terms[N:N + 20]))
+        out.append(svc.stats())
+    for g, w in zip(got, want):
+        # n_compiles differs by design (the port compiles nothing), and
+        # which deadlines are met depends on each run's speed
+        for name in ("n_queries", "mean_param", "n_cancelled"):
+            gv, wv = getattr(g, name), getattr(w, name)
+            assert gv == wv or (math.isnan(gv) and math.isnan(wv)), name
+        np.testing.assert_array_equal(g.class_histogram, w.class_histogram)
+        assert (len(g.latencies_ms), len(g.queue_ms), len(g.service_ms)) == (
+            len(w.latencies_ms), len(w.queue_ms), len(w.service_ms))
+    empty, after = got
+    assert empty.n_queries == 0 and empty.latencies_ms == []
+    assert empty.service_ms == [] and empty.stage_ms is None
+    assert all(s.n_deadline_met + s.n_deadline_missed == n
+               for s, n in zip(got + want, (N, N + 20) * 2))
+    assert after.n_queries == 20 and len(after.service_ms) == 2
+
+
 def test_partial_and_oversized_streams_round_trip_pad_grid(servers):
     """Streams of every size from 1 to 40 through max_batch 16: each
     future holds the row a direct serve_batch of its micro-batch gives,
