@@ -31,7 +31,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ``library_ms``; ``fold_ms``, the four copies the fold made before),
      ``routes``
      names the route the launcher took for each checked call, and
-     ``general`` times the general path at one LM shape.
+     ``general`` times the general path at one LM shape.  impact_scan and
+     topk are also held, bit-equal, at the continuous scheduler's shapes
+     (a ``phase 1: continuous path's shape`` line each, with the same
+     times and bound): impact_scan on one chunk window of the slot table
+     ((32, 512) postings, 50 000 docs, per-slot rho in [0, 512], idle
+     slots at rho 0 with the empty bounds (n_docs, -1), ``chunk_ms`` the
+     whole chunk stage with its ``acc + inc``), topk on one finalize
+     group ((8, 50 000), kp 100).
   2. the batch-once serving path at the repo's paper-validation scale
      ("paperish": 50 000 docs, 60 000 terms, 8 000 queries, streams of
      4096): build the system, MED tables and envelope labels, train the
@@ -76,7 +83,38 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      shape under ``torch.profiler``: its CUDA activities must be the
      kernel alone (after every timed phase, phase 6 included, since the
      profiler is left loaded in the process).
-  6. (run between phases 4 and 5) the offline end of the main path on
+  7. (run after phase 4) the continuous scheduler on the card, per knob
+     over phase 2's servers and 512 requests: ``ContinuousBackend``
+     (slots 32, grain 8, chunk 512: 8 chunks a stream) behind
+     ``RetrievalService``, fresh and warmed, the launch counters zeroed
+     after the warmup.  Inline, every ranked list must equal one
+     ``engine.serve`` of the 512 rows bit for bit and every class
+     ``predict_classes``'; impact_scan launches must equal the chunk
+     dispatches and topk launches the finalizes on ρ (0 on k, whose pool
+     of 10 000 takes the plain sort).  FIFO-threaded (all 512 queued,
+     then the tick thread started) must give the same lists; the fixed
+     arm (ρ at 4096, k at 10 000: the dynamic-vs-fixed race) must equal
+     ``serve_fixed``.  One ``phase 7:`` line per knob: slot chunks and
+     chunk dispatches of each arm and their ratio, q/s of each arm and
+     threaded, p50/p99 ``total_ms``, retire reasons, dispatches, span ms
+     by stage, and q/s over ``serve_batch`` of the same 512.
+  8. (after phase 7) the online loop at paperish on ρ: a fresh server
+     with phase 2's cascade serves 768 ``shifted_queries`` ("long" band)
+     in chunks of 128 through a service with a ``TelemetryBuffer``, one
+     ``OnlineController.step()`` after each (shadow sample 128, a refit
+     every 256 labels, forests of phase 6's size), until it has
+     retrained and swapped.  The swapped server's ``serve_batch`` must
+     equal a fresh server booted with the trainer's last cascade and the
+     store's thresholds, bit for bit; the first shadow batch's MED table
+     must match the same rows labelled on a CPU server within 1e-5 /
+     1e-6, its envelope labels equal except in rows with a cell within
+     that tolerance of tau (counted and printed).  The ``phase 8:`` line gives the
+     labels, retrains, swaps, host refit seconds, the shadow's ms a
+     batch (host clock, fenced by its reads) with its launches, and the
+     in-envelope share of the labelled traffic before and after the
+     swap.  Then ``python -m repro_torch.launch.serve --online`` runs as
+     a subprocess at the verify sizes: exit 0 and its ``online:`` line.
+  6. (run between phases 8 and 5) the offline end of the main path on
      the card at paperish, over phase 2's system and MED_RBP tables:
      ``run_methods`` (forests fitted on the host, held-out folds
      predicted on the card, 3 folds, forests of 10 trees of depth 6) in
@@ -92,10 +130,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      the card whose classes equal the CPU's from the same parameters,
      and ``python -m repro_torch.examples.quickstart`` with ``--device
      cuda`` and ``--device cpu``, whose tables must be equal.
-  7. one JSON line with every kernel's launches (phases 2 and 3),
-     service launches (the inline and FIFO runs of phase 4), error and
-     times.
-  8. the last line: {"ok": true, "device": {...}}.
+  9. one JSON line with every kernel's launches (phases 2 and 3),
+     service launches (the inline and FIFO runs of phase 4), continuous
+     launches (phase 7's inline runs), online launches (phase 8's shadow
+     steps), error and times; impact_scan's and topk's ``continuous``
+     field holds phase 1's row at the continuous path's shape.
+  10. the last line: {"ok": true, "device": {...}}.
 
 With ``--profile DIR``, after phase 5 each knob's server and the funnel
 serve their steady batches again, once on the host clock and once under
@@ -386,6 +426,115 @@ def check_topk(dev, stage1_acc):
         bound_ms=b_ms, bound_by=b_by,
         select_ms=time_ms(lambda: ops.topk_select(stage1_acc, k)),
         shape=f"Q={q} N={n} kp={k} block_n=4096", bytes=n_bytes)
+
+
+#: the continuous scheduler's geometry at paperish: slots, refill and
+#: finalize grain (the pad multiple), chunk length (stream_cap / 8) and
+#: the segment-bound block (``SchedPrograms.bounds_p``)
+SLOTS, GRAIN, CHUNK_P = 32, 8, 512
+
+
+def check_impact_scan_chunk(dev) -> dict:
+    """impact_scan at one chunk dispatch of the slot table: (SLOTS,
+    CHUNK_P) windows over 50 000 docs, per-slot rho in [0, CHUNK_P], idle
+    slots at rho 0 with the empty bounds (n_docs, -1).  Bit-equal to its
+    plain version; ``chunk_ms`` times the whole chunk stage (window
+    gathers, the kernel and ``acc + inc``) as the scheduler runs it."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.impact_scan import kernel as K
+    from repro_torch.retrieval.index import block_doc_bounds
+    from repro_torch.serving import engine
+
+    q, p, n_docs = SLOTS, CHUNK_P, PAPERISH["n_docs"]
+    idle = (3, 11, 12, 29)
+    docs, imps = _streams(q, p, n_docs, seed=17, pad_rows=idle)
+    rho = np.random.default_rng(18).integers(0, p + 1, q).astype(np.int32)
+    rho[list(idle)] = 0
+    d, i = torch.from_numpy(docs).to(dev), torch.from_numpy(imps).to(dev)
+    r = torch.from_numpy(rho).to(dev)
+    lo, hi = block_doc_bounds(d, block_p=p, n_docs=n_docs)
+    if not (bool((lo[list(idle)] == n_docs).all())
+            and bool((hi[list(idle)] == -1).all())):
+        raise AssertionError("idle slots must carry the empty bounds")
+    args = (d, i, r, lo, hi)
+    kw = dict(n_docs=n_docs, block_p=p, block_d=2048)
+    got, want = K.impact_scan(*args, **kw), K.impact_scan_plain(*args, **kw)
+    if not torch.equal(got, want):
+        raise AssertionError("impact_scan differs from its plain version "
+                             "at the chunk window")
+    live = int(torch.minimum(r.long(), (d >= 0).sum(1)).sum())
+    flat = (torch.arange(q, device=dev)[:, None] * n_docs
+            + d.clamp(min=0).long()).reshape(-1)
+    pos = torch.arange(p, device=dev)[None, :]
+    contrib = torch.where((pos < r[:, None]) & (d >= 0), i,
+                          torch.zeros_like(i)).reshape(-1)
+    acc = torch.zeros(q * n_docs, device=dev)
+
+    def library():
+        acc.zero_()
+        acc.scatter_add_(0, flat, contrib)
+
+    # the chunk stage over a full table of 4096-wide streams
+    ds_b, im_b = (torch.from_numpy(a).to(dev) for a in _streams(
+        q, PAPERISH["stream_cap"], n_docs, seed=19, pad_rows=idle))
+    lo_b, hi_b = block_doc_bounds(ds_b, block_p=p, n_docs=n_docs)
+    acc_b = torch.zeros((q, n_docs), device=dev)
+    pos_b = torch.from_numpy((np.arange(q) % 8 * p).astype(np.int32)).to(dev)
+    end_b = pos_b + r
+
+    def chunk_stage():
+        return engine._sched_chunk(ds_b, im_b, lo_b, hi_b, acc_b, pos_b,
+                                   end_b, chunk_p=p, bounds_p=p,
+                                   n_docs=n_docs, block_d=2048)
+
+    n_bytes = live * 8 + q * 4 + 2 * q * 4 + q * n_docs * 4
+    b_ms, b_by = bound_ms(n_bytes, live)
+    return dict(
+        name="impact_scan", route="cuda",
+        shape=f"Q={q} P={p} n_docs={n_docs} block_p={p} block_d=2048, "
+              f"{len(idle)} idle slots",
+        max_abs_err=float((got - want).abs().max()),
+        **timings(lambda: K.impact_scan(*args, **kw),
+                  lambda: K.impact_scan_plain(*args, **kw), library),
+        bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
+        chunk_ms=time_ms(chunk_stage),
+        chunk_device_ms=time_ms(chunk_stage, hold=True))
+
+
+def check_topk_finalize(dev, stage1_acc) -> dict:
+    """topk at one ρ finalize group: (GRAIN, 50 000) stage-1 rows, kp =
+    the rerank depth.  Bit-equal to its plain version, and the merged
+    selection equal to the plain stable sort."""
+    import torch
+    from repro_torch.kernels.topk import kernel as K
+    from repro_torch.kernels.topk import ops
+
+    rows = stage1_acc[:GRAIN].contiguous()
+    k = RERANK_DEPTH
+    gv, gi = K.block_topk(rows, kp=k, block_n=4096)
+    wv, wi = K.block_topk_plain(rows, kp=k, block_n=4096)
+    if not (torch.equal(gv.view(torch.int32), wv.view(torch.int32))
+            and torch.equal(gi, wi)):
+        raise AssertionError("block_topk differs from its plain version at "
+                             "the finalize group")
+    sv, si = ops.topk_select(rows, k)
+    rv, ri = ops.topk_select(rows, k, use_kernel=False)
+    if not (torch.equal(sv, rv) and torch.equal(si, ri)):
+        raise AssertionError("topk_select differs from topk_ref at the "
+                             "finalize group")
+    fin = torch.isfinite(wv)
+    q, n = rows.shape
+    n_bytes = q * n * 4 + q * -(-n // 4096) * k * 8
+    b_ms, b_by = bound_ms(n_bytes, q * n)
+    return dict(
+        name="topk", route="cuda", shape=f"Q={q} N={n} kp={k} block_n=4096",
+        max_abs_err=float((gv[fin] - wv[fin]).abs().max()),
+        **timings(lambda: K.block_topk(rows, kp=k, block_n=4096),
+                  lambda: K.block_topk_plain(rows, kp=k, block_n=4096),
+                  lambda: torch.topk(rows, k, dim=1)),
+        bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
+        select_ms=time_ms(lambda: ops.topk_select(rows, k)))
 
 
 def _bst_qkv(b, bst_cfg, randn):
@@ -1359,6 +1508,299 @@ def serve_cli() -> None:
         f"trace valid, counters {json.dumps(counters)}")
 
 
+# ------------------------------------------------------------- phase 7 --
+
+def _span_ms(obs, names) -> dict:
+    """Summed ms of the trace's spans, by name, for ``names``."""
+    out = {}
+    for h in obs.trace.spans():
+        if h.name in names:
+            out[h.name] = out.get(h.name, 0.0) + h.dur_ms
+    return out
+
+
+def _continuous_run(server, qt, mode, fixed_param=None):
+    """Serve the rows of ``qt`` through a fresh continuous service (slots
+    SLOTS, grain GRAIN, chunk CHUNK_P): warmed, the kernel launch counters
+    zeroed after the warmup, then ``inline`` (``serve_all``) or ``fifo``
+    (every request queued, then the tick thread started).  Returns
+    (results, scheduler stats, wall s, launches, obs)."""
+    import torch
+    from repro_torch.kernels.impact_scan import kernel as is_kernel
+    from repro_torch.kernels.topk import kernel as tk_kernel
+    from repro_torch.obs import Observability
+    from repro_torch.serving.admission import AdmissionConfig
+    from repro_torch.serving.service import (ContinuousBackend,
+                                             RetrievalService, WarmupPolicy)
+    obs = Observability.create()
+    backend = ContinuousBackend(server, query_len=qt.shape[1], slots=SLOTS,
+                                grain=GRAIN, chunk_p=CHUNK_P,
+                                fixed_param=fixed_param)
+    svc = RetrievalService(
+        backend, AdmissionConfig(max_batch=BATCH, pad_multiple=GRAIN),
+        WarmupPolicy(census_path=None), obs=obs)
+    if svc.warmup_now([BATCH]) != 1:
+        raise AssertionError("continuous warmup did not run")
+    torch.cuda.synchronize()
+    is_kernel.n_launches = tk_kernel.n_launches = 0
+    t0 = time.perf_counter()
+    if mode == "fifo":
+        futs = svc.submit_many(list(qt), deadline_ms=1e6)
+        svc.start()
+        results = [f.result(timeout=600) for f in futs]
+    else:
+        results = svc.serve_all(list(qt), deadline_ms=1e6)
+    wall = time.perf_counter() - t0
+    launches = dict(impact_scan=is_kernel.n_launches,
+                    topk=tk_kernel.n_launches)
+    svc.stop()
+    if svc.warmup.failed:
+        raise AssertionError(f"warmup failed: {svc.warmup.failed}")
+    counts = obs.trace.counts()
+    if counts["n_open"] or counts["n_begun"] != counts["n_ended"]:
+        raise AssertionError(f"continuous {mode}: unbalanced trace {counts}")
+    return results, backend.scheduler.stats(), wall, launches, obs
+
+
+def _arm_summary(results, stats, wall, obs) -> dict:
+    import numpy as np
+    tot = [r["total_ms"] for r in results]
+    return dict(
+        qps=len(results) / wall,
+        total_ms_p50_p99=[float(np.percentile(tot, 50)),
+                          float(np.percentile(tot, 99))],
+        slot_chunks=int(sum(r["chunks_executed"] for r in results)),
+        chunk_dispatches=stats["n_chunk_calls"],
+        refills=stats["n_refill_calls"],
+        finalizes=stats["n_finalize_calls"],
+        retire_reasons=stats["retire_reasons"],
+        dispatches=obs.metrics.counters().get("engine.dispatches", 0),
+        span_ms=_span_ms(obs, ("predict", "sched.sgather", "sched.refill",
+                               "sched.chunk", "sched.finalize",
+                               "tick.refill", "tick.chunk",
+                               "tick.finalize")))
+
+
+def continuous_path(servers, batches) -> dict:
+    """Phase 7: the continuous scheduler on the card over phase 2's
+    servers and 512 requests, per knob.  The inline run's lists must
+    equal one ``engine.serve`` of the 512 rows bit for bit (arrival index
+    = batch position), its classes ``predict_classes``'; impact_scan
+    launches must equal the chunk dispatches and topk launches the ρ
+    finalizes (k's pool of max(cutoffs) > KP_MAX takes the plain sort:
+    0).  The FIFO-threaded run must give the same lists; the fixed arm
+    (ρ at the stream cap, k at the largest cutoff) must equal
+    ``serve_fixed`` of the 512 rows.  Returns the inline runs' launches."""
+    import numpy as np
+    qt = np.concatenate(batches)
+    launches = {"impact_scan": 0, "topk": 0}
+    for knob in ("rho", "k"):
+        server = servers[knob][0]
+        direct = _direct(server.serve_batch, [(b,) for b in batches])
+        classes = server.predict_classes(qt)
+        ref, _ = server.engine.serve(qt, server.params_of(classes))
+        res, st, wall, got, obs = _continuous_run(server, qt, "inline")
+        ranked = np.stack([r["ranked"] for r in res])
+        if not np.array_equal(ranked, ref):
+            raise AssertionError(f"continuous {knob}: ranked differs from "
+                                 "one engine.serve of the stream")
+        if not np.array_equal([r["class"] for r in res], classes):
+            raise AssertionError(f"continuous {knob}: classes differ")
+        want_tk = st["n_finalize_calls"] if knob == "rho" else 0
+        if got != dict(impact_scan=st["n_chunk_calls"], topk=want_tk):
+            raise AssertionError(f"continuous {knob}: launches {got}, "
+                                 f"chunks {st['n_chunk_calls']}, "
+                                 f"finalizes {st['n_finalize_calls']}")
+        for k_ in launches:
+            launches[k_] += got[k_]
+        dyn = _arm_summary(res, st, wall, obs)
+        fres, fst, fwall, _, fobs = _continuous_run(server, qt, "fifo")
+        if not np.array_equal(np.stack([r["ranked"] for r in fres]), ranked):
+            raise AssertionError(f"continuous {knob}: threaded differs "
+                                 "from inline")
+        fixed = (server.cfg.stream_cap if knob == "rho"
+                 else int(max(server.cfg.cutoffs)))
+        xres, xst, xwall, _, xobs = _continuous_run(server, qt, "inline",
+                                                    fixed_param=fixed)
+        if not np.array_equal(np.stack([r["ranked"] for r in xres]),
+                              server.serve_fixed(qt, fixed)["ranked"]):
+            raise AssertionError(f"continuous {knob}: the fixed arm differs "
+                                 "from serve_fixed")
+        fix = _arm_summary(xres, xst, xwall, xobs)
+        line = dict(
+            requests=len(qt), slots=SLOTS, grain=GRAIN, chunk_p=CHUNK_P,
+            chunks_max=st["chunks_max"], dynamic=dyn, fixed_arm=fix,
+            fixed_param=fixed, launches=got,
+            threaded_qps=len(fres) / fwall,
+            slot_chunks_dynamic_over_fixed=(dyn["slot_chunks"]
+                                            / fix["slot_chunks"]),
+            chunk_dispatches_dynamic_over_fixed=(dyn["chunk_dispatches"]
+                                                 / fix["chunk_dispatches"]),
+            qps_dynamic_over_fixed=dyn["qps"] / fix["qps"],
+            batch_once_qps=direct["qps"],
+            qps_over_batch_once=dyn["qps"] / direct["qps"])
+        log(f"phase 7: continuous {knob}: " + json.dumps(line))
+    return launches
+
+
+# ------------------------------------------------------------- phase 8 --
+
+#: the online loop's stream: shifted ("long" band) queries served in
+#: chunks of BATCH, one controller step after each
+ONLINE_CHUNKS = 6
+ONLINE_RETRAIN_EVERY = 2 * BATCH
+#: MED on the card against the CPU (float32 sums in another order), as
+#: tests/test_torch_core.py holds MED
+MED_RTOL, MED_ATOL = 1e-5, 1e-6
+
+
+def online_path(sys_, servers) -> dict:
+    """Phase 8: the online loop at paperish on ρ.  A fresh server with
+    phase 2's cascade serves ``shifted_queries`` through a service with a
+    telemetry ring, ``OnlineController.step()`` after each chunk, until
+    it has retrained and swapped.  After the swap the server's
+    ``serve_batch`` must equal a fresh server booted with the trainer's
+    last cascade and the store's thresholds, bit for bit; the first
+    shadow batch's MED table must match the same rows labelled on a CPU
+    server within MED_RTOL/MED_ATOL, its envelope labels equal except in
+    rows with a cell within that tolerance of TAU (float32 sums in
+    another order may put such a cell on either side; counted and
+    printed).  Returns the shadow steps' launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core import labeling
+    from repro_torch.kernels.impact_scan import kernel as is_kernel
+    from repro_torch.kernels.topk import kernel as tk_kernel
+    from repro_torch.obs import Observability
+    from repro_torch.online import (OnlineConfig, OnlineController,
+                                    TelemetryBuffer, TrainerConfig,
+                                    serving_med_table, shifted_queries)
+    from repro_torch.serving import pipeline
+    from repro_torch.serving.admission import AdmissionConfig
+    from repro_torch.serving.service import (EngineBackend, RetrievalService,
+                                             WarmupPolicy)
+
+    _, casc, scfg = servers["rho"]
+    server = pipeline.RetrievalServer(sys_.index, casc, scfg, device="cuda")
+    ql = sys_.queries.terms.shape[1]
+    obs = Observability.create()
+    svc = RetrievalService(
+        EngineBackend(server, query_len=ql),
+        AdmissionConfig(max_batch=BATCH, pad_multiple=GRAIN),
+        WarmupPolicy(census_path=None), telemetry=TelemetryBuffer(),
+        obs=obs)
+    svc.warmup_now([BATCH])
+    ctl = OnlineController(svc, server, OnlineConfig(
+        tau=TAU, shadow_sample=BATCH, trainer=TrainerConfig(
+            min_labels=ONLINE_RETRAIN_EVERY,
+            retrain_every=ONLINE_RETRAIN_EVERY,
+            forest_kwargs=OFFLINE_FOREST)))
+    qt = shifted_queries(sys_.corpus, ONLINE_CHUNKS * BATCH, band="long",
+                         max_len=ql).terms
+    launches = {"impact_scan": 0, "topk": 0}
+    steps = []
+    for c in range(ONLINE_CHUNKS):
+        svc.serve_all(list(qt[c * BATCH:(c + 1) * BATCH]), deadline_ms=1e6)
+        torch.cuda.synchronize()
+        is_kernel.n_launches = tk_kernel.n_launches = 0
+        t0 = time.perf_counter()
+        st = ctl.step()
+        steps.append(dict(step_s=time.perf_counter() - t0,
+                          impact_scan=is_kernel.n_launches,
+                          topk=tk_kernel.n_launches,
+                          version=st["predictor_version"]))
+        launches["impact_scan"] += is_kernel.n_launches
+        launches["topk"] += tk_kernel.n_launches
+    st = ctl.stats()
+    if st["n_retrains"] < 1 or st["n_swaps"] < 1 or st["last_error"]:
+        raise AssertionError(f"online loop did not swap: {st}")
+    spans = {}
+    for h in obs.trace.spans():
+        if h.name.startswith("online."):
+            spans.setdefault(h.name, []).append(h.dur_ms)
+
+    # the swapped server against a fresh one booted with that cascade
+    v = ctl.store.current()
+    fresh = pipeline.RetrievalServer(sys_.index, ctl.trainer._prev, scfg,
+                                     device="cuda")
+    fresh.swap_predictor(fresh._live["rho"][0], v.thresholds)
+    for name, rows in (("served", sys_.queries.terms[-BATCH:]),
+                       ("shifted", qt[-BATCH:])):
+        a, b = server.serve_batch(rows), fresh.serve_batch(rows)
+        if not (np.array_equal(a["ranked"], b["ranked"])
+                and np.array_equal(a["classes"], b["classes"])):
+            raise AssertionError(f"online: the swapped server differs from "
+                                 f"a fresh boot ({name} rows)")
+
+    # the first shadow batch (telemetry seq 0..BATCH-1) against the CPU
+    first = ctl.trainer._batches[0]
+    cpu = pipeline.RetrievalServer(sys_.index.to("cpu"), casc.to("cpu"),
+                                   scfg, device="cpu")
+    cpu_med = serving_med_table(cpu, qt[:BATCH], batch=BATCH)
+    med_err = float(np.abs(first.med - cpu_med).max())
+    if not np.allclose(first.med, cpu_med, rtol=MED_RTOL, atol=MED_ATOL):
+        raise AssertionError(f"online: shadow MED on the card differs from "
+                             f"the CPU's by {med_err}")
+    # a label is the first cell <= TAU; the cells are known to the MED
+    # tolerance, so a label may differ only in a row with a cell within
+    # that tolerance of TAU on one of the two devices
+    diff = np.flatnonzero((labeling.envelope_labels(first.med, TAU)
+                           != labeling.envelope_labels(cpu_med, TAU)).numpy())
+    tol = MED_ATOL + MED_RTOL * TAU
+    near = ((np.abs(first.med - TAU) <= tol)
+            | (np.abs(cpu_med - TAU) <= tol)).any(axis=1)
+    if not near[diff].all():
+        raise AssertionError(f"online: shadow labels differ in rows "
+                             f"{diff[~near[diff]].tolist()} with no cell "
+                             f"within {tol} of tau")
+    at_tau = [dict(row=int(q), card=first.med[q].tolist(),
+                   cpu=cpu_med[q].tolist()) for q in diff]
+
+    obs_med = np.concatenate([b.observed_med for b in ctl.trainer._batches])
+    ver = np.concatenate([b.predictor_version for b in ctl.trainer._batches])
+    line = dict(
+        requests=int(qt.shape[0]), labels=st["n_labels"],
+        retrains=st["n_retrains"], swaps=st["n_swaps"],
+        version=st["predictor_version"], tau_effective=st["tau_effective"],
+        med_ema=st["med_ema"], fallback=st["fallback"],
+        refit_host_s=[ms / 1e3 for ms in spans.get("online.refit", [])],
+        shadow_ms_per_batch=spans.get("online.shadow", []),
+        swap_ms=spans.get("online.swap", []), steps=steps,
+        shadow_launches_per_batch=[(s["impact_scan"], s["topk"])
+                                   for s in steps],
+        in_envelope_before_swap=float((obs_med[ver == 0] <= TAU).mean()),
+        in_envelope_after_swap=(float((obs_med[ver > 0] <= TAU).mean())
+                                if (ver > 0).any() else None),
+        labels_after_swap=int((ver > 0).sum()),
+        shadow_vs_cpu=dict(max_abs_med_err=med_err,
+                           labels_differing=len(diff),
+                           rows_with_a_cell_near_tau=int(near.sum()),
+                           differing_rows=at_tau),
+        published_thresholds=v.thresholds.cpu().tolist())
+    log("phase 8: online rho: " + json.dumps(line))
+    return launches
+
+
+def serve_cli_online() -> None:
+    """``python -m repro_torch.launch.serve --online`` as a user runs it,
+    at the verify sizes: exit 0 and one ``online:`` line."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--knob", "rho",
+           "--batch", "30", "--batches", "3", "--n-docs", "2000",
+           "--n-queries", "256", "--census", "", "--online"]
+    log("phase 8: " + " ".join(cmd[1:]))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=HERE, check=True, timeout=600,
+                         capture_output=True, text=True,
+                         env=dict(os.environ,
+                                  PYTHONPATH=os.path.join(HERE, "src"))
+                         ).stdout
+    line = [ln for ln in out.splitlines() if ln.startswith("online:")]
+    if len(line) != 1 or "last_error" in line[0]:
+        raise AssertionError(f"serve --online printed {line}")
+    log(f"phase 8: serve CLI --online exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s: {line[0]}")
+
+
 # ------------------------------------------------------------- phase 6 --
 
 #: forests of the offline phase: the phase-2 cascades' size; 3 folds as
@@ -1644,6 +2086,8 @@ def main() -> int:
     t0 = time.perf_counter()
     is_row, stage1_acc = check_impact_scan(dev)
     tk_row = check_topk(dev, stage1_acc)
+    is_row["continuous"] = check_impact_scan_chunk(dev)
+    tk_row["continuous"] = check_topk_finalize(dev, stage1_acc)
     del stage1_acc
     fcfg = configs.funnel_config()
     fa_row = check_flash_attention(dev, fcfg.bst, fcfg.pool_depth)
@@ -1655,7 +2099,14 @@ def main() -> int:
         row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
         row["ptxas"] = (ptxas_summary(reports[row["name"]])
                         if row["name"] in reports else "not built here")
+        cont = row.pop("continuous", None)
         log("phase 1: " + json.dumps(row))
+        if cont is not None:
+            cont["ms_over_library_ms"] = cont["ms"] / cont["library_ms"]
+            cont["bound_share"] = cont["bound_ms"] / cont["ms"]
+            cont["device_bound_share"] = cont["bound_ms"] / cont["device_ms"]
+            log("phase 1: continuous path's shape: " + json.dumps(cont))
+            row["continuous"] = cont
     log(f"phase 1: kernels hold against their plain versions "
         f"({time.perf_counter() - t0:.1f} s)")
     torch.cuda.empty_cache()
@@ -1672,6 +2123,13 @@ def main() -> int:
     serve_cli()
     log(f"phase 4: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    cont_launches = continuous_path(servers, batches)
+    log(f"phase 7: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    online_launches = online_path(sys_, servers)
+    serve_cli_online()
+    log(f"phase 8: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     offline_path(sys_, meds)
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
     log("phase 5: flash_attention's path call, CUDA activities per call: "
@@ -1684,6 +2142,17 @@ def main() -> int:
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["service_launches"] = service_launches[row["name"]]
+        row["continuous_launches"] = cont_launches.get(row["name"], 0)
+        row["online_launches"] = online_launches.get(row["name"], 0)
+        cont = row.get("continuous")
+        if cont is not None:
+            # the kernel at the continuous path's shape, with the launches
+            # of phase 7's inline runs (both knobs)
+            row["continuous"] = dict(
+                {k: cont[k] for k in ("shape", "max_abs_err", "ms",
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")},
+                launches=cont_launches[row["name"]])
         for extra in ("shape", "bytes", "select_ms", "max_abs_err_bf16",
                       "bit_equal", "ptxas", "device_ms", "library_device_ms",
                       "device_bound_share", "host_ms", "library_host_ms",

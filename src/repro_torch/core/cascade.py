@@ -12,9 +12,8 @@ the maximal class c.
 
 Nodes are forests (fitted on the host, evaluated on the tables' device)
 or MLPs (trained on the device).  ``tune_thresholds`` picks per-node
-thresholds on a validation fold.  The JAX package's warm-started forest
-refits (``warm``, ``warm_frac``) belong to the online loop and are not
-ported yet.
+thresholds on a validation fold.  ``train_cascade(warm=, warm_frac=)``
+warm-starts the online loop's forest refits.
 """
 
 from __future__ import annotations
@@ -108,20 +107,34 @@ def train_cascade(x: np.ndarray, labels: np.ndarray, *, n_cutoffs: int,
                   kind: str = "forest", seed: int = 0,
                   forest_kwargs: dict | None = None,
                   mlp_kwargs: dict | None = None,
+                  warm: Cascade | None = None, warm_frac: float = 0.0,
                   device=None) -> Cascade:
     """Train one binary node per cutoff boundary (Algorithm 1 data).
     Forests are fitted on the host and their tables go to ``device``;
-    MLPs train on ``device``."""
+    MLPs train on ``device``.
+
+    ``warm``/``warm_frac`` warm-start forest refits: node i carries
+    ``warm_frac`` of its trees verbatim from ``warm.nodes[i]`` (see
+    ``forest.train_forest``).  Ignored for mlp nodes."""
     if kind not in ("forest", "mlp"):
         raise ValueError(f"unknown node kind {kind!r}")
     dev = resolve_device(device)
     binary = labeling.multiclass_to_binary(labels, n_cutoffs)
+    if warm is not None and warm_frac > 0.0 and kind == "forest":
+        if warm.kind != "forest" or warm.n_cutoffs != n_cutoffs:
+            raise ValueError(
+                f"warm cascade ({warm.kind}, {warm.n_cutoffs} cutoffs) "
+                f"cannot warm-start a forest cascade with {n_cutoffs}")
+    else:
+        warm = None
     nodes, params = [], []
     depth = 0
     for i in range(n_cutoffs):
         if kind == "forest":
             kw = dict(n_trees=25, max_depth=8, seed=seed + i)
             kw.update(forest_kwargs or {})
+            if warm is not None:
+                kw.update(warm=warm.nodes[i], warm_frac=warm_frac)
             node = forest_lib.train_forest(x, binary[i], n_classes=2, **kw)
             depth = node.max_depth
         else:

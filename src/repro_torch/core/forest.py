@@ -109,14 +109,27 @@ def _fit_tree(xb: np.ndarray, y: np.ndarray, edges: np.ndarray,
 def train_forest(x: np.ndarray, y: np.ndarray, *, n_classes: int,
                  n_trees: int = 30, max_depth: int = 8, bins: int = 32,
                  feat_frac: float = 0.3, min_leaf: int = 8,
-                 seed: int = 0) -> Forest:
+                 seed: int = 0, warm: Forest | None = None,
+                 warm_frac: float = 0.0) -> Forest:
     """Bootstrap-aggregated trees over quantile-binned features.
 
-    The JAX package's warm-started refits (``warm``/``warm_frac``) belong
-    to the online loop and are not ported yet."""
+    ``warm``/``warm_frac`` warm-start a refit: the first
+    ``round(warm_frac * n_trees)`` trees are carried verbatim from
+    ``warm`` and only the remainder is grown on the new data.  The
+    carried forest must share ``max_depth`` and ``n_classes``, so the
+    combined tables stay pad-compatible with the hot-swap template."""
     x = np.asarray(x, np.float32)
     y = np.asarray(y, np.int64)
     n, F = x.shape
+    n_carry = 0
+    if warm is not None and warm_frac > 0.0:
+        if warm.max_depth != max_depth or warm.n_classes != n_classes:
+            raise ValueError(
+                f"warm forest (depth {warm.max_depth}, "
+                f"{warm.n_classes} classes) is not swap-compatible with "
+                f"depth {max_depth} / {n_classes} classes")
+        n_carry = min(n_trees, warm.feature.shape[0],
+                      int(round(warm_frac * n_trees)))
     qs = np.linspace(0, 1, bins + 1)[1:-1]
     edges = np.quantile(x, qs, axis=0).T.astype(np.float32)   # (F, bins-1)
     # de-duplicate degenerate edges to keep searchsorted monotone
@@ -126,11 +139,13 @@ def train_forest(x: np.ndarray, y: np.ndarray, *, n_classes: int,
 
     rng = np.random.default_rng(seed)
     all_nodes = []
-    for _ in range(n_trees):
+    for _ in range(n_trees - n_carry):
         boot = rng.integers(0, n, size=n)
         all_nodes.append(_fit_tree(xb[boot], y[boot], edges, n_classes, rng,
                                    max_depth, feat_frac, min_leaf))
     n_max = max((len(t) for t in all_nodes), default=1)
+    if n_carry:
+        n_max = max(n_max, warm.feature.shape[1])
     T = n_trees
     feature = np.full((T, n_max), -1, np.int32)
     thresh = np.zeros((T, n_max), np.float32)
@@ -138,7 +153,13 @@ def train_forest(x: np.ndarray, y: np.ndarray, *, n_classes: int,
     right = np.zeros((T, n_max), np.int32)
     leaf = np.zeros((T, n_max, n_classes), np.float32)
     leaf[:, :, 0] = 1.0
-    for t, tree in enumerate(all_nodes):
+    if n_carry:
+        w = warm.feature.shape[1]
+        for name, table in (("feature", feature), ("thresh", thresh),
+                            ("left", left), ("right", right),
+                            ("leaf", leaf)):
+            table[:n_carry, :w] = getattr(warm, name)[:n_carry]
+    for t, tree in enumerate(all_nodes, start=n_carry):
         for i, nd in enumerate(tree):
             feature[t, i] = nd["feature"]
             thresh[t, i] = nd["thresh"]

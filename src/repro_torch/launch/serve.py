@@ -17,9 +17,13 @@ The warmup policy persists its padded-shape census to ``--census`` on
 ``stop()`` and reloads it at construction.  The default lies under the
 git-ignored ``build/``, apart from the JAX driver's census.
 
+With ``--online`` the service taps every resolved request into a
+telemetry ring and an ``OnlineController`` runs the shadow-label /
+retrain / hot-swap loop on idle capacity beside the traffic, then
+drains the ring inline and prints an ``online:`` summary line.
+
 Not ported yet: the sharded engine (``--shards``, ``--data-shards``,
-``--force-host-devices``) and the online loop (``--online``,
-``--shadow-sample``, ``--retrain-every``).
+``--force-host-devices``).
 """
 
 from __future__ import annotations
@@ -44,6 +48,15 @@ def main(argv=None) -> None:
     ap.add_argument("--census", default="build/repro_torch/warmup_census.json",
                     help="padded-shape census path ('' disables "
                          "persistence)")
+    ap.add_argument("--online", action="store_true",
+                    help="run the shadow-label/retrain/hot-swap loop on "
+                         "idle capacity")
+    ap.add_argument("--shadow-sample", type=int, default=None,
+                    help="logged queries labeled per shadow cycle "
+                         "(default: --batch, so the shadow re-runs pad "
+                         "to the already-warmed shape)")
+    ap.add_argument("--retrain-every", type=int, default=64,
+                    help="new shadow labels between cascade refits")
     ap.add_argument("--trace-out", default="",
                     help="write a Chrome-trace/Perfetto JSON of the run "
                          "here (atomic tmp+rename; '' disables)")
@@ -58,6 +71,8 @@ def main(argv=None) -> None:
     from repro_torch.device import resolve_device
     from repro_torch.obs import NULL_OBS, Observability
     from repro_torch.obs import export as obs_export
+    from repro_torch.online import (OnlineConfig, OnlineController,
+                                    TelemetryBuffer, TrainerConfig)
     from repro_torch.serving import pipeline as sp
     from repro_torch.serving.admission import AdmissionConfig
     from repro_torch.serving.service import (EngineBackend, RetrievalService,
@@ -89,9 +104,21 @@ def main(argv=None) -> None:
                         pad_multiple=backend.pad_multiple,
                         default_deadline_ms=args.deadline_ms),
         warmup=WarmupPolicy(census_path=args.census or None),
+        telemetry=TelemetryBuffer() if args.online else None,
         obs=obs)
     service.warmup_now([args.batch])       # deploy-time shape; the
     # warmup policy keeps warming whatever shapes admission produces
+
+    controller = None
+    if args.online:
+        controller = OnlineController(service, server, OnlineConfig(
+            tau=args.tau,
+            shadow_sample=args.shadow_sample or args.batch,
+            trainer=TrainerConfig(
+                retrain_every=args.retrain_every,
+                min_labels=args.retrain_every,
+                forest_kwargs=dict(n_trees=10, max_depth=6))))
+        controller.start()
 
     qn = sys_.queries.n_queries
     with service:
@@ -114,6 +141,26 @@ def main(argv=None) -> None:
                   f"{np.mean([r['width'] for r in results]):>10.0f}"
                   f"{pct:>11.1%}"
                   f"{np.percentile([r['queue_ms'] for r in results], 50):>10.1f}")
+        if controller is not None:
+            # stop the adaptation thread while the service (and its
+            # engine) is still up, then drain the telemetry ring inline:
+            # under saturation the idle-gated loop may never have found
+            # a window
+            controller.stop()
+            for _ in range(8):
+                before = controller.trainer.n_labels
+                controller.step()
+                if controller.trainer.n_labels == before:
+                    break
+    if controller is not None:
+        st = controller.stats()
+        print(f"online: labels={st['n_labels']} "
+              f"retrains={st['n_retrains']} swaps={st['n_swaps']} "
+              f"version={st['predictor_version']} "
+              f"tau_eff={st['tau_effective']:.3f} "
+              f"med_ema={st['med_ema']:.4f} fallback={st['fallback']}"
+              + (f" last_error={st['last_error']}"
+                 if st["last_error"] else ""))
     print(service.stats().summary())
     print("warmed shapes:", sorted(service.warmup.compiled),
           "| shape census:", dict(service.queue.shape_counts),

@@ -11,8 +11,11 @@
   pad grid and returns per-request futures.
 * **Backends**: anything implementing the small ``Backend`` protocol --
   ``EngineBackend`` (cascade + batch-once engine) and ``FunnelBackend``
-  (two-tower + BST funnel).  The port has no continuous mode yet (the
-  JAX package's ``ContinuousBackend``) and no ``ShardedEngineBackend``.
+  (two-tower + BST funnel).  ``ContinuousBackend`` opts out of batch
+  formation: the slot-table scheduler (``serving/sched``) admits
+  requests into in-flight work at stage boundaries and retires each one
+  at its own predicted budget, all on one tick thread on the device's
+  default stream.  The port has no ``ShardedEngineBackend``.
 * **Overlap**: the backend splits into ``predict`` (the admission-side
   cascade) and ``execute`` (the staged engine dispatch); the service runs
   them on separate threads connected by a bounded handoff queue, so the
@@ -61,8 +64,8 @@ from repro_torch.serving.admission import (AdmissionConfig, AdmissionQueue,
                                            Batch)
 from repro_torch.serving.server import ServerStats
 
-__all__ = ["Backend", "EngineBackend", "FunnelBackend", "WarmupPolicy",
-           "RetrievalService"]
+__all__ = ["Backend", "EngineBackend", "ContinuousBackend", "FunnelBackend",
+           "WarmupPolicy", "RetrievalService"]
 
 # predicted batches the admission thread may run ahead of execution
 _HANDOFF_DEPTH = 2
@@ -182,6 +185,79 @@ class EngineBackend:
                        knob: str | None = None) -> int:
         """Hot-swap a knob's cascade tables in the server's predict path
         (see ``pipeline.RetrievalServer.swap_predictor``)."""
+        return self.server.swap_predictor(node_params, thresholds,
+                                          version=version, knob=knob)
+
+
+class ContinuousBackend:
+    """Continuous-batching backend: the slot-table scheduler
+    (``serving/sched``) replaces batch-once formation.
+
+    It deviates from the ``Backend`` protocol on purpose: the service
+    detects a ``ContinuousBackend`` and routes admission straight to the
+    scheduler's slot refill (``collate``/``predict``/``execute`` never
+    run).  Warmup, stats, telemetry and the hot-swap hook keep
+    ``EngineBackend``'s surface.
+
+    Constructor knobs (forwarded to ``ContinuousScheduler``): ``slots``
+    (table capacity), ``grain`` (refill/finalize group width, default
+    the engine's pad multiple), ``chunk_p`` (stage-1 chunk length,
+    default the largest divisor of ``stream_cap`` <= cap/8), ``window``
+    (candidate pool for class co-grouping), ``co_group``, and
+    ``fixed_param`` (serve everything at one budget: the
+    dynamic-vs-fixed race's baseline arm).
+    """
+
+    def __init__(self, server, query_len: int | None = None, *,
+                 slots: int = 32, grain: int | None = None,
+                 chunk_p: int | None = None, window: int | None = None,
+                 co_group: bool = True, fixed_param: int | None = None):
+        eng = server.engine
+        if not eng.supports_continuous:
+            raise TypeError("ContinuousBackend: "
+                            + eng.continuous_unsupported_reason)
+        self.server = server
+        self.pad_multiple = eng.batch_multiple
+        self.n_classes = len(server.cfg.cutoffs) + 1
+        self.device = server.device
+        self.query_len = query_len
+        self._sched_kw = dict(slots=slots, grain=grain, chunk_p=chunk_p,
+                              window=window, co_group=co_group,
+                              fixed_param=fixed_param)
+        self.scheduler = None          # bound by RetrievalService
+
+    def bind_obs(self, obs) -> None:
+        self.server.engine.bind_obs(obs)
+        if self.scheduler is not None:
+            self.scheduler.bind_obs(obs)
+
+    def make_scheduler(self, queue, on_results):
+        from repro_torch.serving.sched import ContinuousScheduler
+        self.scheduler = ContinuousScheduler(
+            self.server, queue, query_len=self.query_len,
+            on_results=on_results, **self._sched_kw)
+        return self.scheduler
+
+    def warmup_shape(self, padded_size: int) -> int | None:
+        # the scheduler's shapes are fixed by (slots, grain, chunk_p),
+        # not the admission census: any observed size warms the same
+        # four stages and the cascade's padded candidate windows
+        del padded_size
+        if self.scheduler is None:
+            return None
+        return self.scheduler.warmup()
+
+    @property
+    def n_compiles(self) -> int | None:
+        return self.server.engine.n_compiles
+
+    @property
+    def predictor_version(self) -> int:
+        return self.server.predictor_version
+
+    def swap_predictor(self, node_params, thresholds=None, *,
+                       version: int | None = None,
+                       knob: str | None = None) -> int:
         return self.server.swap_predictor(node_params, thresholds,
                                           version=version, knob=knob)
 
@@ -467,6 +543,13 @@ class RetrievalService:
         self._n_deadline_missed = 0
         self._n_cancelled = 0
         self._threads: list[threading.Thread] = []
+        # continuous mode: a ContinuousBackend swaps batch formation for
+        # the slot-table scheduler; admission still runs through
+        # self.queue (deadline heap), but the scheduler pops it directly
+        self._sched = None
+        if isinstance(backend, ContinuousBackend):
+            self._sched = backend.make_scheduler(self.queue,
+                                                 self._note_results)
         # predict's stream, made once: its creation and its allocator
         # blocks are paid here and outlive a stop()/start(); None off CUDA
         dev = backend.device
@@ -503,8 +586,12 @@ class RetrievalService:
         return [self.submit(p, deadline_ms) for p in payloads]
 
     def flush(self) -> None:
-        """Force the pending set into batches immediately."""
-        self.queue.flush()
+        """Force the pending set into batches immediately.  In continuous
+        mode this only wakes the scheduler: forming batches would strand
+        requests in the queue's ready deque, which the scheduler's slot
+        refill never reads."""
+        if self._sched is None:
+            self.queue.flush()
         with self._wake:
             self._gen += 1
             self._wake.notify_all()
@@ -520,8 +607,14 @@ class RetrievalService:
 
     # ------------------------------------------------------------ inline --
     def step(self, now: float | None = None) -> int:
-        """Run one admission+dispatch cycle inline.  Returns the number
-        of requests served (0 when no batch was ready)."""
+        """Run one admission+dispatch cycle inline.  Batch-once mode:
+        returns the number of requests served (0 when no batch was
+        ready).  Continuous mode: runs one scheduler tick and returns its
+        work units -- dispatches plus resolutions, so 0 still means
+        'nothing to do' but a positive count may resolve no futures
+        yet."""
+        if self._sched is not None:
+            return self._sched.tick(now)
         b = self.queue.poll(now)
         if b is None:
             return 0
@@ -537,8 +630,18 @@ class RetrievalService:
         futs = self.submit_many(payloads, deadline_ms)
         self.flush()
         if not self._threads:
-            while self.step():
-                pass
+            if self._sched is not None:
+                # a tick can do work without resolving anything, so loop
+                # on outstanding; an idle tick with work pending is a
+                # fault to raise, not to spin on
+                while self.outstanding:
+                    if not self.step():
+                        raise RuntimeError(
+                            "continuous scheduler went idle with "
+                            f"{self.outstanding} requests outstanding")
+            else:
+                while self.step():
+                    pass
         return [f.result(timeout) for f in futs]
 
     # --------------------------------------------------------- execution --
@@ -621,7 +724,61 @@ class RetrievalService:
                 pass                   # typed) recorder must never kill
                 #                        the exec thread
 
+    def _note_results(self, requests, results, t_done, *,
+                      service_ms: float) -> None:
+        """Continuous-mode accounting: the scheduler resolves futures
+        itself and reports each finalized group here -- records,
+        deadline counters and the telemetry tap mirror ``_run_batch``."""
+        rec = _BatchRecord(
+            n=len(requests),
+            predict_ms=float(np.mean([res["predict_ms"]
+                                      for res in results])),
+            service_ms=service_ms,
+            queue_ms=[res["queue_ms"] for res in results],
+            total_ms=[res["total_ms"] for res in results],
+            timings={},
+            classes=[res.get("class") for res in results],
+            widths=[res.get("width") for res in results])
+        met = sum(1 for res in results if res["deadline_met"])
+        with self._lock:
+            self._records.append(rec)
+            self._n_deadline_met += met
+            self._n_deadline_missed += len(results) - met
+        self._m_batches.inc()
+        self._m_met.inc(met)
+        self._m_missed.inc(len(results) - met)
+        if self.telemetry is not None:
+            ver = getattr(self.backend, "predictor_version", 0)
+            try:
+                for req, res in zip(requests, results):
+                    self.telemetry.record(req.payload, res,
+                                          res.get("predictor_version",
+                                                  ver),
+                                          t_done)
+            except Exception:          # noqa: BLE001 -- as in _run_batch:
+                pass                   # a faulty recorder must never kill
+                #                        the tick thread
+
     # ----------------------------------------------------------- threads --
+    def _sched_loop(self) -> None:
+        """Continuous-mode worker: tick until stopped, sleeping only when
+        a tick reports no work (lost-wakeup guarded like _admit_loop).  A
+        tick that raises fails the in-flight slots and keeps serving:
+        one poisoned group must not wedge every later request."""
+        while not self._stop.is_set():
+            with self._wake:
+                gen0 = self._gen
+            try:
+                n = self._sched.tick()
+            except Exception as e:     # noqa: BLE001
+                self._sched.abort(e)
+                continue
+            if n:
+                continue
+            with self._wake:
+                if self._gen == gen0:
+                    self._wake.wait(0.001)
+
     def _on_predict_stream(self):
         """Put the calling thread's device work on predict's stream,
         ordered after everything already queued on the device's current
@@ -695,14 +852,25 @@ class RetrievalService:
         if self._threads:
             return self
         self._stop.clear()
-        self._threads = [
-            threading.Thread(target=self._admit_loop, name="svc-admit",
-                             daemon=True),
-            threading.Thread(target=self._exec_loop, name="svc-exec",
-                             daemon=True),
-            threading.Thread(target=self._warmup_loop, name="svc-warmup",
-                             daemon=True),
-        ]
+        if self._sched is not None:
+            # one tick thread owns all scheduler device state, on the
+            # device's default stream; warmup still runs aside (the
+            # scheduler's warmup never touches live state)
+            self._threads = [
+                threading.Thread(target=self._sched_loop, name="svc-sched",
+                                 daemon=True),
+                threading.Thread(target=self._warmup_loop,
+                                 name="svc-warmup", daemon=True),
+            ]
+        else:
+            self._threads = [
+                threading.Thread(target=self._admit_loop, name="svc-admit",
+                                 daemon=True),
+                threading.Thread(target=self._exec_loop, name="svc-exec",
+                                 daemon=True),
+                threading.Thread(target=self._warmup_loop,
+                                 name="svc-warmup", daemon=True),
+            ]
         for t in self._threads:
             t.start()
         return self
@@ -754,6 +922,9 @@ class RetrievalService:
             t.join(timeout=60.0 if t.name == "svc-warmup" else 5.0)
         self._threads = []
         if not drain:                  # abort path: resolve, don't strand
+            if self._sched is not None:
+                # the tick thread has joined; cancel mid-flight slots
+                self._sched.abort()
             self.queue.flush()
             while (b := self.queue.poll()) is not None:
                 for r in b.requests:

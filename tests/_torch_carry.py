@@ -12,17 +12,36 @@ from repro_torch import convert
 from repro_torch.serving import pipeline as t_pipeline
 
 
-def carry_servers(sys_, knobs=("rho", "k")) -> dict:
-    """{knob: (JAX server, port server on the CPU)}; the JAX engine runs
-    its plain path (the port's CPU route runs the kernels' plain
-    versions)."""
+def carry_index(sys_):
+    """The JAX-built index of ``sys_`` as the port's index on the CPU."""
     ix = sys_.index
     ts = ix.term_stats
-    tindex = convert.index_from_numpy(
+    return convert.index_from_numpy(
         offsets=ix.offsets, postings_doc=ix.postings_doc,
         postings_impact=ix.postings_impact,
         postings_score=ix.postings_score, doc_len=ix.corpus.doc_len,
         stats=ts.stats, ctf=ts.ctf, df=ts.df, device="cpu")
+
+
+def bare_servers(sys_, tindex, knob, **cfg_kw):
+    """(JAX server, port server on the CPU) with no cascade, over the
+    same carried index; ``cfg_kw`` goes to both ``ServingConfig``s."""
+    cuts = sys_.k_cutoffs if knob == "k" else sys_.rho_cutoffs
+    kw = dict(knob=knob, cutoffs=cuts, rerank_depth=30,
+              stream_cap=sys_.cfg.stream_cap, kernel_block_p=64,
+              kernel_block_d=512, **cfg_kw)
+    return (j_pipeline.RetrievalServer(
+                sys_.index, None,
+                j_pipeline.ServingConfig(use_kernel=False, **kw)),
+            t_pipeline.RetrievalServer(
+                tindex, None, t_pipeline.ServingConfig(**kw), device="cpu"))
+
+
+def carry_servers(sys_, knobs=("rho", "k")) -> dict:
+    """{knob: (JAX server, port server on the CPU)}; the JAX engine runs
+    its plain path (the port's CPU route runs the kernels' plain
+    versions)."""
+    tindex = carry_index(sys_)
     out = {}
     for knob in knobs:
         cuts = sys_.k_cutoffs if knob == "k" else sys_.rho_cutoffs

@@ -28,6 +28,11 @@ Tolerances, with their reasons:
   * funnel: classes and k equal; ranked lists equal except where two
     items' stage-2 scores lie within 1e-5 (float32 products in another
     order on the card than on the CPU).
+  * the continuous scheduler on the card: ranked lists equal to one
+    batch-once ``engine.serve`` of the stream on the card (chunked sums
+    of integer-valued impacts are exact), threaded equal to inline; a
+    request served while predictor versions are published beside the
+    traffic gets the classes of the version it reports.
 """
 
 import dataclasses
@@ -587,3 +592,112 @@ def _assert_funnel_ranked(gpu, uf, hist, a, b):
         row = dict(zip(ids[q].tolist(), s2[q].tolist()))
         x, y = int(a["ranked"][q, i]), int(b["ranked"][q, i])
         assert x >= 0 and y >= 0 and abs(row[x] - row[y]) <= 1e-5, (q, i)
+
+
+@pytest.mark.gpu
+def test_impact_scan_and_topk_cuda_at_the_continuous_shapes(cuda_device):
+    """The scheduler's kernel shapes: impact_scan on one (32, 512) chunk
+    window over 50 000 docs with idle slots (rho 0, bounds (n_docs, -1)),
+    topk on one (8, 50 000) finalize group at kp 100."""
+    q, p, nd = 32, 512, 50_000
+    r = np.random.default_rng(5)
+    docs = r.integers(0, nd, (q, p)).astype(np.int32)
+    imps = -np.sort(-r.integers(0, 256, (q, p)), axis=1).astype(np.float32)
+    rho = r.integers(0, p + 1, q).astype(np.int32)
+    idle = [2, 9, 30]
+    docs[idle], imps[idle], rho[idle] = -1, -1.0, 0
+    d, i, rv = (torch.from_numpy(a).to(cuda_device) for a in (docs, imps, rho))
+    seg = block_doc_bounds(d, block_p=p, n_docs=nd)
+    assert (seg[0][idle] == nd).all() and (seg[1][idle] == -1).all()
+    out = is_kernel.impact_scan(d, i, rv, *seg, n_docs=nd, block_p=p)
+    assert torch.equal(out, is_kernel.impact_scan_plain(d, i, rv, *seg,
+                                                        n_docs=nd, block_p=p))
+    rows = out[:8].contiguous()
+    gv, gi = tk_kernel.block_topk(rows, kp=100)
+    wv, wi = tk_kernel.block_topk_plain(rows, kp=100)
+    assert torch.equal(gv, wv) and torch.equal(gi, wi)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("knob", ["rho", "k"])
+def test_continuous_on_card_equals_batch_once(cuda_device, knob):
+    """The continuous scheduler on the card: every list equals one
+    ``engine.serve`` of the stream on the card, impact_scan launches
+    equal the chunk dispatches (topk the rho finalizes; k's pool is
+    wider than KP_MAX), and the tick thread equals the inline run."""
+    server, qt = _card_server(cuda_device, knob)
+    classes = server.predict_classes(qt)
+    ref, _ = server.engine.serve(qt, server.params_of(classes))
+
+    def run(threaded):
+        backend = service.ContinuousBackend(server, query_len=qt.shape[1],
+                                            slots=16, grain=4, window=8)
+        svc = service.RetrievalService(backend)
+        backend.scheduler.warmup()
+        n0 = (is_kernel.n_launches, tk_kernel.n_launches)
+        futs = svc.submit_many(list(qt), deadline_ms=1e6)
+        if threaded:
+            with svc:
+                out = [f.result(timeout=120.0) for f in futs]
+        else:
+            svc.flush()
+            while svc.outstanding:
+                assert svc.step()
+            out = [f.result() for f in futs]
+        return out, backend.scheduler.stats(), (
+            is_kernel.n_launches - n0[0], tk_kernel.n_launches - n0[1])
+
+    inline, st, (n_is, n_tk) = run(False)
+    np.testing.assert_array_equal(np.stack([r["ranked"] for r in inline]),
+                                  ref)
+    assert [r["class"] for r in inline] == classes.tolist()
+    assert n_is == st["n_chunk_calls"] > 0
+    assert n_tk == (st["n_finalize_calls"] if knob == "rho" else 0)
+    threaded, _, _ = run(True)
+    for a, b in zip(inline, threaded):
+        np.testing.assert_array_equal(a["ranked"], b["ranked"])
+
+
+@pytest.mark.gpu
+def test_hot_swap_under_threaded_traffic_on_card(cuda_device):
+    """Versions published (a fence on the publishing thread) and
+    installed while a threaded batch-once service predicts on its own
+    stream: every request's classes are one live cascade's, row for row,
+    and both cascades served traffic."""
+    from repro_torch.core import features
+    from repro_torch.online import PredictorStore
+    server, qt = _card_server(cuda_device, "rho")
+    boot = server.cascade
+    x = features.query_features(torch.from_numpy(qt).to(cuda_device),
+                                server.stats, server.ctf, server.df)
+    labels = np.random.default_rng(9).integers(0, boot.n_cutoffs + 1,
+                                               qt.shape[0])
+    other = cascade.train_cascade(x.cpu().numpy(), labels,
+                                  n_cutoffs=boot.n_cutoffs,
+                                  forest_kwargs=dict(n_trees=5, max_depth=4),
+                                  device=cuda_device)
+    t = server.cfg.threshold
+    want = [cascade.predict_batched(c, x, t).cpu().numpy()
+            for c in (boot, other)]
+    assert (want[0] != want[1]).any()
+    thr = [t] * boot.n_cutoffs
+    store = PredictorStore(boot, thr, device=cuda_device)
+    store.install(server)
+    svc = service.RetrievalService(
+        service.EngineBackend(server, query_len=qt.shape[1]),
+        admission.AdmissionConfig(max_batch=8, pad_multiple=8),
+        service.WarmupPolicy(census_path=None))
+    results = []
+    with svc:
+        for v in range(1, 7):
+            futs = svc.submit_many(list(qt), deadline_ms=1e6)
+            store.publish(other if v % 2 else boot, thr)
+            store.install(server)
+            results.append([f.result(timeout=120.0) for f in futs])
+    assert server.predictor_version == 6
+    versions = set()
+    for res in results:
+        for i, r in enumerate(res):
+            versions.add(r["predictor_version"])
+            assert r["class"] in (want[0][i], want[1][i])
+    assert len(versions) >= 2
