@@ -114,7 +114,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      in-envelope share of the labelled traffic before and after the
      swap.  Then ``python -m repro_torch.launch.serve --online`` runs as
      a subprocess at the verify sizes: exit 0 and its ``online:`` line.
-  6. (run between phases 8 and 5) the offline end of the main path on
+  11. (after phase 8) sharded serving on the card, over phase 2's system,
+     cascades and batches, the mesh's positions laid over the one card
+     by ``force_host_device_count(4)`` (shards sharing one card measure
+     no speed of sharding).  First impact_scan and topk at the shard
+     shapes of 4 shards (a ``phase 1: shard shape`` line each, timed as
+     phase 1): impact_scan on shard 0's (128, shard_cap) partition of
+     batch 0's streams over 12 500 docs with rho from
+     ``owned_prefix_len`` of the cascade's rho, topk on the (128, 12 500)
+     local scores at kp 100, each bit-equal to its plain version.  Then
+     per knob and mesh (model=2, model=4, data=2 x model=2),
+     ``RetrievalServer(mesh=...)`` serves the 4 batches with the launch
+     counters zeroed just before and read just after: the lists must
+     equal phase 2's ``serve_batch`` bit for bit, impact_scan must
+     launch shards x data groups times a batch, and topk as often on
+     rho (0 on k, whose 10 000-wide pool takes the plain sort).  Each
+     ``phase 11:`` line gives the per-stage ms beside phase 2's, q/s, and
+     the fullest shard's partition over its stream slot (the
+     ``partition_slack`` margin; a slack that overflows is raised in
+     steps of 0.25 and printed, not changed in the default).  On
+     data=2 x model=2 ``ShardedEngineBackend`` inline (6 dispatches a
+     batch) and on model=4 ``ContinuousBackend`` over batch 0's 128
+     requests must equal phase 2 bit for bit.  Then
+     ``python -m repro_torch.launch.serve --shards 2
+     --force-host-devices 2`` as a subprocess: exit 0 and its ``mesh:``
+     line.
+  6. (run between phases 11 and 5) the offline end of the main path on
      the card at paperish, over phase 2's system and MED_RBP tables:
      ``run_methods`` (forests fitted on the host, held-out folds
      predicted on the card, 3 folds, forests of 10 trees of depth 6) in
@@ -133,8 +158,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   9. one JSON line with every kernel's launches (phases 2 and 3),
      service launches (the inline and FIFO runs of phase 4), continuous
      launches (phase 7's inline runs), online launches (phase 8's shadow
-     steps), error and times; impact_scan's and topk's ``continuous``
-     field holds phase 1's row at the continuous path's shape.
+     steps), sharded launches (phase 11's counted windows), error and
+     times; impact_scan's and topk's ``continuous`` and ``shard`` fields
+     hold their rows at the continuous path's and the shard shape.
   10. the last line: {"ok": true, "device": {...}}.
 
 With ``--profile DIR``, after phase 5 each knob's server and the funnel
@@ -1519,9 +1545,10 @@ def _span_ms(obs, names) -> dict:
     return out
 
 
-def _continuous_run(server, qt, mode, fixed_param=None):
+def _continuous_run(server, qt, mode, fixed_param=None, chunk_p=CHUNK_P):
     """Serve the rows of ``qt`` through a fresh continuous service (slots
-    SLOTS, grain GRAIN, chunk CHUNK_P): warmed, the kernel launch counters
+    SLOTS, grain GRAIN, chunk ``chunk_p``; None: the default of the
+    slot's stream width): warmed, the kernel launch counters
     zeroed after the warmup, then ``inline`` (``serve_all``) or ``fifo``
     (every request queued, then the tick thread started).  Returns
     (results, scheduler stats, wall s, launches, obs)."""
@@ -1534,7 +1561,7 @@ def _continuous_run(server, qt, mode, fixed_param=None):
                                              RetrievalService, WarmupPolicy)
     obs = Observability.create()
     backend = ContinuousBackend(server, query_len=qt.shape[1], slots=SLOTS,
-                                grain=GRAIN, chunk_p=CHUNK_P,
+                                grain=GRAIN, chunk_p=chunk_p,
                                 fixed_param=fixed_param)
     svc = RetrievalService(
         backend, AdmissionConfig(max_batch=BATCH, pad_multiple=GRAIN),
@@ -1798,6 +1825,282 @@ def serve_cli_online() -> None:
     if len(line) != 1 or "last_error" in line[0]:
         raise AssertionError(f"serve --online printed {line}")
     log(f"phase 8: serve CLI --online exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s: {line[0]}")
+
+
+# ------------------------------------------------------------ phase 11 --
+
+#: the sharded phase's meshes, (data, model), laid over the one card by
+#: ``force_host_device_count``; the shard count of the kernels' shard
+#: shapes
+SHARD_MESHES = ((1, 2), (1, 4), (2, 2))
+SHARDS = 4
+
+
+def _partition_need(server, batches, shards) -> dict:
+    """The most postings (and score-stream postings) one shard owns in
+    one query's streams over ``batches``, and the ``partition_slack``
+    that holds them (the default, 2.0, unless it overflows)."""
+    import torch
+    from repro_torch.retrieval import jass
+    from repro_torch.retrieval.index import partition_cap
+    e, cap = server.engine, server.cfg.stream_cap
+    width = -(-e.n_docs // shards)
+    post = score = 0
+    for qt in batches:
+        q = torch.from_numpy(qt.astype("int32")).to(e.device)
+        ds, _ = jass.gather_streams(e.offsets, e.pdoc, e.pimp, q, cap=cap)
+        sd, _ = jass.gather_score_streams(e.offsets, e.pdoc, e.pscore, q,
+                                          cap=cap)
+        for s in range(shards):
+            lo = s * width
+            post = max(post, int(((ds >= lo) & (ds < lo + width))
+                                 .sum(dim=1).max().cpu().numpy()))
+            score = max(score, int(((sd >= lo) & (sd < lo + width))
+                                   .sum(dim=1).max().cpu().numpy()))
+    sw = batches[0].shape[1] * cap
+    slack = server.cfg.partition_slack
+    while (post > partition_cap(cap, shards, slack)
+           or score > partition_cap(sw, shards, slack)):
+        slack += 0.25
+    return dict(slack=slack, default_holds=slack == server.cfg.partition_slack,
+                posting_fill=post / partition_cap(cap, shards, slack),
+                score_fill=score / partition_cap(sw, shards, slack),
+                shard_cap=partition_cap(cap, shards, slack),
+                most_owned=post, most_owned_scores=score)
+
+
+def check_shard_shapes(server, qt, slack) -> tuple[dict, dict]:
+    """impact_scan and topk at the shard shapes of paperish over SHARDS
+    shards, on the first shard's partition of one served batch:
+    impact_scan on the (Q, shard_cap) local streams over shard_width
+    docs, rho from ``owned_prefix_len`` of the cascade's rho; topk on the
+    (Q, shard_width) local scores it gives, kp the rerank depth.  Each
+    bit-equal to its plain version, timed as phase 1."""
+    import torch
+    from repro_torch.kernels.impact_scan import kernel as K
+    from repro_torch.kernels.impact_scan.ops import owned_prefix_len
+    from repro_torch.kernels.topk import kernel as TK
+    from repro_torch.kernels.topk import ops
+    from repro_torch.retrieval import jass
+    from repro_torch.retrieval.index import (block_doc_bounds, partition_cap,
+                                             partition_postings)
+    e, cfg = server.engine, server.cfg
+    dev = e.device
+    width = -(-e.n_docs // SHARDS)
+    lc = partition_cap(cfg.stream_cap, SHARDS, slack)
+    q = torch.from_numpy(qt.astype("int32")).to(dev)
+    ds, im = jass.gather_streams(e.offsets, e.pdoc, e.pimp, q,
+                                 cap=cfg.stream_cap)
+    d, i, gpos, ovf = partition_postings(ds, im, 0, width=width, cap=lc)
+    rho = torch.from_numpy(server.params_of(server.predict_classes(qt))
+                           .astype("int32")).to(dev)
+    r = owned_prefix_len(gpos, rho)
+    lo, hi = block_doc_bounds(d, block_p=e.block_p, n_docs=width)
+    args = (d, i, r, lo, hi)
+    kw = dict(n_docs=width, block_p=e.block_p, block_d=e.block_d)
+    got, want = K.impact_scan(*args, **kw), K.impact_scan_plain(*args, **kw)
+    if int(ovf.max().cpu().numpy()) or not torch.equal(got, want):
+        raise AssertionError("impact_scan differs from its plain version at "
+                             "the shard shape")
+    qn, p = d.shape
+    live = int(r.long().sum().cpu().numpy())
+    flat = (torch.arange(qn, device=dev)[:, None] * width
+            + d.clamp(min=0).long()).reshape(-1)
+    pos = torch.arange(p, device=dev)[None, :]
+    contrib = torch.where((pos < r[:, None]) & (d >= 0), i,
+                          torch.zeros_like(i)).reshape(-1)
+    acc = torch.zeros(qn * width, device=dev)
+
+    def library():
+        acc.zero_()
+        acc.scatter_add_(0, flat, contrib)
+
+    n_bytes = live * 8 + qn * 4 + 2 * qn * lo.shape[1] * 4 + qn * width * 4
+    b_ms, b_by = bound_ms(n_bytes, live)
+    is_row = dict(
+        name="impact_scan", route="cuda",
+        shape=f"Q={qn} P={p} (shard_cap) n_docs={width} (shard_width) "
+              f"block_p={e.block_p} block_d={e.block_d}, shard 0 of "
+              f"{SHARDS}, rho from owned_prefix_len",
+        max_abs_err=float((got - want).abs().max()),
+        **timings(lambda: K.impact_scan(*args, **kw),
+                  lambda: K.impact_scan_plain(*args, **kw), library),
+        bound_ms=b_ms, bound_by=b_by, bytes=n_bytes)
+
+    k = cfg.rerank_depth
+    gv, gi = TK.block_topk(got, kp=k, block_n=4096)
+    wv, wi = TK.block_topk_plain(got, kp=k, block_n=4096)
+    sv, si = ops.topk_select(got, k)
+    rv, ri = ops.topk_select(got, k, use_kernel=False)
+    if not (torch.equal(gv.view(torch.int32), wv.view(torch.int32))
+            and torch.equal(gi, wi) and torch.equal(sv, rv)
+            and torch.equal(si, ri)):
+        raise AssertionError("topk differs from its plain version at the "
+                             "shard shape")
+    fin = torch.isfinite(wv)
+    n_bytes = qn * width * 4 + qn * -(-width // 4096) * k * 8
+    b_ms, b_by = bound_ms(n_bytes, qn * width)
+    tk_row = dict(
+        name="topk", route="cuda",
+        shape=f"Q={qn} N={width} (shard_width) kp={k} block_n=4096",
+        max_abs_err=float((gv[fin] - wv[fin]).abs().max()),
+        **timings(lambda: TK.block_topk(got, kp=k, block_n=4096),
+                  lambda: TK.block_topk_plain(got, kp=k, block_n=4096),
+                  lambda: torch.topk(got, k, dim=1)),
+        bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
+        select_ms=time_ms(lambda: ops.topk_select(got, k)))
+    for row in (is_row, tk_row):
+        row["ms_over_library_ms"] = row["ms"] / row["library_ms"]
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
+        log("phase 1: shard shape: " + json.dumps(row))
+    return is_row, tk_row
+
+
+def sharded_path(sys_, servers, batches, served, report) -> dict:
+    """Phase 11: sharded serving on the card, over phase 2's system,
+    cascades and batches, each mesh of SHARD_MESHES laid over the card.
+    Per knob and mesh, ``RetrievalServer(mesh=...)`` serves the 4 batches
+    with the launch counters zeroed just before and read just after:
+    the lists must equal phase 2's ``serve_batch`` bit for bit, and
+    impact_scan must launch once a shard and data group a batch (topk
+    too on rho; k's pool of 10 000 > KP_MAX takes the plain sort).
+    Then ``ShardedEngineBackend`` inline on the data x model mesh and
+    ``ContinuousBackend`` over model=4 on the first 128 requests, both
+    bit-equal to phase 2.  Returns the launches of the counted
+    windows."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.kernels.impact_scan import kernel as is_kernel
+    from repro_torch.kernels.topk import kernel as tk_kernel
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.serving import pipeline
+    from repro_torch.serving.service import ShardedEngineBackend
+
+    launches = {"impact_scan": 0, "topk": 0}
+    shard_rows = None
+    mesh_lib.force_host_device_count(4)
+    try:
+        for knob in ("rho", "k"):
+            server, casc, scfg = servers[knob]
+            for data, model in SHARD_MESHES:
+                need = _partition_need(server, batches, model)
+                if not need["default_holds"]:
+                    log(f"phase 11: {knob} model={model}: the default "
+                        f"partition_slack overflows; serving at "
+                        f"{need['slack']}")
+                cfg = dataclasses.replace(scfg, partition_slack=need["slack"])
+                if knob == "rho" and model == SHARDS and shard_rows is None:
+                    shard_rows = check_shard_shapes(server, batches[0],
+                                                    need["slack"])
+                mesh = mesh_lib.make_serving_mesh(model, data,
+                                                  device=server.device)
+                sh = pipeline.RetrievalServer(sys_.index, casc, cfg,
+                                              device=server.device, mesh=mesh)
+                torch.cuda.synchronize()
+                outs, per_batch = [], []
+                # ---- the counted window: the sharded main path alone ----
+                is_kernel.n_launches = tk_kernel.n_launches = 0
+                for qt in batches:
+                    before = (is_kernel.n_launches, tk_kernel.n_launches)
+                    outs.append(sh.serve_batch(qt))
+                    per_batch.append((is_kernel.n_launches - before[0],
+                                      tk_kernel.n_launches - before[1]))
+                got = (is_kernel.n_launches, tk_kernel.n_launches)
+                # ---- end of the counted window ----
+                want = (data * model, data * model if knob == "rho" else 0)
+                if any(pb != want for pb in per_batch):
+                    raise AssertionError(f"sharded {knob} {data}x{model}: "
+                                         f"launches {per_batch}, not {want}")
+                launches["impact_scan"] += got[0]
+                launches["topk"] += got[1]
+                for b, (out, ref) in enumerate(zip(outs, served[knob])):
+                    if not (np.array_equal(out["ranked"], ref["ranked"])
+                            and np.array_equal(out["classes"],
+                                               ref["classes"])):
+                        raise AssertionError(
+                            f"sharded {knob} {data}x{model} batch {b} "
+                            "differs from serve_batch")
+                steady = outs[1:]
+                stages = {k: statistics.mean(o["timings"][k] for o in steady)
+                          for k in steady[0]["timings"]}
+                line = dict(mesh=mesh.shape, shards=model, data_groups=data,
+                            shard_width=sh.engine.shard_width,
+                            shard_cap=sh.engine.shard_cap,
+                            launches_per_batch=per_batch, stage_ms=stages,
+                            unsharded_stage_ms=report[knob]["stage_ms"],
+                            qps=BATCH / (stages["total_ms"] / 1e3),
+                            partition=need)
+                if (data, model) == (2, 2):
+                    backend = ShardedEngineBackend(
+                        sh, query_len=batches[0].shape[1])
+                    res, summary, sgot = _service_run(
+                        backend, backend.pad_multiple, batches, "inline",
+                        counters=(is_kernel, tk_kernel))
+                    for b, rs in enumerate(res):
+                        if not np.array_equal(
+                                np.stack([r["ranked"] for r in rs]),
+                                served[knob][b]["ranked"]):
+                            raise AssertionError(
+                                f"ShardedEngineBackend {knob} batch {b} "
+                                "differs from serve_batch")
+                    if (summary["dispatches_per_batch"] != 6
+                            or sgot != [w * len(batches) for w in want]):
+                        raise AssertionError(
+                            f"ShardedEngineBackend {knob}: dispatches "
+                            f"{summary['dispatches_per_batch']}, launches "
+                            f"{sgot}")
+                    line["service_inline"] = dict(
+                        qps=summary["qps"], stage_ms=summary["stage_ms"],
+                        launches=sgot)
+                if (data, model) == (1, SHARDS):
+                    qt = batches[0]
+                    res, st, wall, cgot, _ = _continuous_run(
+                        sh, qt, "inline", chunk_p=None)
+                    if not np.array_equal(np.stack([r["ranked"] for r in res]),
+                                          served[knob][0]["ranked"]):
+                        raise AssertionError(f"sharded continuous {knob} "
+                                             "differs from serve_batch")
+                    cwant = dict(
+                        impact_scan=SHARDS * st["n_chunk_calls"],
+                        topk=(SHARDS * st["n_finalize_calls"]
+                              if knob == "rho" else 0))
+                    if cgot != cwant or not st["sharded"]:
+                        raise AssertionError(f"sharded continuous {knob}: "
+                                             f"launches {cgot}, not {cwant}")
+                    line["continuous"] = dict(
+                        requests=len(qt), qps=len(qt) / wall,
+                        chunk_p=st["chunk_p"], chunks_max=st["chunks_max"],
+                        chunk_dispatches=st["n_chunk_calls"],
+                        finalizes=st["n_finalize_calls"], launches=cgot)
+                log(f"phase 11: sharded {knob}: " + json.dumps(line))
+    finally:
+        mesh_lib.force_host_device_count(0)
+    return launches, shard_rows
+
+
+def serve_cli_sharded() -> None:
+    """``python -m repro_torch.launch.serve --shards 2
+    --force-host-devices 2`` at the verify sizes: exit 0 and its
+    ``mesh:`` line."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--knob", "rho",
+           "--batch", "30", "--batches", "3", "--n-docs", "2000",
+           "--n-queries", "256", "--census", "", "--shards", "2",
+           "--force-host-devices", "2"]
+    log("phase 11: " + " ".join(cmd[1:]))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=HERE, check=True, timeout=600,
+                         capture_output=True, text=True,
+                         env=dict(os.environ,
+                                  PYTHONPATH=os.path.join(HERE, "src"))
+                         ).stdout
+    line = [ln for ln in out.splitlines() if ln.startswith("mesh:")]
+    if line != ["mesh: {'data': 1, 'model': 2} — candidates over 'model', "
+                "batches over data axes (pad grid 8)"]:
+        raise AssertionError(f"serve --shards printed {line}")
+    log(f"phase 11: serve CLI --shards 2 exit 0 in "
         f"{time.perf_counter() - t0:.1f} s: {line[0]}")
 
 
@@ -2112,7 +2415,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     sys_, servers, batches, meds = build_servers()
-    launches, _, served = main_path(sys_, servers, batches)
+    launches, report, served = main_path(sys_, servers, batches)
     funnel, fbatches, fmixed = build_funnel()
     f_launches, _, fserved = funnel_path(funnel, fbatches, fmixed)
     launches.update(flash_attention=f_launches["flash_attention"],
@@ -2130,6 +2433,12 @@ def main() -> int:
     serve_cli_online()
     log(f"phase 8: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    sharded_launches, shard_rows = sharded_path(sys_, servers, batches,
+                                                served, report)
+    serve_cli_sharded()
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    is_row["shard"], tk_row["shard"] = shard_rows
+    t0 = time.perf_counter()
     offline_path(sys_, meds)
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
     log("phase 5: flash_attention's path call, CUDA activities per call: "
@@ -2144,15 +2453,19 @@ def main() -> int:
         row["service_launches"] = service_launches[row["name"]]
         row["continuous_launches"] = cont_launches.get(row["name"], 0)
         row["online_launches"] = online_launches.get(row["name"], 0)
-        cont = row.get("continuous")
-        if cont is not None:
-            # the kernel at the continuous path's shape, with the launches
-            # of phase 7's inline runs (both knobs)
-            row["continuous"] = dict(
-                {k: cont[k] for k in ("shape", "max_abs_err", "ms",
-                                      "plain_ms", "bound_ms", "bound_by",
-                                      "library_ms")},
-                launches=cont_launches[row["name"]])
+        row["sharded_launches"] = sharded_launches.get(row["name"], 0)
+        # the kernel at the continuous path's shape, with the launches of
+        # phase 7's inline runs (both knobs), and at the shard shape, with
+        # the launches of phase 11's counted windows
+        for extra, counts in (("continuous", cont_launches),
+                              ("shard", sharded_launches)):
+            at = row.get(extra)
+            if at is not None:
+                row[extra] = dict(
+                    {k: at[k] for k in ("shape", "max_abs_err", "ms",
+                                        "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms")},
+                    launches=counts[row["name"]])
         for extra in ("shape", "bytes", "select_ms", "max_abs_err_bf16",
                       "bit_equal", "ptxas", "device_ms", "library_device_ms",
                       "device_bound_share", "host_ms", "library_host_ms",

@@ -2,9 +2,11 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ["resolve_device", "fence"]
+__all__ = ["resolve_device", "fence", "device_scope"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -26,3 +28,12 @@ def fence(device: torch.device) -> None:
     timing fence of one must not wait for the other's work."""
     if device.type == "cuda":
         torch.cuda.current_stream(device).synchronize()
+
+
+def device_scope(device: torch.device):
+    """A context in which ``device`` is the current CUDA device (a
+    kernel launches on the current device's stream), or a no-op off
+    CUDA."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

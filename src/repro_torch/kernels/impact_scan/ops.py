@@ -19,7 +19,21 @@ from repro_torch.kernels.impact_scan.kernel import live_cells, posting_blocks
 from repro_torch.kernels.impact_scan.ref import (impact_scan_masked_ref,
                                                  impact_scan_ref)
 
-__all__ = ["saat_accumulate"]
+__all__ = ["saat_accumulate", "owned_prefix_len"]
+
+
+def owned_prefix_len(gpos: torch.Tensor, rho) -> torch.Tensor:
+    """Shard-local rho of a doc-range-partitioned stream.
+
+    ``gpos`` (Q, cap) is ``partition_postings``' global stream position
+    column: increasing over each query's kept prefix, P on padding.  The
+    owned postings a global budget ``rho`` admits are a prefix of the
+    local stream, of length ``count(gpos < rho)``: a rho vector for
+    ``saat_accumulate`` on the local stream, with no new masking."""
+    rho_vec = torch.as_tensor(rho, device=gpos.device)
+    if rho_vec.ndim == 0:
+        rho_vec = rho_vec[None]
+    return (gpos < rho_vec[:, None]).sum(dim=-1).to(torch.int32)
 
 
 def _full_bounds(qn: int, p: int, n_docs: int, block_p: int, device):

@@ -1,0 +1,72 @@
+"""Serving meshes over the host's devices (the port of the JAX package's
+``launch/mesh.py``, its serving half).
+
+``make_serving_mesh`` lays the ``pod x data x model`` positions over the
+visible devices of one type, and raises when there are too few.
+``force_host_device_count(n)`` is the counterpart of the JAX package's
+CPU emulation: the next meshes lay ``n`` positions round-robin over the
+visible devices, so the CPU holds 4 or 8 CPU shards and one card 2 or 4
+shards.  It takes effect only when a caller asks for it (the CLI's
+``--force-host-devices``, the tests); nothing turns it on by itself.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.distrib.sharding import DeviceMesh
+
+__all__ = ["make_serving_mesh", "force_host_device_count",
+           "visible_positions"]
+
+#: mesh positions forced by ``force_host_device_count`` (0: not forced)
+_forced = 0
+
+
+def force_host_device_count(n: int) -> None:
+    """Lay ``n`` mesh positions round-robin over the visible devices from
+    now on; ``n = 0`` goes back to one position a device."""
+    global _forced
+    if n < 0:
+        raise ValueError(f"force_host_device_count: n={n} < 0")
+    _forced = int(n)
+
+
+def visible_positions(device) -> list[torch.device]:
+    """The mesh positions on ``device``'s type: each card, or the one
+    CPU, or ``n`` forced positions laid round-robin over them."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        devs = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    else:
+        devs = [dev]
+    if _forced:
+        return [devs[i % len(devs)] for i in range(_forced)]
+    return devs
+
+
+def make_serving_mesh(n_model: int | None = None, n_data: int = 1,
+                      n_pod: int = 1, device=None) -> DeviceMesh:
+    """Mesh for the sharded serving engine over ``device``'s type (None:
+    the cards).  Candidates (the doc dimension) shard over 'model',
+    request batches over ('pod', 'data').  ``n_model=None`` takes every
+    position left after the data axes.  Raises when the mesh needs more
+    positions than are visible."""
+    positions = visible_positions(device)
+    n_dev = len(positions)
+    if n_model is None:
+        n_model = max(1, n_dev // (n_data * n_pod))
+    need = n_pod * n_data * n_model
+    if need > n_dev:
+        raise ValueError(
+            f"make_serving_mesh: need {need} devices "
+            f"(pod={n_pod} x data={n_data} x model={n_model}) but only "
+            f"{n_dev} visible; lay more positions over them with "
+            "force_host_device_count(n) first.")
+    if n_pod > 1:
+        return DeviceMesh(positions[:need], (n_pod, n_data, n_model),
+                          ("pod", "data", "model"))
+    return DeviceMesh(positions[:need], (n_data, n_model),
+                      ("data", "model"))

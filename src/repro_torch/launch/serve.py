@@ -9,9 +9,12 @@ submitted one at a time with per-request deadlines; the admission queue
 forms deadline-ordered batches over the pad grid, the cascade prediction
 for batch N+1 overlaps the engine dispatch of batch N (predict on a CUDA
 stream of its own), and the warmup policy warms the padded
-shapes the queue actually produces.  Reports latency percentiles with
-the queue-delay vs service-time breakdown, mean parameter, and envelope
-compliance.
+shapes the queue actually produces.  ``--shards N`` serves through the
+mesh-sharded engine (docs over 'model', request batches over 'data')
+via ``ShardedEngineBackend``; on the CPU or one card pair it with
+``--force-host-devices`` to lay the mesh's positions over the one
+device.  Reports latency percentiles with the queue-delay vs
+service-time breakdown, mean parameter, and envelope compliance.
 
 The warmup policy persists its padded-shape census to ``--census`` on
 ``stop()`` and reloads it at construction.  The default lies under the
@@ -21,9 +24,6 @@ With ``--online`` the service taps every resolved request into a
 telemetry ring and an ``OnlineController`` runs the shadow-label /
 retrain / hot-swap loop on idle capacity beside the traffic, then
 drains the ring inline and prints an ``online:`` summary line.
-
-Not ported yet: the sharded engine (``--shards``, ``--data-shards``,
-``--force-host-devices``).
 """
 
 from __future__ import annotations
@@ -45,6 +45,12 @@ def main(argv=None) -> None:
     ap.add_argument("--n-queries", type=int, default=1024)
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cuda' raises without a card")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="model-axis shards for the candidate dimension")
+    ap.add_argument("--data-shards", type=int, default=1,
+                    help="data-axis shards for request batches")
+    ap.add_argument("--force-host-devices", type=int, default=0,
+                    help="lay N mesh positions over the visible devices")
     ap.add_argument("--census", default="build/repro_torch/warmup_census.json",
                     help="padded-shape census path ('' disables "
                          "persistence)")
@@ -75,10 +81,18 @@ def main(argv=None) -> None:
                                     TelemetryBuffer, TrainerConfig)
     from repro_torch.serving import pipeline as sp
     from repro_torch.serving.admission import AdmissionConfig
+    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.serving.service import (EngineBackend, RetrievalService,
+                                             ShardedEngineBackend,
                                              WarmupPolicy)
 
     dev = resolve_device(args.device)
+    if args.force_host_devices:
+        mesh_lib.force_host_device_count(args.force_host_devices)
+    mesh = None
+    if args.shards > 1 or args.data_shards > 1:
+        mesh = mesh_lib.make_serving_mesh(n_model=args.shards,
+                                          n_data=args.data_shards, device=dev)
     sys_ = E.build_system(E.ExperimentConfig(
         n_docs=args.n_docs, vocab=args.n_docs * 2,
         n_queries=args.n_queries, stream_cap=1024, pool_depth=2000,
@@ -92,8 +106,13 @@ def main(argv=None) -> None:
     server = sp.RetrievalServer(
         sys_.index, casc, sp.ServingConfig(
             knob=args.knob, cutoffs=cutoffs, threshold=args.threshold,
-            rerank_depth=100, stream_cap=sys_.cfg.stream_cap), device=dev)
-    backend = EngineBackend(server, query_len=sys_.queries.terms.shape[1])
+            rerank_depth=100, stream_cap=sys_.cfg.stream_cap), device=dev,
+        mesh=mesh)
+    backend_cls = ShardedEngineBackend if mesh is not None else EngineBackend
+    backend = backend_cls(server, query_len=sys_.queries.terms.shape[1])
+    if mesh is not None:
+        print(f"mesh: {mesh.shape} — candidates over 'model', "
+              f"batches over data axes (pad grid {backend.pad_multiple})")
     # one observability handle threads through service, admission and
     # engine; disabled unless an export flag asks for it
     obs = (Observability.create()

@@ -17,6 +17,7 @@ __all__ = [
     "second_stage_scores",
     "second_stage_mix",
     "rerank_pool",
+    "rank_pool_scores",
     "gold_run_k",
     "candidate_run_k",
     "gold_run_rho",
@@ -104,6 +105,14 @@ def rerank_pool(stage2: torch.Tensor, pool: torch.Tensor,
     s = torch.where(valid, stage2.gather(1, pool.clamp(min=0).long()),
                     torch.full(pool.shape, float("-inf"),
                                device=pool.device))
+    return rank_pool_scores(s, pool, depth)
+
+
+def rank_pool_scores(s: torch.Tensor, pool: torch.Tensor,
+                     depth: int) -> torch.Tensor:
+    """``rerank_pool`` given each pool member's score ``s`` (Q, P; -inf
+    where the pool is exhausted): (Q, min(depth, P)) doc ids by score
+    descending, ties to the lower doc id, -1 past the live members."""
     by_doc = torch.sort(pool, dim=1, stable=True).indices
     s1, p1 = s.gather(1, by_doc), pool.gather(1, by_doc)
     top = torch.sort(-s1, dim=1, stable=True).indices[:, :depth]

@@ -3,13 +3,14 @@
 The build is host numpy (the offline indexer), as in the JAX package; the
 returned ``InvertedIndex`` holds torch tensors on the requested device.
 ``block_doc_bounds`` produces the per-posting-block min/max doc ids that
-the ``impact_scan`` kernel uses to skip (posting, doc)-block cells.
-The doc-range ``partition_*`` functions belong to sharded serving and are
-not ported yet.
+the ``impact_scan`` kernel uses to skip (posting, doc)-block cells.  The
+doc-range ``partition_*`` functions split each query's streams by the
+docs a shard owns, for the sharded serving engine.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -21,7 +22,8 @@ from repro_torch.retrieval import scoring
 from repro_torch.retrieval.corpus import Corpus
 
 __all__ = ["InvertedIndex", "TermStats", "build_index", "block_doc_bounds",
-           "STAT_NAMES"]
+           "partition_cap", "partition_postings",
+           "partition_scored_postings", "STAT_NAMES"]
 
 #: order of the 9 per-term score statistics (Table 1, items 3-11)
 STAT_NAMES = ("max", "q1", "q3", "min", "amean", "hmean", "median", "var", "iqr")
@@ -116,6 +118,86 @@ def block_doc_bounds(doc_stream: torch.Tensor, *, block_p: int,
     lo = torch.where(d >= 0, d, torch.full_like(d, n_docs)).amin(dim=-1)
     hi = d.amax(dim=-1)                 # padding is -1: empty block -> -1
     return lo.to(torch.int32), hi.to(torch.int32)
+
+
+def partition_cap(cap: int, n_shards: int, slack: float,
+                  multiple: int = 8) -> int:
+    """Per-shard stream length for a doc-range partition of a ``cap``-long
+    stream over ``n_shards`` shards: ``slack * cap / n_shards`` (``slack``
+    is the headroom for skew: doc ids are not uniform in an
+    impact-ordered stream), aligned up to ``multiple``, never more than
+    ``cap`` (one shard is the identity partition).  Overflow past it is
+    counted by ``partition_postings`` and raised by the engine."""
+    if n_shards <= 1:
+        return cap
+    raw = int(math.ceil(slack * cap / n_shards))
+    raw = -(-max(raw, 1) // multiple) * multiple
+    return min(cap, raw)
+
+
+def _compact(stream: torch.Tensor, lo: int, width: int, cap: int):
+    """The order-preserving compaction both partitions share: the j-th
+    local column takes the j-th owned entry, found by binary search over
+    the running owned count (``searchsorted(cumsum(own), j + 1)``), with
+    no sort or scatter.  Returns (source column (Q, cap) int64, P on
+    padding; source column clamped for gathers; validity; overflow (Q,)
+    int32)."""
+    qn, p = stream.shape
+    own = (stream >= lo) & (stream < lo + width)
+    csum = own.cumsum(dim=-1, dtype=torch.int32)
+    j = torch.arange(1, cap + 1, dtype=torch.int32, device=stream.device)
+    src = torch.searchsorted(csum, j.expand(qn, cap).contiguous(),
+                             side="left")
+    valid = j[None, :] <= csum[:, -1:]
+    overflow = (csum[:, -1] - cap).clamp(min=0).to(torch.int32)
+    return src, src.clamp(max=p - 1), valid, overflow
+
+
+def partition_postings(doc_stream: torch.Tensor,
+                       impact_stream: torch.Tensor, lo: int, *, width: int,
+                       cap: int):
+    """Doc-range partition of impact-ordered streams: each query's
+    postings whose doc lies in ``[lo, lo + width)``, compacted into the
+    leading columns of a ``cap``-wide shard-local stream in global
+    stream order.
+
+    Returns
+      ds_loc: (Q, cap) int32 shard-local doc ids (``doc - lo``), -1 padded
+      im_loc: (Q, cap) float32 impacts, -1 padded
+      gpos:   (Q, cap) int32 global stream position of each kept posting,
+              P on padding: increasing over the kept prefix, so
+              ``count(gpos < rho)`` is the shard-local rho
+      overflow: (Q,) int32 owned postings dropped past ``cap``
+    """
+    src, src_c, valid, overflow = _compact(doc_stream, lo, width, cap)
+    ds_loc = torch.where(valid, doc_stream.gather(1, src_c) - lo,
+                         torch.full_like(src_c, -1, dtype=torch.int32))
+    im_loc = torch.where(valid, impact_stream.gather(1, src_c),
+                         torch.full_like(src_c, -1.0, dtype=torch.float32))
+    gpos = torch.where(valid, src, doc_stream.shape[1]).to(torch.int32)
+    return ds_loc.to(torch.int32), im_loc, gpos, overflow
+
+
+def partition_scored_postings(sdocs: torch.Tensor, s3: torch.Tensor,
+                              lo: int, *, width: int, cap: int):
+    """Doc-range partition of the stage-2 score streams, by the same
+    compaction as ``partition_postings``.
+
+    Returns (sd_loc (Q, cap) int32 local ids -1 padded, s3_loc (Q, cap, 3)
+    zero padded, spos (Q, cap) int32 source column, L*P on padding,
+    overflow (Q,) int32).  ``spos // P`` is each kept posting's term:
+    the stage-2 scatter adds the terms one at a time, so that on the card
+    no two adds of one pass meet in one cell (a doc appears at most once
+    in a term's postings).  The JAX package returns no ``spos``.
+    """
+    src, src_c, valid, overflow = _compact(sdocs, lo, width, cap)
+    sd_loc = torch.where(valid, sdocs.gather(1, src_c) - lo,
+                         torch.full_like(src_c, -1, dtype=torch.int32))
+    s3_loc = torch.where(valid[..., None],
+                         s3.gather(1, src_c[..., None].expand(-1, -1, 3)),
+                         torch.zeros((), dtype=s3.dtype, device=s3.device))
+    spos = torch.where(valid, src, sdocs.shape[1]).to(torch.int32)
+    return sd_loc.to(torch.int32), s3_loc, spos, overflow
 
 
 def _segment_quantiles(sorted_vals: np.ndarray, offsets: np.ndarray,

@@ -17,7 +17,7 @@ import torch
 
 __all__ = ["gather_streams", "saat_scores", "saat_scores_masked",
            "rank_from_scores", "saat_rank", "gather_score_streams",
-           "scorer_accumulators"]
+           "scorer_accumulators", "scorer_accumulators_by_term"]
 
 
 def _term_postings(offsets, query_terms, cap: int, nnz: int):
@@ -156,4 +156,29 @@ def scorer_accumulators(docs: torch.Tensor, scores3: torch.Tensor,
         cols = slice(t * seg, (t + 1) * seg)
         idx = safe[:, cols, None].expand(-1, -1, 3)
         acc.scatter_add_(1, idx, w[:, cols].to(torch.float32))
+    return acc[..., 0], acc[..., 1], acc[..., 2]
+
+
+def scorer_accumulators_by_term(docs: torch.Tensor, scores3: torch.Tensor,
+                                term: torch.Tensor, n_docs: int, *,
+                                n_terms: int):
+    """``scorer_accumulators`` over a compacted score stream, whose
+    postings carry their term index ``term`` (Q, W) instead of sitting in
+    fixed per-term segments (``index.partition_scored_postings``).
+
+    One scatter per term, every other term's posting and the padding
+    masked to +0.0: no two real adds of one pass meet in one cell, and
+    adding +0.0 leaves a cell as it is, so the sums are
+    ``scorer_accumulators``' bit for bit on the CPU and on the card.
+    """
+    qn = docs.shape[0]
+    live = docs >= 0
+    idx = docs.clamp(min=0).long()[..., None].expand(-1, -1, 3)
+    w = scores3.to(torch.float32)
+    zero = torch.zeros((), dtype=torch.float32, device=docs.device)
+    acc = torch.zeros((qn, n_docs, 3), dtype=torch.float32,
+                      device=docs.device)
+    for t in range(n_terms):
+        sel = (live & (term == t))[..., None]
+        acc.scatter_add_(1, idx, torch.where(sel, w, zero))
     return acc[..., 0], acc[..., 1], acc[..., 2]

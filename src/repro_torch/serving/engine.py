@@ -1,4 +1,4 @@
-"""Batch-once serving engine (unsharded).
+"""Batch-once serving engine, unsharded and sharded over a device mesh.
 
 One pass of four stages per (padded) batch, whatever mix of classes the
 cascade predicted:
@@ -29,29 +29,44 @@ does not wait for another thread's work.  The ranked lists leave the
 device once, through ``.cpu().numpy()``.
 Stage-2 noise qids are the query's batch position, as in the JAX engine.
 
+``ShardedServingEngine`` runs the same stages over a ``DeviceMesh``:
+docs split in equal ranges over the ``model`` axis, request rows over
+the data axes, and each shard runs ``impact_scan`` and ``topk`` on its
+own doc-range partition of the streams.  One process drives every
+shard, as the JAX engine's single controller drives its mesh.
+
 ``SchedPrograms`` is the continuous scheduler's execution surface over
 the same engine (``serving/sched``): four stage functions -- gather,
 refill, chunk, finalize -- whose shapes are fixed by the slot table, so
 any admit/retire churn runs the same kernels at the same shapes.  The
 chunk runs ``impact_scan`` on a (slots, chunk_p) window of the table;
 the finalize runs ``topk`` on a group of ``grain`` finished rows.
+``ShardedSchedPrograms`` is its form over the sharded engine.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
 from repro_torch import obs as obs_lib
-from repro_torch.device import fence, resolve_device
+from repro_torch.device import device_scope, fence, resolve_device
+from repro_torch.distrib import collectives
+from repro_torch.distrib.sharding import MeshInfo
+from repro_torch.kernels.impact_scan.ops import owned_prefix_len
+from repro_torch.kernels.topk import ops as tk_ops
 from repro_torch.retrieval import gold, jass
 from repro_torch.retrieval import topk as topk_lib
-from repro_torch.retrieval.index import block_doc_bounds
+from repro_torch.retrieval.index import (block_doc_bounds, partition_cap,
+                                         partition_postings,
+                                         partition_scored_postings)
 from repro_torch.serving import bucketing
 
-__all__ = ["SchedPrograms", "SchedState", "ServingEngine"]
+__all__ = ["SchedPrograms", "SchedState", "ServingEngine",
+           "ShardedSchedPrograms", "ShardedServingEngine"]
 
 
 def _pad_ranked(ranked: np.ndarray, depth: int) -> np.ndarray:
@@ -251,15 +266,18 @@ class ServingEngine:
         padded = bucketing.pad_rows(rows, self.batch_multiple, fill=fill)
         return torch.from_numpy(padded.astype(np.int32)).to(self.device)
 
+    def _fence(self) -> None:
+        fence(self.device)
+
     def _timed(self, timings: dict, label: str, name: str, fn, *args,
                **kwargs):
         """Run one stage in its ``engine.<name>`` span, the device fence
         inside it; ``timings[label]`` is the span's ms."""
-        fence(self.device)
+        self._fence()
         self._m_dispatch.inc()
         with self.trace.span("engine." + name) as sp:
             out = fn(*args, **kwargs)
-            fence(self.device)
+            self._fence()
         timings[label] = sp.dur_ms
         return out
 
@@ -345,6 +363,345 @@ class ServingEngine:
         return None
 
 
+# ----------------------------------------------------- sharded stages --
+# One data group's stage bodies, the port of the JAX engine's shard_map
+# bodies.  Each takes lists over the group's shards (one element a shard,
+# on its device) and runs every shard's share, with the collectives
+# (``distrib.collectives``) between.  The streams are doc-range
+# partitioned at gather time: each shard keeps the postings of the docs
+# it owns, compacted into a ``shard_cap``-wide local stream in global
+# order, and each posting's global stream position (``gpos``) carries the
+# rho bookkeeping: ``count(gpos < rho)`` is the shard-local rho, so the
+# same kernel runs on the local stream with no new mask.  Every (Q, docs)
+# accumulator shrinks to (Q, shard_width), and only k-sized survivor
+# lists cross between shards.  Each step keeps the unsharded engine's
+# arithmetic: the compaction keeps the order of the adds, the survivor
+# merge keeps the lowest doc id of a tie, and min, max and copies are
+# exact, so the lists are the unsharded engine's bit for bit.
+
+@dataclasses.dataclass(frozen=True)
+class _Shard:
+    """One mesh position: its device, the first doc it owns, and the
+    tensors placed on it once (the postings replicated, ``doc_len`` its
+    own range, padding docs at length 1)."""
+
+    device: torch.device
+    lo: int
+    offsets: torch.Tensor
+    pdoc: torch.Tensor
+    pimp: torch.Tensor
+    pscore: torch.Tensor
+    doc_len: torch.Tensor
+
+
+def _sh_gather(shards, qts, *, cap: int, shard_cap: int, block_p: int,
+               width: int, slack: float):
+    """Gather + doc-range partition: each shard's slice of the streams.
+
+    The global streams are gathered once a device, as on the unsharded
+    path, then split by doc range.  Segment bounds are computed on the
+    local stream in shard-local doc ids (posting blocks a shard does not
+    own never enter its kernel grid); the score streams split the same
+    way, each posting keeping its term (``sterm``) for stage 2.
+    Returns (per-shard row tuples (ds, im, seg_lo, seg_hi, gpos, sd, s3,
+    sterm), the per-query partition overflow (the max over shards, on
+    the first shard's device), the stream lengths (first shard's))."""
+    n_shards = len(shards)
+    streams = collectives.per_device(
+        [sh.device for sh in shards], lambda i: (
+            jass.gather_streams(shards[i].offsets, shards[i].pdoc,
+                                shards[i].pimp, qts[i], cap=cap),
+            jass.gather_score_streams(shards[i].offsets, shards[i].pdoc,
+                                      shards[i].pscore, qts[i], cap=cap)))
+    rows, over = [], []
+    for sh, ((ds, im), (sdocs, s3)) in zip(shards, streams):
+        with device_scope(sh.device):
+            ds_l, im_l, gpos, novf = partition_postings(
+                ds, im, sh.lo, width=width, cap=shard_cap)
+            seg_lo, seg_hi = block_doc_bounds(ds_l, block_p=block_p,
+                                              n_docs=width)
+            score_cap = partition_cap(sdocs.shape[-1], n_shards, slack)
+            sd_l, s3_l, spos, sovf = partition_scored_postings(
+                sdocs, s3, sh.lo, width=width, cap=score_cap)
+            rows.append((ds_l, im_l, seg_lo, seg_hi, gpos, sd_l, s3_l,
+                         spos // cap))
+            over.append(torch.maximum(novf, sovf))
+    slen = (streams[0][0][0] >= 0).sum(dim=-1).to(torch.int32)
+    return rows, collectives.pmax(over)[0], slen
+
+
+def _sh_survivors(shards, accs, kl: int):
+    """Each shard's top-``kl`` (values, global doc ids) of its local
+    scores: the ``topk`` kernel for kl <= KP_MAX, else the plain stable
+    sort, as on the unsharded path."""
+    out = []
+    for sh, acc in zip(shards, accs):
+        with device_scope(sh.device):
+            v, i = tk_ops.topk_select(acc, kl)
+            out.append((v, (i + sh.lo).to(torch.int32)))
+    return out
+
+
+def _sh_stage1(shards, rows, pvecs, *, knob: str, width: int, kl: int,
+               block_p: int, block_d: int):
+    """Local stage 1 over each shard's partition: rho-masked accumulation
+    on the local stream (rho through ``owned_prefix_len``; the k knob
+    accumulates the whole stream) and the shard's survivors.  No
+    collective: the survivor merge comes after stage 2."""
+    accs = []
+    for sh, r, pv in zip(shards, rows, pvecs):
+        ds_l, im_l, seg_lo, seg_hi, gpos = r[:5]
+        with device_scope(sh.device):
+            if knob == "rho":
+                rho_l = owned_prefix_len(gpos, pv)
+            else:
+                rho_l = torch.full(ds_l.shape[:1], ds_l.shape[-1],
+                                   dtype=torch.int32, device=sh.device)
+            accs.append(jass.saat_scores_masked(
+                ds_l, im_l, rho_l, width, use_kernel=True,
+                seg_bounds=(seg_lo, seg_hi), block_p=block_p,
+                block_d=block_d))
+    return _sh_survivors(shards, accs, kl)
+
+
+def _sh_merge(shards, vflat, gflat, k_vecs, *, depth: int):
+    """The arithmetic half of the pool merge: the gathered survivors
+    down to the top-``depth`` pool on each shard (-1 where the score is
+    not positive), masked to each query's pool width ``k_vecs`` (k knob;
+    None under rho)."""
+    def one(i):
+        mv, mg = collectives.merge_gathered_topk(vflat[i], gflat[i], depth)
+        pool = torch.where(mv > 0, mg, torch.full_like(mg, -1))
+        return pool if k_vecs is None else _depth_mask(pool, k_vecs[i])
+    return collectives.per_device([sh.device for sh in shards], one)
+
+
+def _sh_stage2(shards, sds, s3s, sterms, qids, *, width: int, n_docs: int,
+               n_terms: int):
+    """Doc-sharded stage 2 over the partitioned score streams: local
+    scorer accumulators (term by term, so each cell sees the unsharded
+    adds in the unsharded order), then the second-stage mixture with the
+    per-query normalization bounds reduced over the shards (pmin/pmax of
+    local min/max: exact; padding doc columns masked out)."""
+    accs, lo_b, hi_b, gcols = [], [], [], []
+    for sh, sd, s3, st in zip(shards, sds, s3s, sterms):
+        with device_scope(sh.device):
+            acc = torch.stack(jass.scorer_accumulators_by_term(
+                sd, s3, st, width, n_terms=n_terms), dim=1)  # (Q, 3, W)
+            cols = sh.lo + torch.arange(width, device=sh.device)
+            real = (cols < n_docs)[None, None, :]
+            lo_b.append(torch.where(real, acc, float("inf")).amin(dim=-1))
+            hi_b.append(torch.where(real, acc, float("-inf")).amax(dim=-1))
+        accs.append(acc)
+        gcols.append(cols)
+    lo_b, hi_b = collectives.pmin(lo_b), collectives.pmax(hi_b)
+    out = []
+    for sh, acc, lo, hi, cols, qid in zip(shards, accs, lo_b, hi_b, gcols,
+                                          qids):
+        with device_scope(sh.device):
+            bounds = tuple((lo[:, j:j + 1], hi[:, j:j + 1]) for j in range(3))
+            out.append(gold.second_stage_mix(
+                acc[:, 0], acc[:, 1], acc[:, 2], bounds, sh.doc_len, qid,
+                cols))
+    return out
+
+
+def _sh_rerank(shards, stage2, pools, d_vecs, *, width: int, depth: int):
+    """The rerank over doc-sharded stage-2 scores: the owning shard gives
+    each pool member's score, pmax assembles the (Q, pool) score matrix
+    (the only stage-2 collective), and the first shard ranks it.
+    ``d_vecs`` is the per-query reranking depth (None: no mask), applied
+    to the replicated pool first."""
+    if d_vecs is not None:
+        pools = [_depth_mask(p, d) for p, d in zip(pools, d_vecs)]
+    parts = []
+    for sh, s2, pool in zip(shards, stage2, pools):
+        with device_scope(sh.device):
+            own = (pool >= sh.lo) & (pool < sh.lo + width)
+            local = (pool - sh.lo).clamp(0, width - 1).long()
+            parts.append(torch.where(
+                own, s2.gather(1, local),
+                torch.full(pool.shape, float("-inf"), device=sh.device)))
+    s = collectives.pmax(parts)[0]
+    with device_scope(shards[0].device):
+        return gold.rank_pool_scores(s, pools[0], depth)
+
+
+class ShardedServingEngine(ServingEngine):
+    """The batch-once engine over a ``DeviceMesh``.
+
+    Layout: the doc dimension of every stage-1/stage-2 accumulator
+    shards over ``axis`` ('model'); request rows split over the
+    data-parallel axes ('pod', 'data') into data groups of equal size.
+    ``n_docs`` is padded up to a multiple of the shard count with inert
+    columns, so uneven shards need no special case and global doc ids
+    are true column offsets.  Each shard holds a ``shard_cap``-wide
+    compacted stream of the postings it owns (``shard_cap ~= slack * cap
+    / n_shards``, ``ServingConfig.partition_slack``); a shard that owns
+    more raises ``RuntimeError`` naming the knob.  Outputs are the
+    unsharded engine's bit for bit (the JAX package's promise).
+
+    ``serve`` runs six dispatches a batch, as the JAX engine: gather,
+    stage 1 (local, ending at each shard's survivors), the survivors'
+    all-gather, stage 2, the merge, the rerank.  The all-gather runs
+    inside stage 2's span (the JAX engine overlaps it with stage 2, and
+    its ``stage2_ms`` holds what stage 2 did not hide); ``merge_ms`` is
+    the merge's span.  Kernel routing is the unsharded engine's, per
+    shard: ``impact_scan`` on the local stream (local doc ids, local
+    segment bounds, rho through ``owned_prefix_len``) and
+    ``topk_select`` at ``kl = min(pool depth, shard_width)``.
+
+    Every shard's tensors live on its own device; positions that share a
+    device share the gathered streams and the collectives' results, and
+    then each shard still runs its own kernels.
+    """
+
+    def __init__(self, index, cfg, mesh, *, axis: str = "model"):
+        self.n_shards = collectives.require_axis(
+            mesh, axis, what="ShardedServingEngine")
+        info = MeshInfo(mesh)
+        stray = [a for a in mesh.axis_names if a != axis and a not in info.dp]
+        if stray:
+            raise ValueError(f"ShardedServingEngine: mesh axes {stray} are "
+                             f"neither data axes nor the shard axis {axis!r}")
+        grid = mesh.grid(axis)
+        super().__init__(index, cfg, device=grid[0][0])
+        self.mesh = mesh
+        self.axis = axis
+        self.dp = info.dp
+        self.dp_size = info.dp_size
+        self.batch_multiple = math.lcm(cfg.pad_multiple, self.dp_size)
+        self.doc_pad = bucketing.pad_length(self.n_docs, self.n_shards)
+        self.shard_width = self.doc_pad // self.n_shards
+        self.shard_cap = partition_cap(cfg.stream_cap, self.n_shards,
+                                       cfg.partition_slack)
+        dl = torch.nn.functional.pad(self.doc_len,
+                                     (0, self.doc_pad - self.n_docs), value=1)
+        placed = {}
+        for row in grid:
+            for dev in row:
+                if dev not in placed:
+                    placed[dev] = tuple(t.to(dev) for t in (
+                        self.offsets, self.pdoc, self.pimp, self.pscore))
+        w = self.shard_width
+        #: [data group][shard] mesh positions
+        self.groups = [[_Shard(dev, s * w, *placed[dev],
+                               dl[s * w:(s + 1) * w].to(dev))
+                        for s, dev in enumerate(row)] for row in grid]
+        self._devices = tuple(placed)
+
+    def _fence(self) -> None:
+        for dev in self._devices:
+            fence(dev)
+
+    # ----------------------------------------------- continuous serving --
+    @property
+    def supports_continuous(self) -> bool:
+        """The sharded continuous scheduler keeps one slot table: a
+        data-parallel mesh would split the slot rows over data groups,
+        and the host's slot bookkeeping does not span them."""
+        return self.dp_size == 1
+
+    @property
+    def continuous_unsupported_reason(self) -> str | None:
+        if self.supports_continuous:
+            return None
+        return (f"the mesh has data-parallel axes {self.dp} (dp_size="
+                f"{self.dp_size}); the sharded continuous scheduler "
+                "needs a model-only mesh — use ShardedEngineBackend's "
+                "batch-once path for data-parallel serving")
+
+    def _split(self, rows: np.ndarray, fill: int) -> list:
+        """Host rows padded to the batch grid, split over the data
+        groups, on each shard's device: [group][shard] tensors."""
+        padded = bucketing.pad_rows(rows, self.batch_multiple,
+                                    fill=fill).astype(np.int32)
+        per = padded.shape[0] // self.dp_size
+        out = []
+        for g, group in enumerate(self.groups):
+            host = torch.from_numpy(padded[g * per:(g + 1) * per])
+            out.append(collectives.per_device(
+                [sh.device for sh in group], lambda i: host.to(group[i].device)))
+        return out
+
+    def _each(self, fn, *per_group, **kwargs) -> list:
+        """``fn`` over every data group: its shards and its share of each
+        ``per_group`` list."""
+        return [fn(group, *(a[g] for a in per_group), **kwargs)
+                for g, group in enumerate(self.groups)]
+
+    def check_overflow(self, worst: int) -> None:
+        """Raise when a shard owned ``worst`` > 0 postings more than its
+        stream slot holds (they would be dropped, the lists wrong)."""
+        if worst > 0:
+            raise RuntimeError(
+                f"partition overflow: a shard owned {worst} more postings "
+                f"than its stream slot (shard_cap={self.shard_cap}, "
+                f"stream_cap={self.cfg.stream_cap}, n_shards="
+                f"{self.n_shards}); raise ServingConfig.partition_slack")
+
+    def serve(self, query_terms: np.ndarray, param_vec: np.ndarray,
+              pool_width: int | None = None,
+              depth_vec: np.ndarray | None = None):
+        """The sharded pipeline: gather (+ partition) -> local stage 1
+        -> the survivors' all-gather and stage 2 -> the pool merge ->
+        the rerank.  Arguments and result as ``ServingEngine.serve``;
+        ``timings`` also holds ``merge_ms``.  Stage-2 noise keys on each
+        query's position in the whole padded batch, whatever data group
+        serves it."""
+        n = query_terms.shape[0]
+        qt = self._split(query_terms, fill=-1)
+        pv = self._split(param_vec, fill=1)
+        dv = (None if depth_vec is None else self._split(depth_vec, fill=1))
+        per = qt[0][0].shape[0]
+        qids = self._split(np.arange(per * self.dp_size), fill=0)
+        cfg = self.cfg
+        width = int(pool_width or self.max_k)
+        rho = cfg.knob == "rho"
+        kl = min(cfg.rerank_depth if rho else width, self.shard_width)
+        suffix = "" if rho or width == self.max_k else f":{width}"
+        sw = dict(width=self.shard_width)
+        timings = {}
+
+        gathered = self._timed(
+            timings, "gather_ms", "gather", self._each, _sh_gather, qt,
+            cap=cfg.stream_cap, shard_cap=self.shard_cap,
+            block_p=self.block_p, slack=cfg.partition_slack, **sw)
+        rows = [g[0] for g in gathered]
+        surv = self._timed(
+            timings, "stage1_ms", "stage1" + suffix, self._each, _sh_stage1,
+            rows, pv, knob=cfg.knob, kl=kl, block_p=self.block_p,
+            block_d=self.block_d, **sw)
+
+        def allgather_stage2():
+            ag = [collectives.gather_local_topk(*zip(*s)) for s in surv]
+            s2 = self._each(
+                _sh_stage2, [[r[5] for r in g] for g in rows],
+                [[r[6] for r in g] for g in rows],
+                [[r[7] for r in g] for g in rows], qids, n_docs=self.n_docs,
+                n_terms=query_terms.shape[1], **sw)
+            return ag, s2
+
+        self._m_dispatch.inc()         # the all-gather's dispatch
+        ag, stage2 = self._timed(timings, "stage2_ms", "stage2",
+                                 allgather_stage2)
+        pools = self._timed(
+            timings, "merge_ms", "merge", self._each, _sh_merge,
+            [a[0] for a in ag], [a[1] for a in ag],
+            [None] * self.dp_size if rho else pv,
+            depth=cfg.rerank_depth if rho else width)
+        ranked = self._timed(
+            timings, "rerank_ms", "rerank" if dv is None else "rerank_dyn",
+            self._each, _sh_rerank, stage2, pools,
+            [None] * self.dp_size if dv is None else dv,
+            depth=cfg.rerank_depth, **sw)
+        self.check_overflow(int(torch.stack(
+            [g[1].to(self.device).amax() for g in gathered])
+            .amax().cpu().numpy()))
+        ranked = torch.cat([r.to(self.device) for r in ranked])
+        return _pad_ranked(ranked[:n].cpu().numpy(), cfg.rerank_depth), timings
+
+
 # ------------------------------------------------- scheduler programs --
 
 def _h2d(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -372,6 +729,12 @@ class SchedState:
     sdocs: torch.Tensor   # (S, L*P) int32 stage-2 score-stream doc ids
     s3: torch.Tensor      # (S, L*P, 3) float32 stage-2 scorer features
     acc: torch.Tensor     # (S, n_docs) float32 resumable stage-1 scores
+    # sharded programs only: the global stream position of each posting
+    # of the partitioned local streams (the rho bookkeeping), and each
+    # score-stream posting's term; every field is then a tuple over the
+    # shards, each element on its shard's device
+    gpos: torch.Tensor | None = None
+    sterm: torch.Tensor | None = None
 
 
 def _default_chunk_p(p: int) -> int:
@@ -397,17 +760,31 @@ class SchedPrograms:
     that covers the dispatch only (no fence).
     """
 
+    #: the scheduler's branch: sharded programs advance per-slot local
+    #: stream cursors (``Slot.lpos``/``lend``), these the global ones
+    sharded = False
+
     @classmethod
     def for_engine(cls, engine: ServingEngine, *, grain: int,
-                   chunk_p: int | None = None) -> "SchedPrograms":
-        """The program set matching the engine's layout (the port has
-        the unsharded engine only)."""
-        return cls(engine, grain=grain, chunk_p=chunk_p)
+                   chunk_p: int | None = None,
+                   extra_widths=()) -> "SchedPrograms":
+        """The program set matching the engine's layout."""
+        if isinstance(engine, ShardedServingEngine):
+            return ShardedSchedPrograms(engine, grain=grain,
+                                        chunk_p=chunk_p,
+                                        extra_widths=extra_widths)
+        return SchedPrograms(engine, grain=grain, chunk_p=chunk_p)
 
     def __init__(self, engine: ServingEngine, *, grain: int,
                  chunk_p: int | None = None):
+        if (isinstance(engine, ShardedServingEngine)
+                and not isinstance(self, ShardedSchedPrograms)):
+            raise TypeError(
+                "SchedPrograms' slot table assumes unsharded stage "
+                "tensors; build via SchedPrograms.for_engine (or "
+                "ShardedSchedPrograms) for a mesh engine")
         self.engine = engine
-        p = engine.cfg.stream_cap
+        p = self._slot_cap(engine)
         self.grain = int(grain)
         self.slot_cap = p
         self.chunk_p = int(chunk_p) if chunk_p else _default_chunk_p(p)
@@ -422,6 +799,10 @@ class SchedPrograms:
                          if self.chunk_p % engine.block_p == 0
                          else self.chunk_p)
         self.n_chunks = p // self.chunk_p
+
+    def _slot_cap(self, engine: ServingEngine) -> int:
+        """Per-slot posting-stream width the chunk windows tile."""
+        return engine.cfg.stream_cap
 
     def _run(self, name: str, fn, *args, **kwargs):
         self.engine._m_dispatch.inc()
@@ -454,13 +835,23 @@ class SchedPrograms:
 
     def gather(self, qt: np.ndarray):
         """Gather one refill group's slot rows.  qt: (grain, L) int32, -1
-        padded.  Returns (device row tuple, host stream lengths)."""
+        padded.  Returns (device row tuple, host stream lengths, host
+        local-end matrix: None here; the sharded programs fill it)."""
         e = self.engine
         *rows, slen = self._run("sgather", _sched_gather, e.offsets, e.pdoc,
                                 e.pimp, e.pscore, self._dev(qt),
                                 cap=e.cfg.stream_cap, bounds_p=self.bounds_p,
                                 n_docs=e.n_docs)
-        return tuple(rows), slen.cpu().numpy()
+        return tuple(rows), slen.cpu().numpy(), None
+
+    @staticmethod
+    def _n_real(slot_idx: np.ndarray, slots: int) -> int:
+        """The refill group's real slots: entries equal to the table's
+        capacity are its padding, which must trail the real ones."""
+        n = int((slot_idx < slots).sum())
+        if (slot_idx[n:] < slots).any():
+            raise ValueError("refill padding must trail the real slots")
+        return n
 
     def refill(self, state: SchedState, slot_idx: np.ndarray,
                rows) -> SchedState:
@@ -469,9 +860,7 @@ class SchedPrograms:
         group's padding; they trail the real ones and are sliced off on
         the host (an out-of-range index would be an error on the CPU and
         a device-side assert on the card)."""
-        n = int((slot_idx < state.acc.shape[0]).sum())
-        if (slot_idx[n:] < state.acc.shape[0]).any():
-            raise ValueError("refill padding must trail the real slots")
+        n = self._n_real(slot_idx, state.acc.shape[0])
         idx = self._dev(slot_idx[:n].astype(np.int64))
         out = self._run("refill", _sched_refill, state.ds, state.im,
                         state.seg_lo, state.seg_hi, state.sdocs, state.s3,
@@ -519,10 +908,253 @@ class SchedPrograms:
         Returns the programs compiled: 0, since nothing is compiled."""
         g = self.grain
         state = self.init_state(slots, query_len)
-        rows, _ = self.gather(np.full((g, query_len), -1, np.int32))
+        rows, _, _ = self.gather(np.full((g, query_len), -1, np.int32))
         state = self.refill(state, np.full(g, slots, np.int32), rows)
         zeros = np.zeros(slots, np.int32)
         state = self.chunk(state, zeros, zeros)
         self.finalize(state, np.zeros(g, np.int32), np.ones(g, np.int32),
                       np.ones(g, np.int32), np.zeros(g, np.int32))
         return 0
+
+
+# --------------------------------------- sharded scheduler stage bodies --
+# The stage bodies of ``ShardedSchedPrograms``: the slot table over the
+# doc-range-partitioned streams.  Each slot's posting stream is the
+# ``shard_cap``-wide local stream of ``partition_postings``; a chunk
+# window advances a local cursor, and the global rho budget applies
+# through the stored global stream positions, as on the batch-once
+# sharded path.
+
+def _ssched_gather(shards, qts, wvecs, **gather_kw):
+    """Partitioned slot rows of a refill group, plus one host metadata
+    matrix (one read): column 0 the global stream length, column 1 the
+    partition overflow (max over shards), columns 2.. the worst shard's
+    local stream end ``max_s count(gpos_s < min(w, slen))`` for every
+    budget ``w`` of the static grid (``wvecs``: the grid on each shard's
+    device)."""
+    rows, over, slen = _sh_gather(shards, qts, **gather_kw)
+    lend = []
+    for sh, r, wvec in zip(shards, rows, wvecs):
+        with device_scope(sh.device):
+            endw = torch.minimum(wvec[None, :], slen.to(sh.device)[:, None])
+            lend.append((r[4][:, None, :] < endw[:, :, None]).sum(dim=-1)
+                        .to(torch.int32))
+    meta = torch.cat([slen[:, None], over[:, None],
+                      collectives.pmax(lend)[0]], dim=1)
+    return rows, meta
+
+
+def _ssched_refill(bufs, acc, slot_idx, rows):
+    """``_sched_refill`` over one shard's buffers, out of place: the
+    gathered rows at ``slot_idx``, the accumulator rows zeroed."""
+    return (tuple(b.index_copy(0, slot_idx, r) for b, r in zip(bufs, rows))
+            + (acc.index_fill(0, slot_idx, 0.0),))
+
+
+def _ssched_chunk(ds_b, im_b, lo_b, hi_b, gp_b, acc, pos, end, *,
+                  chunk_p: int, bounds_p: int, width: int, block_d: int):
+    """One resumable stage-1 step over one shard's partitioned slot table.
+
+    ``pos`` is the per-slot local chunk cursor (multiples of
+    ``chunk_p``), ``end`` the per-slot global rho budget.  The window's
+    admitted postings are those with ``gpos < end``, a prefix of the
+    window since gpos increases along the local stream, so their count
+    is the window's rho.  A shard whose local stream ended before
+    ``pos`` counts 0 and adds exact zeros, so slots retire at the worst
+    shard's end."""
+    lc = ds_b.shape[-1]
+    pos = pos.long()
+    ar = torch.arange(chunk_p, dtype=torch.int64, device=ds_b.device)
+    idx = (pos[:, None] + ar[None, :]).clamp(max=lc - 1)
+    ds, im, gp = ds_b.gather(1, idx), im_b.gather(1, idx), gp_b.gather(1, idx)
+    rho_rem = (gp < end[:, None]).sum(dim=-1).to(torch.int32)
+    nb = chunk_p // bounds_p
+    bidx = (pos[:, None] // bounds_p
+            + torch.arange(nb, dtype=torch.int64, device=ds_b.device)[None])
+    bidx = bidx.clamp(max=lo_b.shape[-1] - 1)
+    seg = (lo_b.gather(1, bidx), hi_b.gather(1, bidx))
+    inc = jass.saat_scores_masked(ds, im, rho_rem, width, use_kernel=True,
+                                  seg_bounds=seg, block_p=bounds_p,
+                                  block_d=block_d)
+    return acc + inc
+
+
+class ShardedSchedPrograms(SchedPrograms):
+    """``SchedPrograms`` over a ``ShardedServingEngine``'s partitioned
+    streams: the same four stages, every ``SchedState`` field a tuple
+    over the shards, chunk windows advancing over the ``shard_cap``-wide
+    local streams (a chunk reads ~1/n_shards of the postings).
+
+    Retirement needs one more host fact: the worst shard's local stream
+    end for the slot's budget.  The gather computes it for every budget
+    of a static grid (``widths``: the cutoffs, the stream cap, and any
+    ``extra_widths`` such as the fixed arm's) and ships it with the
+    stream lengths in one host read; ``lend_col`` indexes it.
+
+    Bit-identity: each slot's accumulator rows get the batch-once
+    sharded engine's adds (the same partitioned streams, window masks
+    that sum to the same admitted postings), and finalize runs the
+    batch-once sharded tail on the slot rows.  Only a model-only mesh
+    (one data group) is supported.
+    """
+
+    sharded = True
+
+    def __init__(self, engine: ServingEngine, *, grain: int,
+                 chunk_p: int | None = None, extra_widths=()):
+        if not isinstance(engine, ShardedServingEngine):
+            raise TypeError("ShardedSchedPrograms needs a "
+                            "ShardedServingEngine; use SchedPrograms "
+                            "(or for_engine) for the unsharded engine")
+        if not engine.supports_continuous:
+            raise TypeError("ShardedSchedPrograms: "
+                            + engine.continuous_unsupported_reason)
+        super().__init__(engine, grain=grain, chunk_p=chunk_p)
+        cap = engine.cfg.stream_cap
+        ws = {min(int(c), cap) for c in engine.cfg.cutoffs} | {cap}
+        ws |= {min(int(w), cap) for w in extra_widths}
+        self.widths = tuple(sorted(ws))
+        self.width_col = {w: i for i, w in enumerate(self.widths)}
+        self.shards = engine.groups[0]
+        grid = torch.tensor(self.widths, dtype=torch.int32)
+        self._wvecs = collectives.per_device(
+            [sh.device for sh in self.shards],
+            lambda i: grid.to(self.shards[i].device))
+        self._n_terms = 0              # the query width, set by init_state
+
+    def _slot_cap(self, engine: ServingEngine) -> int:
+        return engine.shard_cap
+
+    def lend_col(self, width: int) -> int:
+        """Column of the gather's local-end matrix for a slot whose
+        global budget is ``min(width, stream length)``."""
+        return self.width_col[min(int(width), self.engine.cfg.stream_cap)]
+
+    def _devs(self, a: np.ndarray) -> list[torch.Tensor]:
+        """A small host array on each shard's device."""
+        return collectives.per_device(
+            [sh.device for sh in self.shards],
+            lambda i: _h2d(a, self.shards[i].device))
+
+    def init_state(self, slots: int, query_len: int) -> SchedState:
+        """Fresh slot table over the partitioned layout, one tensor a
+        shard in every field: gpos padded at the stream-cap sentinel
+        (never below a budget), local segment bounds at the local empty
+        interval (shard_width, -1)."""
+        e = self.engine
+        lc, w = e.shard_cap, e.shard_width
+        nb = lc // self.bounds_p
+        lp = partition_cap(query_len * e.cfg.stream_cap, e.n_shards,
+                           e.cfg.partition_slack)
+        self._n_terms = query_len
+        cols = {k: [] for k in ("ds", "im", "seg_lo", "seg_hi", "sdocs",
+                                "s3", "acc", "gpos", "sterm")}
+        for sh in self.shards:
+            d = sh.device
+
+            def full(shape, v, dt=torch.int32, d=d):
+                return torch.full(shape, v, dtype=dt, device=d)
+
+            cols["ds"].append(full((slots, lc), -1))
+            cols["im"].append(full((slots, lc), -1.0, torch.float32))
+            cols["seg_lo"].append(full((slots, nb), w))
+            cols["seg_hi"].append(full((slots, nb), -1))
+            cols["sdocs"].append(full((slots, lp), -1))
+            cols["s3"].append(full((slots, lp, 3), 0.0, e.pscore.dtype))
+            cols["acc"].append(full((slots, w), 0.0, torch.float32))
+            cols["gpos"].append(full((slots, lc), e.cfg.stream_cap))
+            cols["sterm"].append(full((slots, lp), query_len))
+        return SchedState(**{k: tuple(v) for k, v in cols.items()})
+
+    def gather(self, qt: np.ndarray):
+        """Partitioned slot rows and the one host read of the metadata:
+        returns (per-shard rows, global stream lengths, (G, W) local-end
+        matrix indexed by ``lend_col``).  Raises on partition
+        overflow."""
+        e = self.engine
+        rows, meta = self._run(
+            "sgather", _ssched_gather, self.shards, self._devs(qt),
+            self._wvecs, cap=e.cfg.stream_cap, shard_cap=e.shard_cap,
+            block_p=self.bounds_p, width=e.shard_width,
+            slack=e.cfg.partition_slack)
+        m = meta.cpu().numpy()
+        e.check_overflow(int(m[:, 1].max()))
+        return rows, m[:, 0], m[:, 2:]
+
+    def refill(self, state: SchedState, slot_idx: np.ndarray,
+               rows) -> SchedState:
+        """``SchedPrograms.refill`` on every shard (rows in the gather's
+        order: ds, im, seg_lo, seg_hi, gpos, sdocs, s3, sterm)."""
+        n = self._n_real(slot_idx, state.acc[0].shape[0])
+        idx = self._devs(slot_idx[:n].astype(np.int64))
+        bufs = list(zip(state.ds, state.im, state.seg_lo, state.seg_hi,
+                        state.gpos, state.sdocs, state.s3, state.sterm))
+
+        def refill_all():
+            out = []
+            for sh, b, acc, i, r in zip(self.shards, bufs, state.acc, idx,
+                                        rows):
+                with device_scope(sh.device):
+                    out.append(_ssched_refill(b, acc, i,
+                                              tuple(x[:n] for x in r)))
+            return out
+
+        cols = list(zip(*self._run("refill", refill_all)))
+        names = ("ds", "im", "seg_lo", "seg_hi", "gpos", "sdocs", "s3",
+                 "sterm", "acc")
+        return SchedState(**dict(zip(names, cols)))
+
+    def chunk(self, state: SchedState, pos: np.ndarray,
+              end: np.ndarray) -> SchedState:
+        """Advance every active slot by one local chunk window (``pos``
+        the local cursor, ``end`` the global rho budget)."""
+        e = self.engine
+        pos_d, end_d = self._devs(pos), self._devs(end)
+
+        def chunk_all():
+            out = []
+            for i, sh in enumerate(self.shards):
+                with device_scope(sh.device):
+                    out.append(_ssched_chunk(
+                        state.ds[i], state.im[i], state.seg_lo[i],
+                        state.seg_hi[i], state.gpos[i], state.acc[i],
+                        pos_d[i], end_d[i], chunk_p=self.chunk_p,
+                        bounds_p=self.bounds_p, width=e.shard_width,
+                        block_d=e.block_d))
+            return tuple(out)
+
+        return dataclasses.replace(state, acc=self._run("chunk", chunk_all))
+
+    def finalize(self, state: SchedState, slot_idx: np.ndarray,
+                 pvec: np.ndarray, dvec: np.ndarray,
+                 qids: np.ndarray) -> np.ndarray:
+        """The batch-once sharded tail on a retiring group's slot rows:
+        each shard's survivors, the merge, stage 2 on the partitioned
+        score rows, the rerank.  Returns host ranked lists (grain,
+        rerank_depth)."""
+        e = self.engine
+        cfg = e.cfg
+        rho = cfg.knob == "rho"
+        pool_depth = cfg.rerank_depth if rho else e.max_k
+        idx = self._devs(slot_idx.astype(np.int64))
+        shards = self.shards
+        sw = dict(width=e.shard_width)
+
+        def finalize_all():
+            def rows(field):
+                return [t.index_select(0, i) for t, i in zip(field, idx)]
+
+            surv = _sh_survivors(shards, rows(state.acc),
+                                 min(pool_depth, e.shard_width))
+            vflat, gflat = collectives.gather_local_topk(*zip(*surv))
+            pools = _sh_merge(shards, vflat, gflat,
+                              None if rho else self._devs(pvec),
+                              depth=pool_depth)
+            stage2 = _sh_stage2(shards, rows(state.sdocs), rows(state.s3),
+                                rows(state.sterm), self._devs(qids),
+                                n_docs=e.n_docs, n_terms=self._n_terms, **sw)
+            return _sh_rerank(shards, stage2, pools, self._devs(dvec),
+                              depth=cfg.rerank_depth, **sw)
+
+        r = self._run("finalize", finalize_all)
+        return _pad_ranked(r.cpu().numpy(), cfg.rerank_depth)

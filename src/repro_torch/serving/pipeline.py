@@ -26,7 +26,8 @@ from repro_torch.core import knobs as knobs_lib
 from repro_torch.device import resolve_device
 from repro_torch.retrieval import gold, jass
 from repro_torch.serving import bucketing
-from repro_torch.serving.engine import ServingEngine, _pad_ranked
+from repro_torch.serving.engine import (ServingEngine, ShardedServingEngine,
+                                       _pad_ranked)
 
 __all__ = ["ServingConfig", "RetrievalServer"]
 
@@ -41,6 +42,9 @@ class ServingConfig:
     pad_multiple: int = 8
     kernel_block_p: int = 512       # impact_scan posting-block size
     kernel_block_d: int = 2048      # impact_scan doc-tile size
+    partition_slack: float = 2.0    # per-shard stream headroom (sharded
+    #                               engine: shard stream cap ~= slack *
+    #                               cap / n_shards; overflow raises)
     depth_cutoffs: tuple[int, ...] | None = None  # reranking-depth grid
     #                               (third knob); None = depth knob off.
     #                               Must end at depth_pool_width.
@@ -91,13 +95,18 @@ def _same_layout(new, old) -> None:
 
 
 class RetrievalServer:
-    """Owns the index-derived tensors + trained cascade; serves batches
-    on one device."""
+    """Owns the index-derived tensors + trained cascade; serves batches.
+
+    With a ``mesh`` (``distrib.sharding.DeviceMesh``) the engine is the
+    ``ShardedServingEngine``: docs shard over ``shard_axis``, request
+    rows over the mesh's data axes, with the same ``serve`` surface and
+    the same lists.  ``device`` is where the cascade predicts."""
 
     def __init__(self, index, casc: cascade_lib.Cascade | None,
                  cfg: ServingConfig, *,
                  depth_cascade: cascade_lib.Cascade | None = None,
-                 device=None, warmup_batch_sizes: tuple[int, ...] = (),
+                 device=None, mesh=None, shard_axis: str = "model",
+                 warmup_batch_sizes: tuple[int, ...] = (),
                  warmup_query_len: int = 0):
         self.device = resolve_device(device)
         self.cascade = casc
@@ -112,7 +121,11 @@ class RetrievalServer:
             raise ValueError(
                 "depth_cascade given but cfg.depth_cutoffs is None -- "
                 "declare the depth grid in ServingConfig")
-        self.engine = ServingEngine(index, cfg, device=self.device)
+        if mesh is not None:
+            self.engine = ShardedServingEngine(index, cfg, mesh,
+                                               axis=shard_axis)
+        else:
+            self.engine = ServingEngine(index, cfg, device=self.device)
         ts = index.term_stats
         self.stats = ts.stats.to(self.device)
         self.ctf = ts.ctf.to(self.device)

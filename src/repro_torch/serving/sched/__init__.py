@@ -8,7 +8,9 @@ retires mid-flight, and freed slots refill from the admission queue at
 the next stage boundary.
 
 * ``engine.SchedPrograms`` -- the four stage functions (sgather /
-  refill / chunk / finalize) and the device-resident ``SchedState``.
+  refill / chunk / finalize) and the device-resident ``SchedState``;
+  ``engine.ShardedSchedPrograms`` runs them over a model-only mesh's
+  partitioned streams (``SchedPrograms.for_engine`` picks).
 * ``slots.SlotTable`` -- host-side slot bookkeeping (the only truth for
   stream positions; no per-chunk device readback).
 * ``scheduler.ContinuousScheduler`` -- the tick loop: finalize retiring

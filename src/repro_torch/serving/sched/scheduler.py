@@ -67,8 +67,13 @@ class ContinuousScheduler:
             raise ValueError(
                 f"grain={self.grain} exceeds slots={self.slots}: a full "
                 "retire group must fit the table or finalize can starve")
-        self.prog = SchedPrograms.for_engine(engine, grain=self.grain,
-                                             chunk_p=chunk_p)
+        # for_engine picks the sharded programs on a mesh engine; the fixed
+        # arm's budget joins their static budget grid, so its local retire
+        # bounds come with the gather like any cutoff's
+        self.prog = SchedPrograms.for_engine(
+            engine, grain=self.grain, chunk_p=chunk_p,
+            extra_widths=(() if fixed_param is None
+                          else (int(fixed_param),)))
         self.window = int(window) if window else 2 * self.grain
         self.co_group = bool(co_group)
         self.fixed_param = (None if fixed_param is None
@@ -149,7 +154,7 @@ class ContinuousScheduler:
                 "slots": self.slots,
                 "grain": self.grain,
                 "chunk_p": self.prog.chunk_p,
-                "sharded": False,
+                "sharded": self.prog.sharded,
             }
 
     # ---------------------------------------------------------- finalize --
@@ -324,7 +329,7 @@ class ContinuousScheduler:
         if self._state is None:
             self._state = self.prog.init_state(self.slots, self.query_len)
         qt = self._rows(group, self.grain)
-        rows, slen = self.prog.gather(qt)
+        rows, slen, lend = self.prog.gather(qt)
         with self._lock:
             taken = [self.table.acquire() for _ in group]
             self.n_refill_calls += 1
@@ -359,12 +364,25 @@ class ContinuousScheduler:
                 s.chunks = 0
                 sl = int(slen[i])
                 s.end = min(s.width, sl) if self.knob == "rho" else sl
+                if self.prog.sharded:
+                    # the worst shard's local stream end for this slot's
+                    # budget, from the gather's metadata; the local cursor
+                    # retires against it (lend is 0 exactly when end is:
+                    # some shard owns global position 0 of any stream)
+                    col = self.prog.lend_col(
+                        s.width if self.knob == "rho"
+                        else self.server.cfg.stream_cap)
+                    s.lpos = 0
+                    s.lend = int(lend[i, col])
+                    done = s.lpos >= s.lend
+                else:
+                    done = s.pos >= s.end
                 self.n_admitted += 1
                 # the request's wait in the pending set (take_urgent
                 # bypasses batch formation, so the queue span lands here)
                 self.obs.trace.record("queue", r.t_submit, t, qid=s.qid,
                                       slot=s.idx)
-                if s.pos >= s.end:     # empty stream: retire immediately
+                if done:               # empty stream: retire immediately
                     self._retire(s, t, occ)
 
     # ------------------------------------------------------------- chunk --
@@ -376,8 +394,11 @@ class ContinuousScheduler:
                 return 0
             pos = np.zeros(self.slots, np.int32)
             end = np.zeros(self.slots, np.int32)
+            sharded = self.prog.sharded
             for s in act:
-                pos[s.idx] = s.pos
+                # sharded programs window the local partitioned stream;
+                # the device mask still applies the global rho budget
+                pos[s.idx] = s.lpos if sharded else s.pos
                 end[s.idx] = s.end
             self.n_chunk_calls += 1
         self._state = self.prog.chunk(self._state, pos, end)
@@ -386,8 +407,13 @@ class ContinuousScheduler:
             cp = self.prog.chunk_p
             for s in act:
                 s.chunks += 1
-                s.pos = min(s.pos + cp, s.end)
-                if s.pos >= s.end:
+                if sharded:
+                    s.lpos = min(s.lpos + cp, s.lend)
+                    done = s.lpos >= s.lend
+                else:
+                    s.pos = min(s.pos + cp, s.end)
+                    done = s.pos >= s.end
+                if done:
                     self._retire(s, t, occ)
         # host-only recording: the chunk dispatch window (the sched.chunk
         # span inside prog.chunk covers the dispatch itself)

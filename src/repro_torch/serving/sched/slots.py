@@ -33,6 +33,8 @@ class Slot:
     version: int = 0                  # predictor version at admission
     end: int = 0                      # postings to execute (<= stream len)
     pos: int = 0                      # postings executed so far
+    lend: int = 0                     # sharded: worst-shard local stream end
+    lpos: int = 0                     # sharded: local chunk cursor
     chunks: int = 0                   # chunk dispatches while active
     predict_ms: float = 0.0           # admission-side cascade span
     t_admit: float = 0.0
@@ -51,6 +53,7 @@ class Slot:
         self.depth = 0
         self.depth_class = -1
         self.version = self.end = self.pos = self.chunks = 0
+        self.lend = self.lpos = 0
         self.predict_ms = self.t_admit = self.t_retire = 0.0
         self.retire_reason = None
         self.occupancy = 0.0

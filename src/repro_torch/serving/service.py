@@ -10,12 +10,13 @@
   queue forms batches by deadline and max-batch-size over the engine's
   pad grid and returns per-request futures.
 * **Backends**: anything implementing the small ``Backend`` protocol --
-  ``EngineBackend`` (cascade + batch-once engine) and ``FunnelBackend``
-  (two-tower + BST funnel).  ``ContinuousBackend`` opts out of batch
-  formation: the slot-table scheduler (``serving/sched``) admits
-  requests into in-flight work at stage boundaries and retires each one
-  at its own predicted budget, all on one tick thread on the device's
-  default stream.  The port has no ``ShardedEngineBackend``.
+  ``EngineBackend`` (cascade + batch-once engine),
+  ``ShardedEngineBackend`` (the same over a mesh-sharded engine) and
+  ``FunnelBackend`` (two-tower + BST funnel).  ``ContinuousBackend``
+  opts out of batch formation: the slot-table scheduler
+  (``serving/sched``) admits requests into in-flight work at stage
+  boundaries and retires each one at its own predicted budget, all on
+  one tick thread on the device's default stream.
 * **Overlap**: the backend splits into ``predict`` (the admission-side
   cascade) and ``execute`` (the staged engine dispatch); the service runs
   them on separate threads connected by a bounded handoff queue, so the
@@ -64,8 +65,9 @@ from repro_torch.serving.admission import (AdmissionConfig, AdmissionQueue,
                                            Batch)
 from repro_torch.serving.server import ServerStats
 
-__all__ = ["Backend", "EngineBackend", "ContinuousBackend", "FunnelBackend",
-           "WarmupPolicy", "RetrievalService"]
+__all__ = ["Backend", "EngineBackend", "ShardedEngineBackend",
+           "ContinuousBackend", "FunnelBackend", "WarmupPolicy",
+           "RetrievalService"]
 
 # predicted batches the admission thread may run ahead of execution
 _HANDOFF_DEPTH = 2
@@ -187,6 +189,30 @@ class EngineBackend:
         (see ``pipeline.RetrievalServer.swap_predictor``)."""
         return self.server.swap_predictor(node_params, thresholds,
                                           version=version, knob=knob)
+
+
+class ShardedEngineBackend(EngineBackend):
+    """``EngineBackend`` over a mesh-sharded engine.
+
+    The same protocol: admission, the predict/execute overlap, learned
+    warmup and per-stage timing work unchanged, while the engine shards
+    the doc dimension over the mesh's 'model' axis and request batches
+    over ('pod', 'data').  The admission ``pad_multiple`` (the engine's
+    ``batch_multiple``) makes every padded batch divide over the data
+    axes.  Build the server with a mesh::
+
+        server = RetrievalServer(index, casc, cfg, mesh=mesh)
+        service = RetrievalService(ShardedEngineBackend(server))
+    """
+
+    def __init__(self, server, query_len: int | None = None):
+        from repro_torch.serving.engine import ShardedServingEngine
+        if not isinstance(server.engine, ShardedServingEngine):
+            raise TypeError(
+                "ShardedEngineBackend needs a RetrievalServer built with "
+                "a mesh (RetrievalServer(..., mesh=mesh)); got an "
+                "unsharded engine — use EngineBackend for that.")
+        super().__init__(server, query_len)
 
 
 class ContinuousBackend:

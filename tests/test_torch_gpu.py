@@ -203,8 +203,9 @@ def test_serve_batch_on_card_matches_cpu(cuda_device, knob):
                                   gpu.serve_batch_reference(qt)["ranked"])
 
 
-def _card_server(cuda_device, knob):
-    """A tiny system's server on the card and 37 of its queries."""
+def _card_server(cuda_device, knob, mesh=None, **cfg_kw):
+    """A tiny system's server on the card (over ``mesh``, if given; the
+    ``ServingConfig`` takes ``cfg_kw``) and 37 of its queries."""
     sys_ = experiment.build_system(experiment.ExperimentConfig(
         n_docs=1500, vocab=4000, n_queries=96, stream_cap=256,
         pool_depth=400, gold_depth=100, query_batch=48, seed=3),
@@ -217,8 +218,8 @@ def _card_server(cuda_device, knob):
                                  device=cuda_device)
     server = pipeline.RetrievalServer(
         sys_.index, casc, pipeline.ServingConfig(
-            knob=knob, cutoffs=cuts, rerank_depth=30, stream_cap=256),
-        device=cuda_device)
+            knob=knob, cutoffs=cuts, rerank_depth=30, stream_cap=256,
+            **cfg_kw), device=cuda_device, mesh=mesh)
     return server, sys_.queries.terms[:37]
 
 
@@ -701,3 +702,82 @@ def test_hot_swap_under_threaded_traffic_on_card(cuda_device):
             versions.add(r["predictor_version"])
             assert r["class"] in (want[0][i], want[1][i])
     assert len(versions) >= 2
+
+
+#: the tiny system's slack over 4 shards: shard 0 owns up to 196 of a
+#: query's 256 postings (impact ties at a term's cut keep the lowest doc
+#: ids), over the default slack's slot of 128; 3.5 gives 224
+CARD_SLACK = 3.5
+
+
+@pytest.fixture
+def card_positions(cuda_device):
+    """Four mesh positions laid over the card, for one test."""
+    from repro_torch.launch import mesh as mesh_lib
+    mesh_lib.force_host_device_count(4)
+    yield mesh_lib
+    mesh_lib.force_host_device_count(0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("knob", ["rho", "k"])
+def test_sharded_engine_on_card_equals_unsharded(card_positions, knob):
+    """Four shards on the card: the lists equal the unsharded engine's on
+    the card, with impact_scan launched once a shard (and topk on rho,
+    kl = 30; k's pool of 400 > KP_MAX takes the plain sort), and the
+    continuous scheduler over the mesh equals one ``engine.serve``."""
+    dev = torch.device("cuda")
+    server, qt = _card_server(dev, knob)
+    sharded, _ = _card_server(
+        dev, knob, card_positions.make_serving_mesh(4, device=dev),
+        partition_slack=CARD_SLACK)
+    want = server.serve_batch(qt)
+    n0 = (is_kernel.n_launches, tk_kernel.n_launches)
+    got = sharded.serve_batch(qt)
+    n_is, n_tk = (is_kernel.n_launches - n0[0], tk_kernel.n_launches - n0[1])
+    np.testing.assert_array_equal(got["ranked"], want["ranked"])
+    assert (n_is, n_tk) == (4, 4 if knob == "rho" else 0)
+    classes = sharded.predict_classes(qt)
+    ref, _ = sharded.engine.serve(qt, sharded.params_of(classes))
+    np.testing.assert_array_equal(ref, want["ranked"])
+    svc = service.RetrievalService(service.ContinuousBackend(
+        sharded, query_len=qt.shape[1], slots=16, grain=4, window=8))
+    res = svc.serve_all(list(qt), deadline_ms=1e6)
+    np.testing.assert_array_equal(np.stack([r["ranked"] for r in res]), ref)
+
+
+@pytest.mark.gpu
+def test_sharded_stage2_is_deterministic_on_card(card_positions):
+    """Stage 2 over the compacted score streams adds term by term: two
+    identical calls on the card are bit-equal, and equal the unsharded
+    stage 2 on the card (one scatter over the compacted stream would add
+    in atomic order)."""
+    from repro_torch.serving import engine
+    dev = torch.device("cuda")
+    server, qt = _card_server(
+        dev, "rho", card_positions.make_serving_mesh(4, device=dev),
+        partition_slack=CARD_SLACK)
+    e = server.engine
+    group = e.groups[0]
+    q = torch.from_numpy(np.pad(qt, ((0, 3), (0, 0)), constant_values=-1)
+                         .astype(np.int32)).cuda()
+    qids = torch.arange(q.shape[0], dtype=torch.int32, device=q.device)
+    rows, over, _ = engine._sh_gather(
+        group, [q] * 4, cap=e.cfg.stream_cap, shard_cap=e.shard_cap,
+        block_p=e.block_p, width=e.shard_width, slack=e.cfg.partition_slack)
+    assert int(over.max()) == 0
+
+    def stage2():
+        out = engine._sh_stage2(
+            group, [r[5] for r in rows], [r[6] for r in rows],
+            [r[7] for r in rows], [qids] * 4, width=e.shard_width,
+            n_docs=e.n_docs, n_terms=q.shape[1])
+        return torch.cat(out, dim=1)[:, :e.n_docs]
+
+    a, b = stage2(), stage2()
+    assert torch.equal(a, b)
+    sdocs, s3 = engine.jass.gather_score_streams(
+        e.offsets, e.pdoc, e.pscore, q, cap=e.cfg.stream_cap)
+    ref = engine._stage2(sdocs, s3, e.doc_len, qids, n_docs=e.n_docs,
+                         n_terms=q.shape[1])
+    assert torch.equal(a, ref)

@@ -45,7 +45,9 @@ def test_port_imports_neither_jax_nor_repro():
             "obs/export.py", "serving/admission.py", "serving/server.py",
             "serving/service.py", "core/tradeoff.py",
             "launch/serve.py", "core/baselines.py", "core/mlp.py",
-            "examples/quickstart.py"} <= scanned
+            "examples/quickstart.py", "distrib/__init__.py",
+            "distrib/collectives.py", "distrib/sharding.py",
+            "launch/mesh.py"} <= scanned
     bad = {(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN}
     assert not bad, sorted(bad)

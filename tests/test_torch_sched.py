@@ -380,8 +380,8 @@ def _tensors(state):
 def test_refill_of_padding_only_changes_nothing(carried):
     prog, state = _live_state(carried)
     before = _tensors(state)
-    rows, _ = prog.gather(np.full((prog.grain, state.sdocs.shape[1]
-                                   // prog.slot_cap), -1, np.int32))
+    rows, _, _ = prog.gather(np.full((prog.grain, state.sdocs.shape[1]
+                                      // prog.slot_cap), -1, np.int32))
     new = prog.refill(state, np.full(prog.grain, 8, np.int32), rows)
     for a, b in zip(before, _tensors(new)):
         assert a.equal(b)
@@ -401,7 +401,7 @@ def test_refill_is_out_of_place(carried):
     prog, state = _live_state(carried)
     before = _tensors(state)
     qt = carried[0].queries.terms[10:10 + prog.grain]
-    rows, _ = prog.gather(qt.astype(np.int32))
+    rows, _, _ = prog.gather(qt.astype(np.int32))
     new = prog.refill(state, np.array([5, 6, 8, 8], np.int32), rows)
     for a, b in zip(before, _tensors(state)):
         assert a.equal(b)
