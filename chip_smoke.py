@@ -155,12 +155,36 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      the card whose classes equal the CPU's from the same parameters,
      and ``python -m repro_torch.examples.quickstart`` with ``--device
      cuda`` and ``--device cpu``, whose tables must be equal.
+  12. (after phase 6, before phase 5) training on the card.  Each of
+     wide-deep, DIEN, BST and MIND at its full ``model_config()`` runs
+     ``python -m repro_torch.launch.train --full --steps 6 --batch 65536
+     --device cuda`` (the ``train_batch`` shape) as a subprocess, its
+     checkpoints in ``build/phase12_ckpt`` (removed after): every loss
+     finite, BST launching flash_attention once a step and the others
+     never.  One ``phase 12:`` line per arch: the median step ms over
+     steps 2-6 and samples/s, the peak device memory, the step's model
+     FLOPs and their rate, the checkpoint's bytes and seconds, the flash
+     launches.  BST again with ``--preempt-at 3``: its final checkpoint
+     must equal the clean run's bit for bit.  Then in this process:
+     BST's gradients at the full config (batch 256) through the kernel
+     within 2e-5 of the plain attention's (of each leaf's largest
+     magnitude), nonzero for the attention's weights and the item table;
+     each arch's smoke config trained 8 steps on the card and on the CPU
+     from the same seeded parameters and batches, losses within 1e-5
+     relative; the gathers' backward (``scatter_rows``) at DIEN's history
+     shape bit-equal twice and within 1e-4 of a float64 sum; and
+     flash_attention at the training shape (B = 65 536, 8 heads, S 21,
+     hd 4) against its plain version and its backward against autograd,
+     with one call's times, SDPA's and the backward's (a ``phase 1:
+     training shape`` line).
   9. one JSON line with every kernel's launches (phases 2 and 3),
      service launches (the inline and FIFO runs of phase 4), continuous
      launches (phase 7's inline runs), online launches (phase 8's shadow
      steps), sharded launches (phase 11's counted windows), error and
      times; impact_scan's and topk's ``continuous`` and ``shard`` fields
-     hold their rows at the continuous path's and the shard shape.
+     hold their rows at the continuous path's and the shard shape, and
+     flash_attention's ``train`` field its row at the training shape with
+     the launches of phase 12's clean BST run.
   10. the last line: {"ok": true, "device": {...}}.
 
 With ``--profile DIR``, after phase 5 each knob's server and the funnel
@@ -2298,6 +2322,354 @@ def quickstart_cli() -> None:
         "wall_s_cpu": walls["cpu"]}))
 
 
+# ------------------------------------------------------------ phase 12 --
+
+#: the recsys archs the port trains (``python -m repro_torch.launch.train``)
+TRAIN_ARCHS = ("wide-deep", "dien", "bst", "mind")
+#: configs/recsys_common.py RECSYS_SHAPES["train_batch"]
+TRAIN_BATCH = 65536
+TRAIN_STEPS, TRAIN_PREEMPT = 6, 3
+#: the card against the CPU at each smoke config: steps, batch, and the
+#: relative tolerance of the losses (float32 sums in another order)
+TRAIN_CPU_STEPS, TRAIN_CPU_BATCH, TRAIN_CPU_RTOL = 8, 64, 1e-5
+#: BST's gradients through the kernel against the plain attention at
+#: the full config (float32, relative to each leaf's largest magnitude)
+GRAD_BATCH, GRAD_RTOL = 256, 2e-5
+#: the gather backward against a float64 sum, relative to the largest
+#: row's magnitude (float32 sums of up to 2.4 M values)
+GATHER_RTOL = 1e-4
+
+
+def train_cli(arch: str, ckpt_dir: str, *extra: str):
+    """``python -m repro_torch.launch.train`` at the full config on the
+    card, as a user runs it: its printed lines and its ``report:``, every
+    loss finite."""
+    import math
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+           "--full", "--steps", str(TRAIN_STEPS), "--batch",
+           str(TRAIN_BATCH), "--device", "cuda", "--ckpt-dir", ckpt_dir,
+           *extra]
+    log("phase 12: " + " ".join(cmd[1:]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        cmd, cwd=HERE, timeout=900, capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[1:])} exited "
+                             f"{proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    lines = proc.stdout.splitlines()
+    for ln in lines[:-1]:
+        log("phase 12: | " + ln)
+    report = json.loads(lines[-1].removeprefix("report: "))
+    report["wall_s"] = time.perf_counter() - t0
+    if len(report["losses"]) != TRAIN_STEPS or not all(
+            math.isfinite(x) for x in report["losses"]):
+        raise AssertionError(f"{arch}: losses {report['losses']}")
+    return lines, report
+
+
+def _same_checkpoints(a: str, b: str) -> int:
+    """Raise unless the newest checkpoints under ``a`` and ``b`` hold the
+    same leaves bit for bit; returns their bytes."""
+    import numpy as np
+    from repro_torch.ckpt import checkpoint as ckpt
+    dirs = [os.path.join(p, f"step_{ckpt.latest_step(p):08d}")
+            for p in (a, b)]
+    manifests = []
+    for d in dirs:
+        with open(os.path.join(d, "manifest.json")) as f:
+            manifests.append(json.load(f))
+    if manifests[0]["leaves"] != manifests[1]["leaves"]:
+        raise AssertionError("the two checkpoints hold other leaves")
+    n_bytes = 0
+    for rec in manifests[0]["leaves"]:
+        x, y = (np.load(os.path.join(d, rec["file"])) for d in dirs)
+        if x.tobytes() != y.tobytes():
+            raise AssertionError(f"restart differs from the clean run at "
+                                 f"{rec['name']}")
+        n_bytes += x.nbytes
+    return n_bytes
+
+
+def train_runs() -> int:
+    """Phase 12, part 1: each arch through the CLI at its full config and
+    the train_batch shape, 6 steps, checkpoints in a directory the phase
+    removes; then BST again with a preemption at step 3, whose final
+    checkpoint must equal the clean run's bit for bit.  Returns the flash
+    launches of the clean BST run (one a step)."""
+    import shutil
+    root = os.path.join(HERE, "build", "phase12_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        launches = None
+        for arch in TRAIN_ARCHS:
+            _, rep = train_cli(arch, os.path.join(root, arch))
+            steady = rep["step_ms"][1:]
+            med = statistics.median(steady)
+            want = TRAIN_STEPS if arch == "bst" else 0
+            if rep["flash_launches"] != want:
+                raise AssertionError(f"{arch}: {rep['flash_launches']} flash "
+                                     f"launches in {TRAIN_STEPS} steps")
+            log(f"phase 12: {arch}: " + json.dumps(dict(
+                batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+                step_ms_median_2_6=med, step_ms=rep["step_ms"],
+                samples_per_s=TRAIN_BATCH / med * 1e3,
+                peak_bytes=rep["peak_bytes"],
+                model_flops_per_step=rep["model_flops"],
+                model_tflops_per_s=rep["model_flops"] / med / 1e9,
+                ckpt=[{k: w[k] for k in ("step", "bytes", "seconds")}
+                      for w in rep["ckpt"]],
+                flash_launches=rep["flash_launches"],
+                loss_first=rep["losses"][0], loss_last=rep["losses"][-1],
+                wall_s=rep["wall_s"])))
+            if arch == "bst":
+                launches = rep["flash_launches"]
+            else:
+                shutil.rmtree(os.path.join(root, arch))
+        lines, rep = train_cli("bst", os.path.join(root, "bst_preempt"),
+                               "--preempt-at", str(TRAIN_PREEMPT))
+        if "restarts=1" not in lines[0]:
+            raise AssertionError(f"preempted BST run: {lines[0]}")
+        n_bytes = _same_checkpoints(os.path.join(root, "bst"),
+                                    os.path.join(root, "bst_preempt"))
+        log(f"phase 12: bst restart at step {TRAIN_PREEMPT}: final "
+            f"checkpoint equal to the clean run's bit for bit ({n_bytes} "
+            f"bytes of parameters and optimizer state)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def bst_grad_check(dev) -> dict:
+    """Phase 12, part 2: BST's gradients at the full config (batch 256)
+    through the kernel (one launch) equal those through the plain
+    attention within GRAD_RTOL of each leaf's largest magnitude, and the
+    attention path's leaves get nonzero gradients."""
+    import torch
+    from repro_torch.configs import bst as bst_configs
+    from repro_torch.data import recsys_data
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.models.recsys import bst
+    from repro_torch.tree import leaves_with_paths
+
+    cfg = bst_configs.model_config()
+    params = bst.init_bst(cfg, seed=0, device=dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             recsys_data.bst_batch(cfg, GRAD_BATCH, 0).items()}
+    flat = leaves_with_paths(params)
+    names = ["::".join(map(str, path)) for path, _ in flat]
+
+    def grads(use_kernel):
+        for _, p in flat:
+            p.requires_grad_(True)
+        loss = bst.bst_loss(params, cfg, batch, use_kernel=use_kernel)
+        g = torch.autograd.grad(loss, [p for _, p in flat])
+        for _, p in flat:
+            p.requires_grad_(False)
+        return float(loss.detach()), g
+
+    K.n_launches = 0
+    loss_k, g_k = grads(True)
+    loss_p, g_p = grads(False)
+    if K.n_launches != 1:
+        raise AssertionError(f"{K.n_launches} flash launches for one "
+                             "kernel-path loss and one plain loss")
+    rel = {}
+    for name, a, b in zip(names, g_k, g_p):
+        scale = float(b.abs().max())
+        rel[name] = float((a - b).abs().max()) / scale if scale else 0.0
+        if rel[name] > GRAD_RTOL:
+            raise AssertionError(f"BST gradient of {name} through the kernel "
+                                 f"differs by {rel[name]} of its scale")
+    for name in ("blocks::0::wq", "blocks::0::wk", "blocks::0::wv",
+                 "item_table"):
+        if not bool(g_k[names.index(name)].abs().max() > 0):
+            raise AssertionError(f"zero gradient of {name} through the "
+                                 "kernel")
+    return dict(batch=GRAD_BATCH, loss_kernel=loss_k, loss_plain=loss_p,
+                launches=1, rel_err={n: rel[n] for n in (
+                    "blocks::0::wq", "blocks::0::wk", "blocks::0::wv",
+                    "item_table")}, max_rel_err=max(rel.values()))
+
+
+def train_card_vs_cpu(dev) -> dict:
+    """Phase 12, part 3: each arch at its smoke config, 8 steps on the
+    card and on the CPU from the same seeded parameters and batches:
+    the losses within TRAIN_CPU_RTOL relative."""
+    import torch
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+
+    out = {}
+    for arch in TRAIN_ARCHS:
+        cfg = cfgbase.get(arch).smoke_config()
+        init_fn, loss_fn, batch_fn = train.FAMILIES[arch]
+        losses = []
+        for d in (dev, torch.device("cpu")):
+            params = init_fn(cfg, seed=0, device=d)
+            opt = adamw.init_opt_state(params)
+            step = train.make_step(loss_fn, cfg, adamw.AdamWConfig(
+                lr=3e-3, weight_decay=1e-5))
+            ls = []
+            for i in range(TRAIN_CPU_STEPS):
+                batch = {k: torch.from_numpy(v).to(d) for k, v in
+                         batch_fn(cfg, TRAIN_CPU_BATCH, i, seed=1).items()}
+                params, opt, m = step(params, opt, batch)
+                ls.append(float(m["loss"]))
+            losses.append(ls)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+        if rel > TRAIN_CPU_RTOL:
+            raise AssertionError(f"{arch}: card losses {losses[0]} against "
+                                 f"CPU {losses[1]}")
+        out[arch] = rel
+    return out
+
+
+def gather_determinism(dev) -> dict:
+    """Phase 12, part 4: the recsys gather's backward (``scatter_rows``)
+    at DIEN's full history shape (65 536 x 100 ids over 1 M items, the
+    padding read as row 0) must give the same bits twice, within
+    GATHER_RTOL of a float64 sum (of the largest row's magnitude: row 0
+    adds some 2.4 M values in order); beside it, whether ``index_put_``
+    with accumulate (the plain gather's backward) and ``index_add_``
+    gave the same bits twice, their errors, and one call's times
+    (``unchunked_ms``: ``scatter_rows`` with one chunk a run, each run
+    summed by one thread)."""
+    import torch
+    from repro_torch.configs import dien as dien_configs
+    from repro_torch.data import recsys_data
+    from repro_torch.models.recsys import embedding
+    from repro_torch.models.recsys.embedding import scatter_rows
+
+    cfg = dien_configs.model_config()
+    ids = torch.from_numpy(recsys_data.dien_batch(
+        cfg, TRAIN_BATCH, 0)["hist_items"]).to(dev).clamp(min=0).reshape(-1)
+    ids = ids.long()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = torch.randn((ids.numel(), cfg.embed_dim), generator=gen,
+                       device=dev)
+    v = cfg.item_vocab
+
+    def index_put():
+        return torch.zeros((v, cfg.embed_dim), device=dev).index_put_(
+            (ids,), rows, accumulate=True)
+
+    def index_add():
+        return torch.zeros((v, cfg.embed_dim), device=dev).index_add_(
+            0, ids, rows)
+
+    def rel_err(x):
+        return float((x.double() - exact).abs().max()) / scale
+
+    exact = torch.zeros((v, cfg.embed_dim), dtype=torch.float64,
+                        device=dev).index_add_(0, ids, rows.double())
+    scale = float(exact.abs().max())
+    a, b = scatter_rows(rows, ids, v), scatter_rows(rows, ids, v)
+    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        raise AssertionError("scatter_rows differs between two calls")
+    err = rel_err(a)
+    if err > GATHER_RTOL:
+        raise AssertionError(f"scatter_rows differs from a float64 sum by "
+                             f"{err} of the largest row")
+    ref = index_put()
+    chunk = embedding.SCATTER_CHUNK
+    embedding.SCATTER_CHUNK = ids.numel()      # one chunk a run
+    try:
+        unchunked_ms = time_ms(lambda: scatter_rows(rows, ids, v), reps=5)
+    finally:
+        embedding.SCATTER_CHUNK = chunk
+    return dict(ids=ids.numel(), rows=v, dim=cfg.embed_dim,
+                row0_count=int((ids == 0).sum()), rel_err=err,
+                index_put_rel_err=rel_err(ref),
+                index_put_bit_equal=bool(torch.equal(
+                    ref.view(torch.int32), index_put().view(torch.int32))),
+                index_add_bit_equal=bool(torch.equal(
+                    index_add().view(torch.int32),
+                    index_add().view(torch.int32))),
+                ms=time_ms(lambda: scatter_rows(rows, ids, v), reps=5),
+                unchunked_ms=unchunked_ms,
+                index_put_ms=time_ms(index_put, reps=5),
+                library_ms=time_ms(index_add, reps=5))
+
+
+def check_flash_train(dev, bst_cfg) -> dict:
+    """flash_attention at BST's training shape (train_batch rows x 8
+    heads, S 21, hd 4, on BST's (B, S, H, hd) views): the kernel within
+    2e-5 of the plain attention, ``flash_attention_bwd`` within 2e-5
+    (of each gradient's largest magnitude) of autograd through the plain
+    attention; one call's times, SDPA's, and the backward's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    q, k, v = _bst_qkv(TRAIN_BATCH, bst_cfg, randn)
+    s, h, hd = q.shape[1], q.shape[2], q.shape[3]
+    o = ops.flash_attention(q, k, v, causal=False)
+    err = float((o - attention_ref_bshd(q, k, v, causal=False)).abs().max())
+    if err > 2e-5:
+        raise AssertionError(f"flash_attention at the training shape "
+                             f"differs by {err}")
+    do = randn(*o.shape)
+    got = ops.flash_attention_bwd(q, k, v, o, do, causal=False)
+    xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(attention_ref_bshd(*xs, causal=False), xs, do)
+    bwd_err = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(got, want))
+    if bwd_err > 2e-5:
+        raise AssertionError(f"flash_attention_bwd differs from autograd "
+                             f"by {bwd_err} of the gradient's scale")
+    del xs, want, got
+    q4, k4, v4 = (x.transpose(1, 2) for x in (q, k, v))
+    n_bytes = 4 * q.numel() * q.element_size()
+    b_ms, b_by = bound_ms(n_bytes, 4 * TRAIN_BATCH * h * s * s * hd)
+
+    def call():
+        return ops.flash_attention(q, k, v, causal=False)
+
+    return dict(
+        shape=f"B={TRAIN_BATCH} S={s} H={h} hd={hd} float32 non-causal",
+        max_abs_err=err, backward_max_rel_err=bwd_err,
+        ms=time_ms(call), device_ms=time_ms(call, hold=True),
+        plain_ms=time_ms(lambda: attention_ref_bshd(q, k, v, causal=False)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, scale=hd ** -0.5)),
+        backward_ms=time_ms(lambda: ops.flash_attention_bwd(
+            q, k, v, o, do, causal=False), reps=10),
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def train_path(dev, bst_cfg) -> dict:
+    """Phase 12: training on the card.  Returns the flash row's ``train``
+    field: the kernel at the training shape and its launches in the
+    clean BST run."""
+    import torch
+    torch.cuda.empty_cache()
+    log(f"phase 12: this process holds {torch.cuda.memory_allocated()} "
+        f"bytes of device memory ({torch.cuda.memory_reserved()} "
+        "reserved) beside the training runs")
+    launches = train_runs()
+    log("phase 12: bst gradients, kernel against plain: "
+        + json.dumps(bst_grad_check(dev)))
+    log("phase 12: card against CPU, max relative loss difference over "
+        f"{TRAIN_CPU_STEPS} steps: " + json.dumps(train_card_vs_cpu(dev)))
+    log("phase 12: gather backward: " + json.dumps(gather_determinism(dev)))
+    row = check_flash_train(dev, bst_cfg)
+    log("phase 1: training shape: " + json.dumps(row))
+    torch.cuda.empty_cache()
+    return dict({k: row[k] for k in ("shape", "max_abs_err", "ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms", "backward_ms")},
+                launches=launches)
+
+
 def _busy_us(events) -> float:
     """Length of the union of the events' [start, end] intervals (us)."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -2441,6 +2813,9 @@ def main() -> int:
     t0 = time.perf_counter()
     offline_path(sys_, meds)
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fa_row["train"] = train_path(dev, fcfg.bst)
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
     log("phase 5: flash_attention's path call, CUDA activities per call: "
         + json.dumps(check_flash_activities(dev, fcfg.bst, fcfg.pool_depth)))
     if args.profile:
@@ -2456,7 +2831,8 @@ def main() -> int:
         row["sharded_launches"] = sharded_launches.get(row["name"], 0)
         # the kernel at the continuous path's shape, with the launches of
         # phase 7's inline runs (both knobs), and at the shard shape, with
-        # the launches of phase 11's counted windows
+        # the launches of phase 11's counted windows; flash_attention's
+        # ``train`` field (phase 12) holds its own
         for extra, counts in (("continuous", cont_launches),
                               ("shard", sharded_launches)):
             at = row.get(extra)

@@ -10,9 +10,11 @@ from repro_torch.core.cascade import Cascade
 from repro_torch.device import resolve_device
 from repro_torch.models import layers
 from repro_torch.retrieval.index import InvertedIndex, TermStats
+from repro_torch.tree import leaves, map_tree
 
 __all__ = ["index_from_numpy", "cascade_from_numpy", "mlp_from_numpy",
-           "tower_from_numpy", "bst_from_numpy"]
+           "tower_from_numpy", "bst_from_numpy", "wide_deep_from_numpy",
+           "dien_from_numpy", "mind_from_numpy", "adamw_state_from_numpy"]
 
 _FOREST_TABLES = {"feature": np.int32, "thresh": np.float32,
                   "left": np.int32, "right": np.int32, "leaf": np.float32}
@@ -103,6 +105,61 @@ def bst_from_numpy(params: dict, *, device=None) -> dict:
     for lyr in params["mlp"]:
         _check_keys(lyr, _LINEAR, "BST MLP layer")
     return layers.to_device(_as_f32(params), resolve_device(device))
+
+
+def wide_deep_from_numpy(params: dict, *, device=None) -> dict:
+    """The port's Wide & Deep parameters from the JAX package's tree
+    (deep, wide and cross tables, MLP, head, wide dense weights, bias)."""
+    _check_keys(params, ("deep_table", "wide_table", "cross_table", "mlp",
+                         "head", "wide_dense", "bias"), "wide-deep params")
+    for lyr in params["mlp"]:
+        _check_keys(lyr, _LINEAR, "wide-deep MLP layer")
+    return layers.to_device(_as_f32(params), resolve_device(device))
+
+
+_GRU = ("wz", "wr", "wh", "bz", "br", "bh")
+
+
+def dien_from_numpy(params: dict, *, device=None) -> dict:
+    """The port's DIEN parameters from the JAX package's tree (item and
+    category tables, the GRU and AUGRU, attention and auxiliary maps,
+    MLP and head)."""
+    _check_keys(params, ("item_table", "cat_table", "gru1", "augru",
+                         "attn_w", "aux_w", "mlp", "head"), "DIEN params")
+    for gru in ("gru1", "augru"):
+        _check_keys(params[gru], _GRU, f"DIEN {gru}")
+    for lyr in params["mlp"]:
+        _check_keys(lyr, _LINEAR, "DIEN MLP layer")
+    return layers.to_device(_as_f32(params), resolve_device(device))
+
+
+def mind_from_numpy(params: dict, *, device=None) -> dict:
+    """The port's MIND parameters from the JAX package's float32 tree
+    (item table, bilinear map, routing init)."""
+    _check_keys(params, ("item_table", "bilinear", "routing_init"),
+                "MIND params")
+    return layers.to_device(_as_f32(params), resolve_device(device))
+
+
+def adamw_state_from_numpy(state: dict, params: dict) -> dict:
+    """The port's AdamW state from the JAX package's (``{"m", "v",
+    "step"}``): float32 moments shaped and placed as ``params``, and the
+    step as a 0-d int32 tensor."""
+    _check_keys(state, ("m", "v", "step"), "AdamW state")
+    dev = leaves(params)[0].device
+
+    def moments(m):
+        out = map_tree(
+            lambda a: torch.from_numpy(np.array(a, np.float32)).to(dev), m)
+        for a, p in zip(leaves(out), leaves(params), strict=True):
+            if a.shape != p.shape:
+                raise ValueError(f"a moment of shape {tuple(a.shape)} for "
+                                 f"a parameter of {tuple(p.shape)}")
+        return out
+
+    return {"m": moments(state["m"]), "v": moments(state["v"]),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=dev)}
 
 
 def _as_f32(tree):

@@ -23,8 +23,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["KERNELS", "build_all", "check", "library", "nvcc_path",
-           "operand", "stream"]
+__all__ = ["KERNELS", "build_all", "check", "check_no_grad", "library",
+           "nvcc_path", "operand", "stream"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -141,3 +141,20 @@ def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
+
+
+def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise where autograd would need kernel ``name``'s backward, which
+    it does not have: grad mode is on and an input requires grad.  A
+    launch writes into a ``torch.empty`` output with no ``grad_fn``, so
+    without this check a training step would lose every gradient through
+    the kernel and raise nothing.  The check runs before the device is
+    looked at, so the CPU path (the plain version) refuses the same
+    calls.  A differentiable route wraps the launch in a
+    ``torch.autograd.Function`` (``flash_attention.ops``), whose forward
+    runs with grad mode off."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"the {name} kernel has no backward and an input requires "
+            "grad: call it under torch.no_grad(), on detached inputs, or "
+            "through a differentiable route")

@@ -37,6 +37,7 @@ def embedding_bag_kernel(table: torch.Tensor, ids: torch.Tensor, *,
     """table: (V, D) float32 or bfloat16; ids: (B, L) integer, -1 padded,
     each in [-1, V) -> (B, D) in the table's dtype."""
     global n_launches
+    _build.check_no_grad("embedding_bag", table)
     dev = table.device
     if dev.type == "cpu":
         return embedding_bag_ref(table, ids, mean=mean)

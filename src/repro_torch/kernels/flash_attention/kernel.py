@@ -26,7 +26,10 @@ output is a new contiguous (B, S, Hq, hd).  ``flash_attention_fwd`` is
 the TPU kernel's (BH, S, hd) layout, the case H = 1.  Both launch the
 kernel on a CUDA tensor and run their plain version (the oracle
 ``attention_ref``, through the fold) on a CPU tensor; ``n_launches``
-counts launches.
+counts launches.  Neither has a backward: an input that requires grad
+under grad mode raises (``_build.check_no_grad``); training goes through
+``ops.flash_attention``, whose ``torch.autograd.Function`` launches the
+same kernel forward.
 """
 
 from __future__ import annotations
@@ -136,6 +139,7 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, S, Hq, hd); k, v: (B, S, Hkv, hd) -> a contiguous
     (B, S, Hq, hd) in q's dtype, read through the operands' strides."""
     (b, s, hq, hd), ksh = _check_bshd(q, k, v, window)
+    _build.check_no_grad("flash_attention", q, k, v)
     if not q.is_cuda and q.device.type == "cpu":
         return attention_ref_bshd(q, k, v, causal=causal, window=window)
     q, k, v, qs, ks, vs = _on_card(q, k, v, hd)
@@ -162,6 +166,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q, k, v: (BH, S, hd) -> (BH, S, hd) in q's dtype: the model layout
     with one head."""
     _check(q, k, v, window)
+    _build.check_no_grad("flash_attention", q, k, v)
     if not q.is_cuda and q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
     bh, s, hd = q.shape

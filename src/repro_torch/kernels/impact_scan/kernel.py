@@ -112,6 +112,7 @@ def impact_scan(doc_stream: torch.Tensor, impact_stream: torch.Tensor,
     n_doc_blocks) int32 count of cells executed.
     """
     global n_launches
+    _build.check_no_grad("impact_scan", impact_stream)
     dev = doc_stream.device
     if dev.type == "cpu":
         return impact_scan_plain(doc_stream, impact_stream, rho_vec, seg_lo,

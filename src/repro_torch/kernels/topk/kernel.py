@@ -80,6 +80,7 @@ def block_topk(scores: torch.Tensor, *, kp: int, block_n: int = 4096):
     kp outside [1, KP_MAX] raises ValueError: a wider kp would return a
     silently wrong union.  Scores must be finite or -inf."""
     global n_launches
+    _build.check_no_grad("topk", scores)
     dev = scores.device
     if dev.type == "cpu":
         return block_topk_plain(scores, kp=kp, block_n=block_n)

@@ -1,4 +1,5 @@
-"""Model layers and the recsys models of the funnel.
+"""Model layers and the recsys models (the funnel's, and those trained by
+``launch.train``).
 
 Parameters are plain dictionaries (and lists) of tensors, laid out as the
 JAX package's parameter trees, so a tree built by either package carries

@@ -17,8 +17,13 @@ Here each branch is one call of the port's ``flash_attention`` with that
 branch's masks: the kernel tiles the keys itself and never loads a tile
 no query of its block can reach, which is what the slicing and the block
 skipping do on the TPU.  On a CUDA tensor the CUDA kernel runs, on a CPU
-tensor its plain version (``attention_ref``).  ``decode_attention`` and
-value heads wider than the query heads (MLA) are not ported.
+tensor its plain version (``attention_ref``).  Under autograd the call
+goes through ``ops.FlashAttention``: the same kernel forward, and a
+backward of explicit torch ops that recomputes the probabilities, as the
+JAX package's checkpointed blocks do.  ``use_kernel=False`` runs the
+plain oracle under autograd instead (the reference of the tests and of
+the card's gradient check).  ``decode_attention`` and value heads wider
+than the query heads (MLA) are not ported.
 """
 
 from __future__ import annotations
@@ -40,8 +45,8 @@ def repeat_kv(kv: torch.Tensor, groups: int) -> torch.Tensor:
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      causal: bool = True,
-                      window: int | None = None) -> torch.Tensor:
+                      causal: bool = True, window: int | None = None,
+                      use_kernel: bool = True) -> torch.Tensor:
     """Grouped attention.  q: (B, S, Hq, hd); k, v: (B, S, Hkv, hd) with
     Hq % Hkv == 0.  Returns (B, S, Hq, hd)."""
     if v.shape[-1] != q.shape[-1]:
@@ -49,5 +54,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"query head dim {q.shape[-1]}; the kernel takes "
                          "one head dim")
     if window is not None:
-        return fa_ops.flash_attention(q, k, v, causal=True, window=window)
-    return fa_ops.flash_attention(q, k, v, causal=causal)
+        return fa_ops.flash_attention(q, k, v, causal=True, window=window,
+                                      use_kernel=use_kernel)
+    return fa_ops.flash_attention(q, k, v, causal=causal,
+                                  use_kernel=use_kernel)

@@ -15,8 +15,10 @@ import torch
 __all__ = ["layer_norm", "init_linear", "init_norm", "full_fp32_matmul",
            "check_full_fp32_matmul", "to_device", "torch_dtype"]
 
-#: model dtypes the port runs (the JAX configs' bfloat16 is not ported)
-_DTYPES = {"float32": torch.float32}
+#: model dtypes the port runs.  A bfloat16 parameter is drawn in float32
+#: and rounded by torch, as ``ml_dtypes`` rounds the JAX package's draw
+#: (through float32, to nearest even).
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def torch_dtype(name: str) -> torch.dtype:

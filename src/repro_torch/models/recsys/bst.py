@@ -10,8 +10,11 @@ embeds item 0 and attends like any other position, as in the reference:
 there is no key mask, and padding rows are zeroed only after the block.
 The q/k/v/o, feed-forward and MLP products are plain ``torch.matmul`` in
 full float32 when the program has called ``layers.full_fp32_matmul``
-(TF32 off, as the reference; ``Funnel`` checks it).
-``bst_loss`` waits for the training slice.
+(TF32 off, as the reference; ``Funnel`` checks it).  ``bst_loss`` is
+the training loss (bce of the logits); under autograd the attention runs
+the same kernel forward through ``ops.FlashAttention``, and the item
+table is read through ``embedding.gather_rows`` (a deterministic
+backward).  ``use_kernel=False`` runs the plain attention instead.
 """
 
 from __future__ import annotations
@@ -25,8 +28,10 @@ import torch.nn.functional as F
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models.recsys.embedding import gather_rows
+from repro_torch.models.recsys.wide_deep import bce
 
-__all__ = ["BSTConfig", "init_bst", "bst_logits"]
+__all__ = ["BSTConfig", "init_bst", "bst_logits", "bst_loss"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,20 +97,22 @@ def init_bst(cfg: BSTConfig, seed: int = 0, *, device=None) -> dict:
                        cfg.tdtype)
 
 
-def bst_logits(params: dict, cfg: BSTConfig, batch: dict) -> torch.Tensor:
+def bst_logits(params: dict, cfg: BSTConfig, batch: dict, *,
+               use_kernel: bool = True) -> torch.Tensor:
     """batch: hist_items (B, T), target_item (B,), profile (B, P) ->
     (B,) float32 logits."""
     b, t = batch["hist_items"].shape
     seq = torch.cat([batch["hist_items"], batch["target_item"][:, None]],
                     dim=1)
     mask = seq >= 0
-    x = params["item_table"][seq.clamp(min=0).long()]
+    x = gather_rows(params["item_table"], seq.clamp(min=0))
     x = x + params["pos_table"][None, :, :]
     for blk in params["blocks"]:
         q = (x @ blk["wq"]).reshape(b, t + 1, cfg.n_heads, cfg.head_dim)
         k = (x @ blk["wk"]).reshape(b, t + 1, cfg.n_heads, cfg.head_dim)
         v = (x @ blk["wv"]).reshape(b, t + 1, cfg.n_heads, cfg.head_dim)
-        o = A.chunked_attention(q, k, v, causal=False)
+        o = A.chunked_attention(q, k, v, causal=False,
+                                use_kernel=use_kernel)
         h = o.reshape(b, t + 1, -1) @ blk["wo"]
         x = L.layer_norm(blk["ln1_w"], blk["ln1_b"], x + h)  # post-LN
         f = torch.relu(x @ blk["ff1"]) @ blk["ff2"]
@@ -116,3 +123,9 @@ def bst_logits(params: dict, cfg: BSTConfig, batch: dict) -> torch.Tensor:
     for lyr in params["mlp"]:
         flat = F.leaky_relu(flat @ lyr["w"] + lyr["b"], 0.01)
     return (flat @ params["head"])[:, 0].to(torch.float32)
+
+
+def bst_loss(params: dict, cfg: BSTConfig, batch: dict, *,
+             use_kernel: bool = True) -> torch.Tensor:
+    return bce(bst_logits(params, cfg, batch, use_kernel=use_kernel),
+               batch["label"])

@@ -5,7 +5,10 @@ A user tower embeds the request, and each request is scored against
 The products are plain ``torch.matmul`` (the JAX package leaves them to
 XLA).  The top-k selects what ``jax.lax.top_k`` selects, in its order:
 descending score, ``+0.0`` above ``-0.0``, and ties to the lower id, at
-the k-th boundary too.  ``tower_loss`` waits for the training slice.
+the k-th boundary too.  ``tower_loss`` is the training loss: an
+in-batch softmax over the positive items (``F.cross_entropy`` over the
+(B, B) logits, the reference's mean of ``-log_softmax`` at the
+diagonal).
 """
 
 from __future__ import annotations
@@ -14,12 +17,14 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.recsys.embedding import gather_rows
 
 __all__ = ["TowerConfig", "init_tower", "user_embed", "score_candidates",
-           "top_k", "retrieve_topk"]
+           "top_k", "retrieve_topk", "tower_loss"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,3 +135,13 @@ def retrieve_topk(params: dict, cfg: TowerConfig, user_feats: torch.Tensor,
     request, as ``jax.lax.top_k`` gives them (``top_k``)."""
     idx, vals = top_k(score_candidates(params, cfg, user_feats), k)
     return idx.to(torch.int32), vals
+
+
+def tower_loss(params: dict, cfg: TowerConfig, batch: dict) -> torch.Tensor:
+    """In-batch softmax over positive items.  batch: user_feats (B, d),
+    pos_item (B,) ids into the candidate table."""
+    u = user_embed(params, cfg, batch["user_feats"])
+    pos = gather_rows(params["items"], batch["pos_item"].clamp(min=0))
+    logits = (u @ pos.T).to(torch.float32)
+    labels = torch.arange(logits.shape[0], device=logits.device)
+    return F.cross_entropy(logits, labels)

@@ -33,6 +33,10 @@ Tolerances, with their reasons:
     of integer-valued impacts are exact), threaded equal to inline; a
     request served while predictor versions are published beside the
     traffic gets the classes of the version it reports.
+  * training: BST's gradients through the kernel within 2e-5 of each
+    leaf's largest magnitude of the plain attention's (float32 sums in
+    another order); two identical wide-deep steps bit-equal (the
+    gathers' backward adds duplicate ids in a fixed order).
 """
 
 import dataclasses
@@ -781,3 +785,66 @@ def test_sharded_stage2_is_deterministic_on_card(card_positions):
     ref = engine._stage2(sdocs, s3, e.doc_len, qids, n_docs=e.n_docs,
                          n_terms=q.shape[1])
     assert torch.equal(a, ref)
+
+
+@pytest.mark.gpu
+def test_bst_gradients_through_the_kernel_equal_the_plain_path(cuda_device):
+    """BST at its full config (batch 256): one kernel launch in the
+    forward, and every gradient leaf within 2e-5 of its largest
+    magnitude of the plain attention's (float32 sums in another
+    order); the attention's weights and the item table get gradients."""
+    from repro_torch.configs import bst as bst_configs
+    from repro_torch.data import recsys_data
+    from repro_torch.tree import leaves_with_paths
+    cfg = bst_configs.model_config()
+    params = bst.init_bst(cfg, seed=0, device=cuda_device)
+    batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in
+             recsys_data.bst_batch(cfg, 256, 0).items()}
+    flat = leaves_with_paths(params)
+
+    def grads(use_kernel):
+        for _, p in flat:
+            p.requires_grad_(True)
+        loss = bst.bst_loss(params, cfg, batch, use_kernel=use_kernel)
+        g = torch.autograd.grad(loss, [p for _, p in flat])
+        for _, p in flat:
+            p.requires_grad_(False)
+        return g
+
+    before = fa_kernel.n_launches
+    got = grads(True)
+    assert fa_kernel.n_launches == before + 1
+    want = grads(False)
+    for (path, _), a, b in zip(flat, got, want):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 2e-5 * scale, path
+        if path in (("blocks", 0, "wq"), ("blocks", 0, "wk"),
+                    ("blocks", 0, "wv"), ("item_table",)):
+            assert scale > 0 and float(a.abs().max()) > 0, path
+
+
+@pytest.mark.gpu
+def test_wide_deep_steps_on_the_card_are_bit_equal(cuda_device):
+    """Two identical wide-deep smoke steps at batch 4096 (each of the 200
+    ids of a field read some 20 times: the gathers' backward adds
+    duplicates) give the same parameters and moments bit for bit."""
+    from repro_torch.configs import wide_deep as wd_configs
+    from repro_torch.data import recsys_data
+    from repro_torch.launch import train
+    from repro_torch.models.recsys import wide_deep
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves
+    cfg = wd_configs.smoke_config()
+    runs = []
+    for _ in range(2):
+        params = wide_deep.init_wide_deep(cfg, seed=0, device=cuda_device)
+        opt = adamw.init_opt_state(params)
+        step = train.make_step(wide_deep.wide_deep_loss, cfg,
+                               adamw.AdamWConfig(lr=3e-3, weight_decay=1e-5))
+        for i in range(2):
+            batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in
+                     recsys_data.wide_deep_batch(cfg, 4096, i).items()}
+            params, opt, _ = step(params, opt, batch)
+        runs.append(leaves({"params": params, "opt": opt}))
+    for a, b in zip(*runs):
+        assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
