@@ -31,7 +31,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ``library_ms``; ``fold_ms``, the four copies the fold made before),
      ``routes``
      names the route the launcher took for each checked call, and
-     ``general`` times the general path at one LM shape.  impact_scan and
+     ``general`` times the general path at one LM shape; two ``phase 1:
+     LM shape`` lines hold the general path at tinyllama-1.1b's and
+     qwen3-4b's prefill shapes (B 8, S 4096, Hq 32, Hkv 4 / 8, hd 64 /
+     128, bf16, causal, through ``flash_attention_bshd``) within 2e-2 of
+     the plain version run row by row, with one call's time, the device
+     time alone, the plain version's, SDPA's (``enable_gqa``) and the
+     bound at the bf16 tensor-core peak.  impact_scan and
      topk are also held, bit-equal, at the continuous scheduler's shapes
      (a ``phase 1: continuous path's shape`` line each, with the same
      times and bound): impact_scan on one chunk window of the slot table
@@ -177,6 +183,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      hd 4) against its plain version and its backward against autograd,
      with one call's times, SDPA's and the backward's (a ``phase 1:
      training shape`` line).
+  13. (after phase 12, before phase 5) LM serving on the card:
+     tinyllama-1.1b at its full ``model_config()`` (bf16, 22 layers,
+     seeded random weights) serves 8 prompts of 4096 tokens from the LM
+     token pipeline: 4 prefills (one warm-up), the last one's keys and
+     values handed to a cache of 4128, then 32 greedy decode steps, the
+     kernel launches counted over that window (flash_attention 22 a
+     prefill).  Every logit finite; row 0's prefill logits against the
+     plain attention path on the card, and decode steps 1 and 32 against
+     a prefill of the prompt and the generated tokens, within
+     ``LM_ATOL`` with the greedy tokens equal wherever the top-2 margin
+     exceeds it.  ``phase 13:`` lines give the draw's host seconds, the
+     prefill's ms, tokens/s and model TFLOP/s, the decode step's ms,
+     tokens/s, bytes read and GB/s, its host (enqueue) time, the peak
+     memory; one step at decode_32k's cache length (32 768) and the
+     largest batch of 128, 64, 32 that fits, on a seeded random cache
+     (timing only); the four served archs' smoke configs (float32) on
+     the card against the CPU port, greedy tokens equal and logits
+     within 2e-5; last one step at batch 8 and one at decode_32k under
+     the profiler: CUDA activities, device-busy ms and idle share.
   9. one JSON line with every kernel's launches (phases 2 and 3),
      service launches (the inline and FIFO runs of phase 4), continuous
      launches (phase 7's inline runs), online launches (phase 8's shadow
@@ -184,7 +209,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      times; impact_scan's and topk's ``continuous`` and ``shard`` fields
      hold their rows at the continuous path's and the shard shape, and
      flash_attention's ``train`` field its row at the training shape with
-     the launches of phase 12's clean BST run.
+     the launches of phase 12's clean BST run, and its ``lm`` field its
+     row at tinyllama's prefill shape with phase 13's launches
+     (``lm_launches`` on every row).
   10. the last line: {"ok": true, "device": {...}}.
 
 With ``--profile DIR``, after phase 5 each knob's server and the funnel
@@ -213,9 +240,11 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 ops/s
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 ops/s outside
+#: the tensor cores, dense bf16 tensor-core ops/s
 HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
+BF16_OPS_S = 989e12
 #: clock cycles of the sleep kernel that holds the card while a call
 #: timed for its device work alone is enqueued (about 1 ms at the H100's
 #: 1.98 GHz boost clock, longer than any timed call's host work)
@@ -316,8 +345,12 @@ def ptxas_summary(report: str) -> list[dict]:
     return funcs
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / FP32_OPS_S
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_s: float = FP32_OPS_S) -> tuple[float, str]:
+    """The least time of a call that moves ``n_bytes`` and does ``n_ops``
+    operations at ``ops_s`` (fp32 by default; ``BF16_OPS_S`` for a bf16
+    row), and which of the two bounds it."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / ops_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -601,18 +634,20 @@ def _cuda_activities(fn, calls: int = 3) -> dict | None:
     """The CUDA activities (kernels, copies, memsets) per call of ``fn``
     over ``calls`` calls under ``torch.profiler``, after one traced
     warm-up call (the tracer can miss a launch just after it starts),
-    and their names; None if the profiler saw no device activity."""
+    their names, the device-busy ms per call (the union of their
+    intervals) and the five names with the most device ms per call;
+    None if the profiler saw no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
     from torch.profiler import schedule
 
-    names = []
+    events = []
 
     def collect(prof):          # the schedule's step markers are no work
-        names.extend(e.name for e in prof.events()
-                     if e.device_type == DeviceType.CUDA
-                     and not e.name.startswith("ProfilerStep"))
+        events.extend(e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and not e.name.startswith("ProfilerStep"))
 
     fn()
     torch.cuda.synchronize()
@@ -625,10 +660,15 @@ def _cuda_activities(fn, calls: int = 3) -> dict | None:
             fn()
             torch.cuda.synchronize()
             prof.step()
-    if not names:
+    if not events:
         return None
-    return dict(per_call=len(names) / calls,
-                names=sorted({n[:80] for n in names}))
+    by_name = {}
+    for e in events:
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3 / calls
+    return dict(per_call=len(events) / calls, names=sorted(by_name),
+                busy_ms=_busy_us(events) / 1e3 / calls,
+                top_ms=sorted(by_name.items(), key=lambda kv: -kv[1])[:5])
 
 
 def check_flash_attention(dev, bst_cfg, pool: int):
@@ -836,6 +876,85 @@ def time_general(dev) -> dict:
                              f"its plain version by {err}")
     return dict(shape="BH=32 S=2048 hd=64 float32 causal", max_abs_err=err,
                 ms=time_ms(call), device_ms=time_ms(call, hold=True))
+
+
+#: flash_attention at the LM's prefill shapes, (name, B, S, Hq, Hkv, hd):
+#: tinyllama-1.1b's (the shape phase 13 launches) and qwen3-4b's
+LM_FLASH_SHAPES = (("tinyllama-1.1b prefill", 8, 4096, 32, 4, 64),
+                   ("qwen3-4b prefill", 8, 4096, 32, 8, 128))
+
+
+def check_flash_lm(dev, reports) -> list[dict]:
+    """flash_attention's general path at the LM's prefill shapes, in the
+    model layout (``flash_attention_bshd``), bf16, causal, on seeded
+    random q, k, v: held within 2e-2 of the plain version, which runs
+    the batch one row at a time (its (B, H, S, S) float32 scores at
+    B = 8 would take 17 GB a tensor); one call's time and the device
+    time alone, the plain version's and SDPA's time on the same tensors,
+    the bound (bf16 tensor-core peak for the causal half's 2 B Hq S^2 hd
+    operations) and the ptxas line of the instantiation.  Prints one
+    ``phase 1: LM shape`` line each and returns the rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
+
+    rows = []
+    for name, b, s, hq, hkv, hd in LM_FLASH_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(hd)
+        q = torch.randn((b, s, hq, hd), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn((b, s, hkv, hd), generator=gen, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+
+        def call(q=q, k=k, v=v):
+            return K.flash_attention_bshd(q, k, v, causal=True)
+
+        def plain(q=q, k=k, v=v, b=b):
+            return [attention_ref_bshd(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                       causal=True) for i in range(b)]
+
+        q4, k4, v4 = (x.transpose(1, 2) for x in (q, k, v))
+
+        def sdpa(q4=q4, k4=k4, v4=v4):
+            return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                                  enable_gqa=True)
+
+        out = call()
+        route = K.last_route
+        err = max(float((out[i:i + 1].float() - want.float()).abs().max())
+                  for i, want in enumerate(plain()))
+        lib_err = float((sdpa().transpose(1, 2).float()
+                         - out.float()).abs().max())
+        if route != "general" or not err <= 2e-2:
+            raise AssertionError(f"flash_attention at the {name} shape: "
+                                 f"route {route}, {err} from its plain "
+                                 "version (2e-2)")
+        del out
+        n_bytes = 2 * (2 * b * s * hq * hd + 2 * b * s * hkv * hd)
+        b_ms, b_by = bound_ms(n_bytes, 2 * b * hq * s * s * hd, BF16_OPS_S)
+        row = dict(
+            name=name, shape=f"B={b} S={s} Hq={hq} Hkv={hkv} hd={hd} bf16 "
+                             "causal", route=route, max_abs_err=err,
+            library_max_abs_err=lib_err,
+            ms=time_ms(call, reps=5, warm=1),
+            device_ms=time_ms(call, reps=5, warm=1, hold=True),
+            plain_ms=time_ms(plain, reps=3, warm=1),
+            plain="the B rows one call each",
+            library_ms=time_ms(sdpa, reps=10, warm=2),
+            bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
+            ptxas=[f for f in ptxas_summary(reports.get("flash_attention",
+                                                        ""))
+                   if f"fa_kernelILi{hd}E13__nv_bfloat16" in f["function"]]
+            or "not built here")
+        row["bound_share"] = b_ms / row["ms"]
+        row["device_bound_share"] = b_ms / row["device_ms"]
+        row["ms_over_library_ms"] = row["ms"] / row["library_ms"]
+        log("phase 1: LM shape: " + json.dumps(row))
+        rows.append(row)
+        del q, k, v, q4, k4, v4
+        torch.cuda.empty_cache()
+    return rows
 
 
 def check_embedding_bag(dev):
@@ -2670,6 +2789,339 @@ def train_path(dev, bst_cfg) -> dict:
                 launches=launches)
 
 
+# ------------------------------------------------------------ phase 13 --
+
+#: phase 13: tinyllama-1.1b at full width serves LM_BATCH prompts of
+#: train_4k's length, then LM_DECODE greedy decode steps
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_DECODE = "tinyllama-1.1b", 8, 4096, 32
+#: prefill calls of the counted window: one warm-up, then the timed ones
+LM_PREFILLS = 4
+#: the decode_32k shape's cache length, and the batches tried, largest
+#: first (the shape's own is 128)
+LM_LONG_CACHE, LM_LONG_BATCHES = 32768, (128, 64, 32)
+#: smoke configs, card against the CPU port: prompt lengths (mixtral's
+#: crosses its window of 16), decode steps and the float32 tolerance of
+#: tests/test_torch_lm.py
+LM_SMOKE = (("tinyllama-1.1b", 24), ("qwen2-0.5b", 24), ("qwen3-4b", 24),
+            ("mixtral-8x22b", 32))
+LM_SMOKE_STEPS, LM_SMOKE_TOL = 8, 2e-5
+#: bf16 tolerance of tinyllama's logits, absolute: two bf16 steps at
+#: |logit| in [4, 8).  The logits are bf16 products widened to float32;
+#: the kernel path against the plain one, and a decode step against a
+#: prefill, round the bf16 residual stream at other places (0.03125 on
+#: each check on an H100 80GB HBM3 at 700 W)
+LM_ATOL = 0.0625
+
+
+def _lm_handoff(cache, pre) -> None:
+    """The prefill's keys and values into slots [0, clen) of ``cache``."""
+    for g in pre:
+        for x in ("k", "v"):
+            cache[g][x][:, :, :pre[g][x].shape[2]] = pre[g][x]
+
+
+def _fenced(fn):
+    """fn's result and its host ms between two device-wide fences."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _step_ms(fn, reps: int = 5) -> tuple[float, float]:
+    """Medians over ``reps`` calls of ``fn`` after one: the wall ms from
+    a fence to the fence after the call, and the host ms of the call
+    alone (its return, before that fence).  A decode step enqueues some
+    2000 kernels, more than the launch queue holds, so a sleep kernel
+    holding the card would block the host; with the card free the host
+    enqueues as the device drains, and where the host is the slower the
+    two times are nearly one."""
+    import torch
+    fn()
+    walls, hosts = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        hosts.append((t1 - t0) * 1e3)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls), statistics.median(hosts)
+
+
+def _step_profile(fn, wall_ms: float) -> dict:
+    """One step under the profiler: its CUDA activities, the device-busy
+    ms (the union of their intervals) and the idle share of ``wall_ms``."""
+    act = _cuda_activities(fn, calls=2)
+    if act is None:
+        return {"cuda_activities_per_step": None}
+    return dict(cuda_activities_per_step=act["per_call"],
+                activity_kinds=len(act["names"]),
+                device_busy_ms=act["busy_ms"],
+                idle_share=1 - act["busy_ms"] / wall_ms,
+                top_device_ms=act["top_ms"])
+
+
+def _hold_logits(name, got, want, tol) -> dict:
+    """got against want ((B, V) float32): the largest difference within
+    ``tol``, and the greedy tokens equal wherever want's top-2 margin
+    exceeds ``tol`` (the rows under it are counted)."""
+    import torch
+    err = float((got - want).abs().max())
+    top2 = torch.topk(want, 2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > tol
+    same = torch.argmax(got, -1) == torch.argmax(want, -1)
+    if not err <= tol or not bool(same[decided].all()):
+        raise AssertionError(f"phase 13: {name}: logits differ by {err} "
+                             f"(tolerance {tol}); greedy tokens differ in "
+                             f"{int((~same & decided).sum())} rows with a "
+                             "decided top-2 margin")
+    return dict(max_abs_err=err, margins_under_tol=int((~decided).sum()),
+                rows=int(want.shape[0]))
+
+
+def _lm_smoke_serve(cfg, toks, device):
+    """Prefill and LM_SMOKE_STEPS greedy steps on ``device``: the
+    prefill's and each step's logits and the steps' tokens, on the
+    CPU."""
+    import torch
+    from repro_torch.models import transformer as T
+    params = T.init_params(cfg, seed=0, device=device)
+    logits, pre = T.prefill(params, cfg, torch.from_numpy(toks).to(device))
+    b, s = toks.shape
+    cache = T.init_cache(cfg, b, s + LM_SMOKE_STEPS, device=device)
+    _lm_handoff(cache, pre)
+    out, tokens = [logits.cpu()], []
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    for i in range(LM_SMOKE_STEPS):
+        pos = torch.full((b,), s + i, dtype=torch.int32, device=device)
+        tok, lg, cache = T.decode_step(params, cfg, cache, tok, pos)
+        out.append(lg.cpu())
+        tokens.append(tok.cpu())
+    return out, tokens
+
+
+def lm_smoke_card_vs_cpu(dev) -> dict:
+    """Each served arch's smoke config (float32) on the card against the
+    same calls on the CPU port: greedy tokens equal, logits within
+    LM_SMOKE_TOL.  Returns the largest difference per arch."""
+    import torch
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.data import lm_pipeline
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    errs = {}
+    for arch, s in LM_SMOKE:
+        cfg = cfgbase.get(arch).smoke_config()
+        toks = lm_pipeline.LMPipeline(lm_pipeline.LMDataConfig(
+            vocab=cfg.vocab, batch=2, seq_len=s, seed=1)).batch(0)["tokens"]
+        before = fa_k.n_launches
+        card, card_toks = _lm_smoke_serve(cfg, toks, dev)
+        if fa_k.n_launches - before != cfg.n_layers:
+            raise AssertionError(f"phase 13: {arch} smoke prefill launched "
+                                 f"flash {fa_k.n_launches - before} times")
+        cpu, cpu_toks = _lm_smoke_serve(cfg, toks, torch.device("cpu"))
+        for a, b in zip(card_toks, cpu_toks):
+            if not torch.equal(a, b):
+                raise AssertionError(f"phase 13: {arch} smoke greedy tokens "
+                                     "differ, card against CPU")
+        errs[arch] = max(float((a - b).abs().max())
+                         for a, b in zip(card, cpu))
+        if not errs[arch] <= LM_SMOKE_TOL:
+            raise AssertionError(f"phase 13: {arch} smoke logits differ by "
+                                 f"{errs[arch]}, card against CPU")
+    return errs
+
+
+def lm_long_cache_step(params, cfg, dev):
+    """One decode step at decode_32k's cache length and the largest of
+    LM_LONG_BATCHES whose cache fits, on a cache filled from a seeded
+    generator with every row at position 32 767: timing only (no
+    prefill made the cache; every logit must be finite).  Returns its
+    row and the step (which holds the cache)."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+    per_row = (2 * cfg.n_layers * LM_LONG_CACHE * cfg.n_kv_heads
+               * cfg.head_dim * torch.finfo(cfg.torch_dtype).bits // 8)
+    free = torch.cuda.mem_get_info(dev)[0]
+    fits = [b for b in LM_LONG_BATCHES if b * per_row + (4 << 30) < free]
+    if not fits:
+        raise AssertionError(f"phase 13: no decode_32k batch of "
+                             f"{LM_LONG_BATCHES} fits in {free} free bytes")
+    b = fits[0]
+    gen = torch.Generator(device=dev).manual_seed(32)
+    cache = T.init_cache(cfg, b, LM_LONG_CACHE, device=dev)
+    for x in leaves(cache):
+        x.normal_(generator=gen)
+    tok = torch.randint(0, cfg.vocab, (b,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    pos = torch.full((b,), LM_LONG_CACHE - 1, dtype=torch.int32, device=dev)
+
+    def step():
+        return T.decode_step(params, cfg, cache, tok, pos)
+
+    _, logits, _ = step()
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("phase 13: decode_32k logits are not finite")
+    ms, enqueue_ms = _step_ms(step)
+    w_bytes = sum(x.numel() * x.element_size() for x in leaves(params))
+    e = params["embed"]
+    n_bytes = (w_bytes - e.numel() * e.element_size()
+               + b * e.shape[1] * e.element_size() + b * per_row)
+    row = dict(use="timing only: a cache filled from a seeded generator, "
+                   "no prefill", batch=b, batches_tried=list(LM_LONG_BATCHES),
+               cache_len=LM_LONG_CACHE, position=LM_LONG_CACHE - 1,
+               cache_bytes=b * per_row, step_ms=ms, host_ms=enqueue_ms,
+               tokens_per_s=b / (ms / 1e3), bytes_read=n_bytes,
+               gb_per_s=n_bytes / ms / 1e6,
+               bytes_bound_ms=n_bytes / HBM_BYTES_S * 1e3)
+    return row, step
+
+
+def lm_path(dev) -> dict:
+    """Phase 13: tinyllama-1.1b served at full width (``model_config()``,
+    bf16, seeded random weights): LM_PREFILLS prefills of LM_BATCH
+    prompts of LM_PROMPT tokens (one warm-up, then timed), the last
+    one's cache handed to a cache of LM_PROMPT + LM_DECODE, then
+    LM_DECODE greedy decode steps; the kernel launches counted over that
+    window.  Then the checks (row 0 against the plain path, decode steps
+    1 and LM_DECODE against a prefill of the prompt and the generated
+    tokens), one step's wall and host time, the decode_32k shape, the
+    smoke configs card against CPU, and last the profiler over one step
+    at each shape.
+    Returns the launches of the counted window."""
+    import torch
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.configs import lm_common
+    from repro_torch.data import lm_pipeline
+    from repro_torch.kernels.embedding_bag import kernel as eb_k
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.impact_scan import kernel as is_k
+    from repro_torch.kernels.topk import kernel as tk_k
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = cfgbase.get(LM_ARCH).model_config()
+    b, s = LM_BATCH, LM_PROMPT
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    w_bytes = sum(x.numel() * x.element_size() for x in leaves(params))
+    log(f"phase 13: {LM_ARCH} model_config() {cfg.dtype}: "
+        f"{cfg.param_count()} parameters, {w_bytes} bytes, drawn in "
+        f"{draw_s:.3f} s of host time (seed 0)")
+    toks_np = lm_pipeline.LMPipeline(lm_pipeline.LMDataConfig(
+        vocab=cfg.vocab, batch=b, seq_len=s, seed=1)).batch(0)["tokens"]
+    toks = torch.from_numpy(toks_np).to(dev)
+
+    # ---- the counted window: the served prompts and their decode ----
+    for mod in (is_k, tk_k, fa_k, eb_k):
+        mod.n_launches = 0
+    prefill_ms = []
+    for _ in range(LM_PREFILLS):
+        pre = None                       # free the last one's cache first
+        (logits, pre), ms = _fenced(lambda: T.prefill(params, cfg, toks))
+        prefill_ms.append(ms)
+    prefill_launches = fa_k.n_launches
+    cache = T.init_cache(cfg, b, s + LM_DECODE, device=dev)
+    _lm_handoff(cache, pre)
+    del pre
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    gen_tokens, step_logits, step_ms = [tok], [], []
+    for i in range(LM_DECODE):
+        pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
+        (tok, lg, cache), ms = _fenced(
+            lambda tok=tok, pos=pos: T.decode_step(params, cfg, cache, tok,
+                                                   pos))
+        gen_tokens.append(tok)
+        step_logits.append(lg)
+        step_ms.append(ms)
+    launches = {"impact_scan": is_k.n_launches, "topk": tk_k.n_launches,
+                "flash_attention": fa_k.n_launches,
+                "embedding_bag": eb_k.n_launches}
+    # ---- end of the counted window ----
+    peak = torch.cuda.max_memory_allocated(dev)
+    if (prefill_launches != LM_PREFILLS * cfg.n_layers
+            or launches["flash_attention"] != prefill_launches):
+        raise AssertionError(f"phase 13: flash launched {prefill_launches} "
+                             f"times in {LM_PREFILLS} prefills and "
+                             f"{launches['flash_attention']} in the window")
+    for name, x in [("prefill", logits)] + [
+            (f"decode step {i + 1}", lg) for i, lg in enumerate(step_logits)]:
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"phase 13: {name} logits are not finite")
+
+    timed = prefill_ms[1:]
+    p_ms = statistics.median(timed)
+    p_flops = lm_common.model_flops(cfg, "prefill", b, s)
+    log("phase 13: prefill " + json.dumps(dict(
+        batch=b, prompt=s, ms=timed, median_ms=p_ms,
+        warmup_ms=prefill_ms[0], tokens_per_s=b * s / (p_ms / 1e3),
+        model_flops=p_flops, model_tflops_per_s=p_flops / p_ms / 1e9,
+        flash_launches_per_prefill=prefill_launches / LM_PREFILLS,
+        launches=launches)))
+
+    # the plain path on the card for row 0, and the decode steps against
+    # the kernel path's prefill of the prompt and the generated tokens
+    checks = {}
+    plain, _ = T.prefill(params, cfg, toks[:1], use_kernel=False)
+    checks["row 0, kernel against plain"] = _hold_logits(
+        "row 0, kernel against plain", logits[:1], plain, LM_ATOL)
+    del plain
+    for i in (1, LM_DECODE):
+        seq = torch.cat([toks] + [t[:, None] for t in gen_tokens[:i]],
+                        dim=1)
+        want, _ = T.prefill(params, cfg, seq)
+        checks[f"decode step {i} against a prefill of {s + i}"] = \
+            _hold_logits(f"decode step {i}", step_logits[i - 1], want,
+                         LM_ATOL)
+        del want, seq
+    torch.cuda.empty_cache()
+    log(f"phase 13: checks at tolerance {LM_ATOL}: " + json.dumps(checks))
+
+    # one decode step alone (the last, again): wall and host time
+    last = torch.full((b,), s + LM_DECODE - 1, dtype=torch.int32, device=dev)
+
+    def step():
+        return T.decode_step(params, cfg, cache, gen_tokens[-2], last)
+
+    d_ms = statistics.median(step_ms[1:])
+    wall_ms, enqueue_ms = _step_ms(step)
+    e = params["embed"]
+    c_bytes = sum(x.numel() * x.element_size() for x in leaves(cache))
+    n_bytes = (w_bytes - e.numel() * e.element_size()
+               + b * e.shape[1] * e.element_size() + c_bytes)
+    decode = dict(
+        batch=b, cache_len=s + LM_DECODE, steps=LM_DECODE,
+        median_ms_steps_2_on=d_ms, step1_ms=step_ms[0],
+        tokens_per_s=b / (d_ms / 1e3), bytes_read=n_bytes,
+        weight_bytes=w_bytes, cache_bytes=c_bytes,
+        gb_per_s=n_bytes / d_ms / 1e6,
+        bytes_bound_ms=n_bytes / HBM_BYTES_S * 1e3,
+        step_wall_ms=wall_ms, host_ms=enqueue_ms,
+        max_memory_allocated=peak,
+        decode_flops=lm_common.model_flops(cfg, "decode", b, s))
+    log("phase 13: decode " + json.dumps(decode))
+    del step_logits
+    long_row, long_step = lm_long_cache_step(params, cfg, dev)
+    log("phase 13: decode_32k shape " + json.dumps(long_row))
+    log("phase 13: smoke configs, card against CPU, max abs logit "
+        "difference " + json.dumps(lm_smoke_card_vs_cpu(dev)))
+    # last, so that the profiler runs after every timed part
+    log("phase 13: one decode step under the profiler " + json.dumps(
+        {f"batch {b}": _step_profile(step, wall_ms),
+         "decode_32k": _step_profile(long_step, long_row["step_ms"])}))
+    del params, cache, long_step
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _busy_us(events) -> float:
     """Length of the union of the events' [start, end] intervals (us)."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -2782,6 +3234,7 @@ def main() -> int:
             cont["device_bound_share"] = cont["bound_ms"] / cont["device_ms"]
             log("phase 1: continuous path's shape: " + json.dumps(cont))
             row["continuous"] = cont
+    lm_rows = check_flash_lm(dev, reports)
     log(f"phase 1: kernels hold against their plain versions "
         f"({time.perf_counter() - t0:.1f} s)")
     torch.cuda.empty_cache()
@@ -2816,6 +3269,14 @@ def main() -> int:
     t0 = time.perf_counter()
     fa_row["train"] = train_path(dev, fcfg.bst)
     log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lm_launches = lm_path(dev)
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    # the kernel at tinyllama's prefill shape, with the launches of phase
+    # 13's counted window
+    fa_row["lm"] = dict({k: lm_rows[0][k] for k in (
+        "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")}, launches=lm_launches["flash_attention"])
     log("phase 5: flash_attention's path call, CUDA activities per call: "
         + json.dumps(check_flash_activities(dev, fcfg.bst, fcfg.pool_depth)))
     if args.profile:
@@ -2829,10 +3290,11 @@ def main() -> int:
         row["continuous_launches"] = cont_launches.get(row["name"], 0)
         row["online_launches"] = online_launches.get(row["name"], 0)
         row["sharded_launches"] = sharded_launches.get(row["name"], 0)
+        row["lm_launches"] = lm_launches[row["name"]]
         # the kernel at the continuous path's shape, with the launches of
         # phase 7's inline runs (both knobs), and at the shard shape, with
         # the launches of phase 11's counted windows; flash_attention's
-        # ``train`` field (phase 12) holds its own
+        # ``train`` (phase 12) and ``lm`` (phase 13) fields hold their own
         for extra, counts in (("continuous", cont_launches),
                               ("shard", sharded_launches)):
             at = row.get(extra)

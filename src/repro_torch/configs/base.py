@@ -1,23 +1,25 @@
-"""Config registry of the port's trainable archs: the JAX package's
-``configs/base.py:get`` over the four recsys archs (the LM and GNN
-archs wait for ROADMAP item 7)."""
+"""Config registry of the port: the JAX package's ``configs/base.py:get``
+over the four recsys archs and the four LM archs served here
+(deepseek-v3-671b waits for ROADMAP item 7b, graphsage-reddit for 7e)."""
 
 from __future__ import annotations
 
 import importlib
 
-__all__ = ["RECSYS_ARCHS", "get"]
+__all__ = ["RECSYS_ARCHS", "LM_ARCHS", "get"]
 
 RECSYS_ARCHS = ("wide-deep", "dien", "bst", "mind")
+LM_ARCHS = ("tinyllama-1.1b", "qwen2-0.5b", "qwen3-4b", "mixtral-8x22b")
 
-_MODULES = {a: "repro_torch.configs." + a.replace("-", "_")
-            for a in RECSYS_ARCHS}
+_MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
+            for a in RECSYS_ARCHS + LM_ARCHS}
 
 
 def get(arch: str):
     """The config module of ``arch``: ``ARCH``, ``SHAPES``,
-    ``model_config()``, ``smoke_config()`` and ``_model_flops``."""
+    ``model_config()`` and ``smoke_config()``; a recsys arch's also has
+    ``_model_flops``, an LM arch's ``SKIPS``."""
     if arch not in _MODULES:
         raise KeyError(f"arch {arch!r} is not ported; the port has "
-                       f"{RECSYS_ARCHS}")
+                       f"{RECSYS_ARCHS + LM_ARCHS}")
     return importlib.import_module(_MODULES[arch])

@@ -14,7 +14,8 @@ from repro_torch.tree import leaves, map_tree
 
 __all__ = ["index_from_numpy", "cascade_from_numpy", "mlp_from_numpy",
            "tower_from_numpy", "bst_from_numpy", "wide_deep_from_numpy",
-           "dien_from_numpy", "mind_from_numpy", "adamw_state_from_numpy"]
+           "dien_from_numpy", "mind_from_numpy", "adamw_state_from_numpy",
+           "lm_from_numpy"]
 
 _FOREST_TABLES = {"feature": np.int32, "thresh": np.float32,
                   "left": np.int32, "right": np.int32, "leaf": np.float32}
@@ -160,6 +161,32 @@ def adamw_state_from_numpy(state: dict, params: dict) -> dict:
     return {"m": moments(state["m"]), "v": moments(state["v"]),
             "step": torch.tensor(int(np.asarray(state["step"])),
                                  dtype=torch.int32, device=dev)}
+
+
+def lm_from_numpy(params: dict, *, device=None) -> dict:
+    """The port's LM parameters (``models.transformer``) from the JAX
+    package's tree, bit for bit.  float32 leaves pass as they are;
+    bfloat16 leaves (``ml_dtypes.bfloat16`` arrays, which
+    ``torch.from_numpy`` does not take) are viewed as uint16 and the
+    tensor as ``torch.bfloat16``, so the bits pass unchanged."""
+    top = {"embed", "final_norm", "lm_head", "dense", "moe"}
+    if not {"embed", "final_norm", "lm_head"} <= set(params) <= top:
+        raise ValueError(f"LM params have keys {sorted(params)}, expected "
+                         f"embed, final_norm, lm_head and dense or moe "
+                         "(MLA and MTP are not ported)")
+    dev = resolve_device(device)
+
+    def leaf(a):
+        a = np.ascontiguousarray(np.asarray(a))
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.view(np.uint16)).view(
+                torch.bfloat16).to(dev)
+        if a.dtype != np.float32:
+            raise ValueError(f"an LM leaf of dtype {a.dtype}; the port "
+                             "takes float32 and bfloat16")
+        return torch.from_numpy(a).to(dev)
+
+    return map_tree(leaf, params)
 
 
 def _as_f32(tree):

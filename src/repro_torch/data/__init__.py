@@ -1,2 +1,3 @@
 """Synthetic data of the port (numpy copies of the JAX package's
-generators; the LM and graph pipelines wait for ROADMAP item 7)."""
+generators: the recsys logs and the LM token stream; the graph pipeline
+waits for ROADMAP item 7e)."""

@@ -20,9 +20,10 @@ It prints the JAX CLI's two lines, then a ``ckpt:`` line for every
 checkpoint written (bytes, seconds) and one ``report:`` JSON line: the
 losses and milliseconds of every step, the step's model FLOPs
 (``_model_flops``), the peak device memory on a card, and the
-flash_attention kernel launches (BST's one a step).  The LM and GNN
-archs wait for ROADMAP item 7 and exit with a message, as the JAX CLI
-exits for GNN; ``--seq-len``, ``--warmup`` and ``--multi-pod`` are the
+flash_attention kernel launches (BST's one a step).  The LM archs
+(served by ``models.transformer``; LM training waits for ROADMAP item
+7c) and the GNN (item 7e) exit with a message, as the JAX CLI exits for
+GNN; ``--seq-len``, ``--warmup`` and ``--multi-pod`` are the
 LM branch's flags, taken and unused here as in the reference's recsys
 branch.
 """
@@ -49,8 +50,11 @@ from repro_torch.tree import leaves, unflatten
 
 __all__ = ["FAMILIES", "LM_ARCHS", "make_step", "recsys_setup", "main"]
 
-LM_ARCHS = {"tinyllama-1.1b", "qwen3-4b", "qwen2-0.5b",
-            "deepseek-v3-671b", "mixtral-8x22b", "graphsage-reddit"}
+#: arch -> why the CLI does not train it
+LM_ARCHS = {**{a: "LM training waits for ROADMAP item 7c"
+               for a in ("tinyllama-1.1b", "qwen3-4b", "qwen2-0.5b",
+                         "deepseek-v3-671b", "mixtral-8x22b")},
+            "graphsage-reddit": "the GNN waits for ROADMAP item 7e"}
 
 #: arch -> (init, loss, batch generator)
 FAMILIES = {
@@ -129,8 +133,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     if args.arch in LM_ARCHS:
-        raise SystemExit(f"{args.arch}: the LM and GNN archs are not "
-                         "ported yet (ROADMAP item 7)")
+        raise SystemExit(f"{args.arch}: {LM_ARCHS[args.arch]}")
     if args.arch not in FAMILIES:
         raise SystemExit(f"unknown arch {args.arch!r}; the port trains "
                          f"{sorted(FAMILIES)}")

@@ -1,19 +1,26 @@
-"""Shared model layers: the post-LN layer norm and the numpy initialisers.
+"""Shared model layers: norms, RoPE, MLPs and the numpy initialisers.
 
-A copy of what the funnel needs from the JAX package's
-``models/layers.py``: ``layer_norm`` (eps 1e-6, statistics in float32),
-``init_linear`` and ``init_norm``.  Initialisers return numpy arrays drawn
-from a caller's ``np.random.Generator``; ``to_device`` turns a parameter
-tree of them into tensors.
+A copy of what the funnel and the LM need from the JAX package's
+``models/layers.py``: ``layer_norm`` and ``rms_norm`` (eps 1e-6,
+statistics in float32, cast to the input's dtype before the weight),
+``rope``, ``dense``, ``swiglu``, ``init_linear`` and ``init_norm``, and
+the abstract draw (``FakeArray``, ``AbstractRNG``, ``rng_or_abstract``)
+that counts parameters without making them.  Initialisers return numpy
+arrays drawn from a caller's ``np.random.Generator``; ``to_device`` turns
+a parameter tree of them into tensors.  ``chunked_softmax_xent`` is the
+LM's training loss and waits with LM training (ROADMAP item 7).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-__all__ = ["layer_norm", "init_linear", "init_norm", "full_fp32_matmul",
-           "check_full_fp32_matmul", "to_device", "torch_dtype"]
+__all__ = ["layer_norm", "rms_norm", "rope", "dense", "swiglu",
+           "init_linear", "init_norm", "draw_linear", "full_fp32_matmul",
+           "check_full_fp32_matmul", "to_device", "torch_dtype",
+           "FakeArray", "AbstractRNG", "rng_or_abstract"]
 
 #: model dtypes the port runs.  A bfloat16 parameter is drawn in float32
 #: and rounded by torch, as ``ml_dtypes`` rounds the JAX package's draw
@@ -27,6 +34,68 @@ def torch_dtype(name: str) -> torch.dtype:
         raise ValueError(f"dtype {name!r} is not supported; use one of "
                          f"{sorted(_DTYPES)}")
     return _DTYPES[name]
+
+
+class FakeArray:
+    """Shape/dtype-only stand-in, so that a parameter count never draws
+    or allocates the tree it counts."""
+
+    def __init__(self, shape, dtype):
+        self.shape = tuple(int(s) for s in shape)
+        self.dtype = dtype
+
+    def astype(self, dt):
+        return FakeArray(self.shape, dt)
+
+
+class AbstractRNG:
+    """A ``np.random.Generator`` twin whose every draw is a FakeArray."""
+
+    def normal(self, loc=0.0, scale=1.0, size=None):
+        return FakeArray(size if size is not None else (), np.float32)
+
+
+def rng_or_abstract(seed: int, abstract: bool):
+    return AbstractRNG() if abstract else np.random.default_rng(seed)
+
+
+def rms_norm(w: torch.Tensor, x: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis: the statistic in float32, the
+    normalised value cast to x's dtype, then times ``w`` in that dtype."""
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(dt) * w
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 10_000.0) -> torch.Tensor:
+    """Rotary embedding.  x: (..., S, H, hd); positions: (..., S).  The
+    frequencies are float32 ``theta ** (-arange(half) / half)``; the
+    rotation runs in float32 and is cast back to x's dtype."""
+    half = x.shape[-1] // 2
+    exps = -torch.arange(half, dtype=torch.float32, device=x.device) / half
+    # theta as a scalar argument: a tensor of it made on the card would
+    # be a pageable copy from the host, which waits for the stream
+    freqs = torch.pow(theta, exps)
+    ang = positions[..., None].to(torch.float32) * freqs    # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                      # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def dense(w: torch.Tensor, x: torch.Tensor,
+          b: torch.Tensor | None = None) -> torch.Tensor:
+    y = x @ w
+    return y if b is None else y + b
+
+
+def swiglu(w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
+           x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
 def layer_norm(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
@@ -49,6 +118,33 @@ def init_linear(rng: np.random.Generator, shape, scale: float | None = None,
 
 def init_norm(shape, dtype=np.float32) -> np.ndarray:
     return np.ones(shape, dtype)
+
+
+#: float64 normals a slab of ``draw_linear`` holds on the host at most
+_SLAB = 1 << 22
+
+
+def draw_linear(rng, shape, dtype: torch.dtype, device,
+                scale: float | None = None):
+    """``init_linear``'s numbers as a ``dtype`` tensor on ``device``:
+    float64 normals cast to float32, then rounded to ``dtype`` by torch
+    (to nearest even, as ``ml_dtypes`` rounds the reference's draw),
+    drawn a slab of rows at a time.  Consecutive ``Generator.normal``
+    calls continue one stream, so the slabs give the one-call draw's
+    values with a host peak of one slab.  An ``AbstractRNG`` gives a
+    FakeArray and draws nothing."""
+    fan_in = shape[0] if len(shape) == 2 else int(np.prod(shape[:-1]))
+    s = scale if scale is not None else fan_in ** -0.5
+    if isinstance(rng, AbstractRNG):
+        return rng.normal(0.0, s, shape).astype(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = out.view(-1, shape[-1])
+    step = max(1, _SLAB // shape[-1])
+    for r0 in range(0, rows.shape[0], step):
+        n = min(step, rows.shape[0] - r0)
+        rows[r0:r0 + n] = torch.from_numpy(
+            rng.normal(0.0, s, (n, shape[-1])).astype(np.float32))
+    return out
 
 
 def full_fp32_matmul() -> None:

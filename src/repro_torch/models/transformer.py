@@ -1,0 +1,421 @@
+"""Decoder-only transformer LM: the serving half of the JAX package's
+``models/transformer.py`` (``init_params``, ``prefill``, ``decode_step``
+over ``init_cache``).
+
+One configurable implementation covering:
+
+  * GQA attention with optional QKV bias (qwen2) and qk-norm (qwen3),
+  * head_dim decoupled from d_model (qwen3: 128 * 32 heads != 2560),
+  * sliding-window attention (mixtral) with ring-buffer decode caches,
+  * dense SwiGLU or MoE FFN (``models/moe.py``).
+
+Parameters are the reference's tree: ``embed``, ``final_norm``,
+``lm_head`` and per group (``dense``, ``moe``) ``ln1``, ``ln2``,
+``attn`` and ``ffn``, each leaf stacked over the group's layers as an
+(L, ...) tensor.  ``init_params`` draws them from
+``np.random.default_rng(seed)`` in the reference's order, equal to the
+JAX draw bit for bit in float32 and bfloat16; a stacked weight keeps the
+reference's ``fan_in = prod(shape[:-1])`` scale, (L * d) ** -0.5.
+
+Layers run as a Python loop over the stacked tensors, where the
+reference scans.  Prefill attention is ``attention.chunked_attention``
+(the flash-attention kernel on a CUDA tensor, once a layer;
+``use_kernel=False`` runs its plain version), decode attention
+``attention.decode_attention`` in torch ops.  The serving entry points
+run under ``torch.inference_mode()``.  ``decode_step`` writes the new
+key and value into the cache in place and returns that cache: a
+functional copy of the whole cache on every step would not fit beside
+it on the card at the decode_32k shape (the reference's decode bundle
+donates the cache for the same reason).
+
+The reference's ``hint(...)`` calls place activations on a mesh and have
+no counterpart on one device, so they are left out.  The config's
+``block_q``, ``remat``, ``unroll`` and ``loss_block`` steer the
+reference's tiling, rematerialisation and dry-run; serving here ignores
+them (the kernel tiles itself).  MLA and MTP (deepseek) wait for
+ROADMAP item 7b, ``train_loss`` for item 7c: ``init_params`` raises for
+them.
+
+A quirk of the reference, kept: ``prefill`` leaves the last ``clen =
+min(S, window)`` keys in slots ``0 .. clen-1``, while ``decode_step``
+reads slot i as the position ``_slot_positions`` gives it (``p % clen``).
+The two agree when S <= window or S % window == 0.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+from repro_torch.tree import leaves
+
+__all__ = ["MLAConfig", "LMConfig", "init_params", "prefill", "decode_step",
+           "init_cache", "cache_len", "backbone"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    """The reference's LM config, field for field.  Serving ignores
+    ``remat``, ``block_q``, ``loss_block`` and ``unroll``."""
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    attn_type: str = "gqa"            # "gqa" | "mla"
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    window: Optional[int] = None      # sliding-window attention width
+    rope_theta: float = 10_000.0
+    moe: Optional[M.MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    mtp: bool = False                 # deepseek multi-token prediction
+    mtp_weight: float = 0.3
+    dtype: str = "bfloat16"
+    remat: str = "full"               # "none" | "full"
+    block_q: int = 512
+    loss_block: int = 512
+    unroll: bool = False
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return L.torch_dtype(self.dtype)
+
+    @property
+    def qk_dim(self) -> int:
+        if self.attn_type == "mla":
+            return self.mla.qk_nope_dim + self.mla.qk_rope_dim
+        return self.head_dim
+
+    def param_count(self) -> int:
+        """Exact parameter count, from an abstract init that draws
+        nothing (MLA and MTP trees included)."""
+        tree = init_params(self, abstract=True)
+        return sum(math.prod(leaf.shape) for leaf in leaves(tree))
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top-k + shared only)."""
+        total = self.param_count()
+        if self.moe is None:
+            return total
+        e, k = self.moe.n_experts, self.moe.top_k
+        n_moe_layers = self.n_layers - self.moe.first_dense_layers
+        per_expert = 3 * self.d_model * self.moe.d_ff_expert
+        inactive = n_moe_layers * per_expert * (e - k)
+        return total - inactive
+
+
+# ---------------------------------------------------------------- params --
+
+def _norm(shape, dt, dev):
+    """``init_norm``'s ones (an abstract init makes a FakeArray)."""
+    if dev is None:
+        return L.FakeArray(shape, dt)
+    return torch.ones(shape, dtype=dt, device=dev)
+
+
+def _zeros(shape, dt, dev):
+    if dev is None:
+        return L.FakeArray(shape, dt)
+    return torch.zeros(shape, dtype=dt, device=dev)
+
+
+def _attn_params(rng, cfg: LMConfig, n: int, dt, dev) -> dict:
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    lin = L.draw_linear
+    if cfg.attn_type == "mla":
+        m = cfg.mla
+        return {
+            "wdq": lin(rng, (n, d, m.q_lora_rank), dt, dev),
+            "q_norm": _norm((n, m.q_lora_rank), dt, dev),
+            "wuq": lin(rng, (n, m.q_lora_rank,
+                             hq * (m.qk_nope_dim + m.qk_rope_dim)), dt, dev),
+            "wdkv": lin(rng, (n, d, m.kv_lora_rank + m.qk_rope_dim), dt,
+                        dev),
+            "kv_norm": _norm((n, m.kv_lora_rank), dt, dev),
+            "wuk": lin(rng, (n, m.kv_lora_rank, hq * m.qk_nope_dim), dt,
+                       dev),
+            "wuv": lin(rng, (n, m.kv_lora_rank, hq * m.v_dim), dt, dev),
+            "wo": lin(rng, (n, hq * m.v_dim, d), dt, dev),
+        }
+    p = {
+        "wq": lin(rng, (n, d, hq * hd), dt, dev),
+        "wk": lin(rng, (n, d, hkv * hd), dt, dev),
+        "wv": lin(rng, (n, d, hkv * hd), dt, dev),
+        "wo": lin(rng, (n, hq * hd, d), dt, dev),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = _zeros((n, hq * hd), dt, dev)
+        p["bk"] = _zeros((n, hkv * hd), dt, dev)
+        p["bv"] = _zeros((n, hkv * hd), dt, dev)
+    if cfg.qk_norm:
+        p["qn"] = _norm((n, hd), dt, dev)
+        p["kn"] = _norm((n, hd), dt, dev)
+    return p
+
+
+def _dense_ffn_params(rng, cfg: LMConfig, n: int, dt, dev) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "w_gate": L.draw_linear(rng, (n, d, f), dt, dev),
+        "w_up": L.draw_linear(rng, (n, d, f), dt, dev),
+        "w_down": L.draw_linear(rng, (n, f, d), dt, dev),
+    }
+
+
+def init_params(cfg: LMConfig, seed: int = 0, *, device=None,
+                abstract: bool = False) -> dict:
+    """Seeded parameters on ``device`` (default ``"cuda"``), equal to the
+    JAX package's ``init_params`` for the same seed.  With ``abstract``
+    every leaf is a ``layers.FakeArray`` and nothing is drawn or placed
+    (no device is needed): what ``param_count`` counts."""
+    if not abstract and (cfg.attn_type == "mla" or cfg.mtp):
+        raise NotImplementedError(
+            f"{cfg.name}: MLA and MTP are not ported (ROADMAP item 7b)")
+    dev = None if abstract else resolve_device(device)
+    rng = L.rng_or_abstract(seed, abstract)
+    dt = cfg.torch_dtype
+    n_dense = cfg.moe.first_dense_layers if cfg.moe else cfg.n_layers
+    n_moe = cfg.n_layers - n_dense
+    params = {
+        "embed": L.draw_linear(rng, (cfg.vocab, cfg.d_model), dt, dev,
+                               scale=0.02),
+        "final_norm": _norm((cfg.d_model,), dt, dev),
+        "lm_head": L.draw_linear(rng, (cfg.d_model, cfg.vocab), dt, dev),
+    }
+    if n_dense:
+        params["dense"] = {
+            "ln1": _norm((n_dense, cfg.d_model), dt, dev),
+            "ln2": _norm((n_dense, cfg.d_model), dt, dev),
+            "attn": _attn_params(rng, cfg, n_dense, dt, dev),
+            "ffn": _dense_ffn_params(rng, cfg, n_dense, dt, dev),
+        }
+    if n_moe:
+        params["moe"] = {
+            "ln1": _norm((n_moe, cfg.d_model), dt, dev),
+            "ln2": _norm((n_moe, cfg.d_model), dt, dev),
+            "attn": _attn_params(rng, cfg, n_moe, dt, dev),
+            "ffn": M.init_moe_params(rng, cfg.moe, cfg.d_model, n_moe, dt,
+                                     dev),
+        }
+    if cfg.mtp:
+        params["mtp"] = {
+            "ln1": _norm((1, cfg.d_model), dt, dev),
+            "ln2": _norm((1, cfg.d_model), dt, dev),
+            "attn": _attn_params(rng, cfg, 1, dt, dev),
+            "ffn": _dense_ffn_params(rng, cfg, 1, dt, dev),
+            "proj": L.draw_linear(rng, (1, 2 * cfg.d_model, cfg.d_model),
+                                  dt, dev),
+        }
+    return params
+
+
+def _layer(stacked: dict, i: int) -> dict:
+    """Layer ``i``'s parameters (or cache): views of the stacked tensors."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in stacked.items()}
+
+
+def _n_layers(stacked: dict) -> int:
+    return leaves(stacked)[0].shape[0]
+
+
+# --------------------------------------------------------------- forward --
+
+def _project_qkv(lp: dict, cfg: LMConfig, x: torch.Tensor,
+                 positions: torch.Tensor):
+    """q/k/v of x (B, S, D) at ``positions`` (B, S): the GQA branch."""
+    if cfg.attn_type == "mla":
+        raise NotImplementedError("MLA is not ported (ROADMAP item 7b)")
+    b, s, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = x @ lp["wq"], x @ lp["wk"], x @ lp["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    q = q.reshape(b, s, hq, hd)
+    k = k.reshape(b, s, hkv, hd)
+    v = v.reshape(b, s, hkv, hd)
+    if cfg.qk_norm:
+        q = L.rms_norm(lp["qn"], q)
+        k = L.rms_norm(lp["kn"], k)
+    q = L.rope(q, positions, cfg.rope_theta)
+    k = L.rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _ffn(lp: dict, hn: torch.Tensor, moe_cfg):
+    """The layer's FFN of hn (B, S, D), and its MoE aux loss (None for
+    a dense layer)."""
+    f = lp["ffn"]
+    if moe_cfg is None:
+        return L.swiglu(f["w_gate"], f["w_up"], f["w_down"], hn), None
+    y, aux = M.moe_ffn(f, hn.reshape(-1, hn.shape[-1]), moe_cfg)
+    return y.reshape(hn.shape), aux
+
+
+def _run_layers(cfg: LMConfig, stacked: dict, x: torch.Tensor,
+                positions: torch.Tensor, moe_cfg, clen: int | None,
+                use_kernel: bool):
+    """The group's layers over x (B, S, D): (x, the sum of the MoE aux
+    losses, and with ``clen`` the last ``clen`` keys and values of each
+    layer stacked (L, B, clen, Hkv, hd))."""
+    b, s, _ = x.shape
+    ks, vs = [], []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(_n_layers(stacked)):
+        lp = _layer(stacked, i)
+        q, k, v = _project_qkv(lp["attn"], cfg, L.rms_norm(lp["ln1"], x),
+                               positions)
+        o = A.chunked_attention(q, k, v, causal=True, window=cfg.window,
+                                use_kernel=use_kernel)
+        h = x + o.reshape(b, s, -1) @ lp["attn"]["wo"]
+        y, a = _ffn(lp, L.rms_norm(lp["ln2"], h), moe_cfg)
+        x = h + y
+        if a is not None:
+            aux = aux + a
+        if clen is not None:
+            ks.append(k[:, s - clen:])
+            vs.append(v[:, s - clen:])
+    kv = None if clen is None else {"k": torch.stack(ks),
+                                    "v": torch.stack(vs)}
+    return x, aux, kv
+
+
+def _groups(params: dict, cfg: LMConfig):
+    """(group name, its MoE config) in the reference's order."""
+    return [(g, cfg.moe if g == "moe" else None)
+            for g in ("dense", "moe") if g in params]
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, device=device)[None].expand(b, s)
+
+
+def backbone(params: dict, cfg: LMConfig, tokens: torch.Tensor,
+             positions: torch.Tensor, *, use_kernel: bool = True):
+    """tokens: (B, S) -> final hidden (B, S, D), aux loss (the sum of
+    the MoE layers')."""
+    x = params["embed"][tokens.long()].to(cfg.torch_dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g, moe_cfg in _groups(params, cfg):
+        x, a, _ = _run_layers(cfg, params[g], x, positions, moe_cfg, None,
+                              use_kernel)
+        aux = aux + a
+    return L.rms_norm(params["final_norm"], x), aux
+
+
+@torch.inference_mode()
+def prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor, *,
+            use_kernel: bool = True):
+    """Run the backbone over a prompt (B, S), build the KV cache, and
+    return (logits of the last position (B, V) float32, cache): per
+    group {"k", "v"} of (L, B, min(S, window), Hkv, hd)."""
+    b, s = tokens.shape
+    positions = _positions(b, s, tokens.device)
+    x = params["embed"][tokens.long()].to(cfg.torch_dtype)
+    clen = cache_len(cfg, s)
+    cache = {}
+    for g, moe_cfg in _groups(params, cfg):
+        x, _, cache[g] = _run_layers(cfg, params[g], x, positions,
+                                     moe_cfg, clen, use_kernel)
+    h = L.rms_norm(params["final_norm"], x)[:, -1]
+    return (h @ params["lm_head"]).to(torch.float32), cache
+
+
+# ---------------------------------------------------------------- decode --
+
+def cache_len(cfg: LMConfig, seq_len: int) -> int:
+    """SWA archs only need a window-sized ring buffer."""
+    return min(seq_len, cfg.window) if cfg.window else seq_len
+
+
+def init_cache(cfg: LMConfig, batch: int, seq_len: int, *,
+               device=None) -> dict:
+    """Zeroed KV caches on ``device`` (default ``"cuda"``): per group
+    {"k", "v"} of (L, batch, cache_len, Hkv, hd) in the model dtype."""
+    if cfg.attn_type == "mla":
+        raise NotImplementedError("MLA caches are not ported (ROADMAP "
+                                  "item 7b)")
+    dev = resolve_device(device)
+    s = cache_len(cfg, seq_len)
+    n_dense = cfg.moe.first_dense_layers if cfg.moe else cfg.n_layers
+    cache = {}
+    for g, n in (("dense", n_dense), ("moe", cfg.n_layers - n_dense)):
+        if n:
+            cache[g] = {x: torch.zeros(
+                (n, batch, s, cfg.n_kv_heads, cfg.head_dim),
+                dtype=cfg.torch_dtype, device=dev) for x in ("k", "v")}
+    return cache
+
+
+def _slot_positions(s: int, slot: torch.Tensor, pos: torch.Tensor):
+    """Absolute position stored in each ring slot after the write at
+    ``pos`` (slot i holds the largest position <= pos with pos' % s == i)."""
+    i = torch.arange(s, device=pos.device)[None, :]
+    p = pos[:, None]
+    delta = (p % s - i) % s
+    return p - delta
+
+
+def _decode_attn_gqa(lp: dict, cfg: LMConfig, x: torch.Tensor, lc: dict,
+                     pos: torch.Tensor) -> torch.Tensor:
+    """x: (B, 1, D); lc's k/v: (B, S, Hkv, hd), written in place at slot
+    pos % S; pos: (B,) the token's position."""
+    b = x.shape[0]
+    s = lc["k"].shape[1]
+    q, k_new, v_new = _project_qkv(lp, cfg, x, pos[:, None])
+    slot = pos % s
+    rows = torch.arange(b, device=pos.device)
+    lc["k"][rows, slot] = k_new[:, 0]
+    lc["v"][rows, slot] = v_new[:, 0]
+    stored = _slot_positions(s, slot, pos)
+    ages = pos[:, None] - stored
+    valid = (stored >= 0) & (ages < (cfg.window or 10**9))
+    o = A.decode_attention(q, lc["k"], lc["v"], valid)
+    return o.reshape(b, 1, -1) @ lp["wo"]
+
+
+def _decode_layers(cfg: LMConfig, stacked: dict, cache: dict, x, pos,
+                   moe_cfg):
+    for i in range(_n_layers(stacked)):
+        lp = _layer(stacked, i)
+        h = x + _decode_attn_gqa(lp["attn"], cfg,
+                                 L.rms_norm(lp["ln1"], x),
+                                 _layer(cache, i), pos)
+        x = h + _ffn(lp, L.rms_norm(lp["ln2"], h), moe_cfg)[0]
+    return x
+
+
+@torch.inference_mode()
+def decode_step(params: dict, cfg: LMConfig, cache: dict,
+                token: torch.Tensor, pos: torch.Tensor):
+    """One decode step.  token: (B,) int; pos: (B,) positions.
+
+    Returns (next_token (B,) int32, logits (B, V) float32, cache), the
+    cache updated in place."""
+    pos = pos.long()
+    x = params["embed"][token.long()][:, None, :].to(cfg.torch_dtype)
+    for g, moe_cfg in _groups(params, cfg):
+        x = _decode_layers(cfg, params[g], cache[g], x, pos, moe_cfg)
+    h = L.rms_norm(params["final_norm"], x)[:, 0]
+    logits = (h @ params["lm_head"]).to(torch.float32)
+    return torch.argmax(logits, dim=-1).to(torch.int32), logits, cache

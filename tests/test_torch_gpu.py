@@ -37,6 +37,10 @@ Tolerances, with their reasons:
     leaf's largest magnitude of the plain attention's (float32 sums in
     another order); two identical wide-deep steps bit-equal (the
     gathers' backward adds duplicate ids in a fixed order).
+  * LM serving at smoke size (float32): prefill and 8 greedy decode
+    steps on the card against the CPU, greedy tokens equal and logits
+    within 2e-5 (``tests/test_torch_lm.py``'s float32 tolerance: the
+    kernel's and the products' sums run in another order).
 """
 
 import dataclasses
@@ -848,3 +852,58 @@ def test_wide_deep_steps_on_the_card_are_bit_equal(cuda_device):
         runs.append(leaves({"params": params, "opt": opt}))
     for a, b in zip(*runs):
         assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+
+
+def _lm_serve(cfg, toks, device, steps=8):
+    """Prefill of ``toks`` on ``device``, its keys and values into a
+    cache of S + steps, then ``steps`` greedy decode steps: the logits
+    of the prefill and of each step, and the tokens, on the CPU."""
+    from repro_torch.models import transformer
+    params = transformer.init_params(cfg, seed=0, device=device)
+    logits, pre = transformer.prefill(params, cfg,
+                                      torch.from_numpy(toks).to(device))
+    b, s = toks.shape
+    cache = transformer.init_cache(cfg, b, s + steps, device=device)
+    for g in pre:
+        for x in ("k", "v"):
+            cache[g][x][:, :, :pre[g][x].shape[2]] = pre[g][x]
+    out = [(None, logits.cpu())]
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    for i in range(steps):
+        pos = torch.full((b,), s + i, dtype=torch.int32, device=device)
+        tok, lg, cache = transformer.decode_step(params, cfg, cache, tok, pos)
+        out.append((tok.cpu(), lg.cpu()))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,s", [("tinyllama-1.1b", 24), ("qwen2-0.5b", 24),
+                                    ("qwen3-4b", 24), ("mixtral-8x22b", 32)])
+def test_lm_smoke_serving_on_card_matches_cpu(cuda_device, arch, s):
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.data import lm_pipeline
+    cfg = cfgbase.get(arch).smoke_config()
+    toks = lm_pipeline.LMPipeline(lm_pipeline.LMDataConfig(
+        vocab=cfg.vocab, batch=2, seq_len=s, seed=1)).batch(0)["tokens"]
+    before = fa_kernel.n_launches
+    card = _lm_serve(cfg, toks, cuda_device)
+    assert fa_kernel.n_launches == before + cfg.n_layers
+    for (tc, lc), (tp, lp) in zip(card, _lm_serve(cfg, toks, "cpu")):
+        if tp is not None:
+            assert torch.equal(tc, tp)
+        torch.testing.assert_close(lc, lp, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hkv,hd", [(4, 64), (8, 128)])
+def test_flash_attention_cuda_lm_shape_bf16(cuda_device, hkv, hd):
+    """Causal GQA in bfloat16 at a small LM shape (tinyllama's heads at
+    hd 64, qwen3-4b's at hd 128): one launch of the general route,
+    within 2e-2 of the plain version."""
+    r = np.random.default_rng(hd)
+    q = torch.from_numpy(r.normal(size=(2, 640, 32, hd)).astype(np.float32))
+    k, v = (torch.from_numpy(r.normal(size=(2, 640, hkv, hd)).astype(
+        np.float32)) for _ in range(2))
+    q, k, v = (x.to(cuda_device, torch.bfloat16) for x in (q, k, v))
+    _hold_flash(q, k, v, True, None)
+    assert fa_kernel.last_route == "general"

@@ -54,10 +54,12 @@ def test_port_imports_neither_jax_nor_repro():
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from repro_torch.configs import tinyllama_1_1b
     from repro_torch.core import experiment, mlp
     from repro_torch.device import resolve_device
     from repro_torch.examples import quickstart
     from repro_torch.launch import serve
+    from repro_torch.models import transformer
     from repro_torch.serving import pipeline
     from repro_torch.serving.engine import ServingEngine
 
@@ -78,3 +80,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mlp.train_mlp(np.zeros((4, 2), np.float32), np.zeros(4),
                       n_classes=2)
+    lm = tinyllama_1_1b.smoke_config()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        transformer.init_params(lm)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        transformer.init_cache(lm, 2, 8)

@@ -175,7 +175,7 @@ def test_configs_copy_the_jax_numbers(monkeypatch):
     assert t_cfgbase.get("mind").model_config().dtype == "bfloat16" == \
         j_cfgbase.get("mind").model_config().dtype
     with pytest.raises(KeyError, match="not ported"):
-        t_cfgbase.get("qwen3-4b")
+        t_cfgbase.get("deepseek-v3-671b")
 
 
 def test_mind_bfloat16_init_equals_jax():
@@ -444,10 +444,12 @@ def test_cli_prints_the_jax_lines_and_restarts_bit_exactly(
 
 def test_cli_defaults_to_cuda_and_leaves_the_lm_archs_to_item_7(
         monkeypatch, tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP item 7"):
+    with pytest.raises(SystemExit, match="LM training .* ROADMAP item 7c"):
         t_train.main(["--arch", "qwen3-4b", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="ROADMAP item 7"):
+    with pytest.raises(SystemExit, match="LM training .* ROADMAP item 7c"):
         t_train.main([])                    # the JAX CLI's default arch
+    with pytest.raises(SystemExit, match="GNN .* ROADMAP item 7e"):
+        t_train.main(["--arch", "graphsage-reddit", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         t_train.main(["--arch", "bst", "--ckpt-dir", str(tmp_path)])
