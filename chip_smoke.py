@@ -31,14 +31,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ``library_ms``; ``fold_ms``, the four copies the fold made before),
      ``routes``
      names the route the launcher took for each checked call, and
-     ``general`` times the general path at one LM shape; two ``phase 1:
-     LM shape`` lines hold the general path at tinyllama-1.1b's and
-     qwen3-4b's prefill shapes (B 8, S 4096, Hq 32, Hkv 4 / 8, hd 64 /
-     128, bf16, causal, through ``flash_attention_bshd``) within 2e-2 of
-     the plain version run row by row, with one call's time, the device
-     time alone, the plain version's, SDPA's (``enable_gqa``) and the
-     bound at the bf16 tensor-core peak.  impact_scan and
-     topk are also held, bit-equal, at the continuous scheduler's shapes
+     ``general`` times the general path (float32, the CUDA-core route)
+     at one LM shape; the tensor-core route is held at ragged S (1, 63,
+     65, 127, 129, 200, 640), GQA groups 1, 4, 7, 8, hd 64 and 128,
+     causal, non-causal and windowed, and on q, k, v sliced from one
+     fused projection; two ``phase 1: LM shape`` lines hold it at
+     tinyllama-1.1b's and qwen3-4b's prefill shapes (B 8, S 4096, Hq 32,
+     Hkv 4 / 8, hd 64 / 128, bf16, causal, through
+     ``flash_attention_bshd``, one launch of ``general_tc`` a call, no
+     spills) within 2e-2 of the plain version run row by row, with one
+     call's time, the device time alone, the plain version's, SDPA's
+     (``enable_gqa``) and the bound at the bf16 tensor-core peak.
+     impact_scan and topk are also held, bit-equal, at the continuous
+     scheduler's shapes
      (a ``phase 1: continuous path's shape`` line each, with the same
      times and bound): impact_scan on one chunk window of the slot table
      ((32, 512) postings, 50 000 docs, per-slot rho in [0, 512], idle
@@ -189,8 +194,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      token pipeline: 4 prefills (one warm-up), the last one's keys and
      values handed to a cache of 4128, then 32 greedy decode steps, the
      kernel launches counted over that window (flash_attention 22 a
-     prefill).  Every logit finite; row 0's prefill logits against the
-     plain attention path on the card, and decode steps 1 and 32 against
+     prefill, each on the tensor-core route: the per-route counter
+     must hold all of them under ``general_tc``).  Every logit finite;
+     row 0's prefill logits against the plain attention path on the
+     card, and decode steps 1 and 32 against
      a prefill of the prompt and the generated tokens, within
      ``LM_ATOL`` with the greedy tokens equal wherever the top-2 margin
      exceeds it.  ``phase 13:`` lines give the draw's host seconds, the
@@ -211,7 +218,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      flash_attention's ``train`` field its row at the training shape with
      the launches of phase 12's clean BST run, and its ``lm`` field its
      row at tinyllama's prefill shape with phase 13's launches
-     (``lm_launches`` on every row).
+     (``lm_launches`` on every row); a last entry, ``flash_attention
+     general_tc``, gives the tensor-core kernel's row at that shape with
+     phase 13's launches of its route.
   10. the last line: {"ok": true, "device": {...}}.
 
 With ``--profile DIR``, after phase 5 each knob's server and the funnel
@@ -760,6 +769,27 @@ def check_flash_attention(dev, bst_cfg, pool: int):
                      f"window={window}", causal=causal, window=window)
         hold_ops(tuple(x.to(torch.bfloat16) for x in xs),
                  f"{(b, sl, hq, hkv, d)} bf16")
+    # the tensor-core route (bf16, hd 64 and 128): ragged S around the
+    # 64-row warpgroup and the 128-key tile, every GQA group (g = 7:
+    # qwen2-0.5b's 14 / 2 heads), causal, non-causal and windowed; then q,
+    # k and v sliced from one fused projection
+    for d in (64, 128):
+        for sl in TC_EDGE_S:
+            for g in (1, 4, 7, 8):
+                hkv = 1 if g == 8 else 2
+                xs = tuple(x.to(torch.bfloat16) for x in (
+                    randn(2, sl, g * hkv, d), randn(2, sl, hkv, d),
+                    randn(2, sl, hkv, d)))
+                for causal, window in TC_EDGE_MASKS:
+                    what = (f"{(2, sl, g * hkv, hkv, d)} bf16 causal={causal}"
+                            f" window={window}")
+                    hold_ops(xs, what, causal=causal, window=window)
+                    if routes.pop(what) != "general_tc":
+                        raise AssertionError(f"{what} took the "
+                                             f"{K.last_route} route")
+    fused = randn(2, 300, 8 + 2 * 2, 64).to(torch.bfloat16)
+    hold_ops((fused[:, :, :8], fused[:, :, 8:10], fused[:, :, 10:]),
+             "fused bf16 projection", causal=True)
     for (n, sl, d, causal, window) in ((3, 300, 128, False, 40),
                                        (5, 7, 8, True, None),
                                        (2, 1, 4, True, 1)):
@@ -770,7 +800,8 @@ def check_flash_attention(dev, bst_cfg, pool: int):
     for what, want in (("bst layout, labelling", "short_bulk"),
                        ("transposed and sliced", "short_loads"),
                        ("batch stride 2", "short_bulk"),
-                       ("(7, 33, 4, 2, 16) bf16", "general")):
+                       ("(7, 33, 4, 2, 16) bf16", "general"),
+                       ("fused bf16 projection", "general_tc")):
         if routes[what] != want:
             raise AssertionError(f"{what} took the {routes[what]} route")
 
@@ -878,6 +909,9 @@ def time_general(dev) -> dict:
                 ms=time_ms(call), device_ms=time_ms(call, hold=True))
 
 
+#: the tensor-core route's edge cases in phase 1: S, and (causal, window)
+TC_EDGE_S = (1, 63, 65, 127, 129, 200, 640)
+TC_EDGE_MASKS = ((True, None), (False, None), (True, 16), (False, 100))
 #: flash_attention at the LM's prefill shapes, (name, B, S, Hq, Hkv, hd):
 #: tinyllama-1.1b's (the shape phase 13 launches) and qwen3-4b's
 LM_FLASH_SHAPES = (("tinyllama-1.1b prefill", 8, 4096, 32, 4, 64),
@@ -885,15 +919,16 @@ LM_FLASH_SHAPES = (("tinyllama-1.1b prefill", 8, 4096, 32, 4, 64),
 
 
 def check_flash_lm(dev, reports) -> list[dict]:
-    """flash_attention's general path at the LM's prefill shapes, in the
-    model layout (``flash_attention_bshd``), bf16, causal, on seeded
-    random q, k, v: held within 2e-2 of the plain version, which runs
-    the batch one row at a time (its (B, H, S, S) float32 scores at
-    B = 8 would take 17 GB a tensor); one call's time and the device
-    time alone, the plain version's and SDPA's time on the same tensors,
-    the bound (bf16 tensor-core peak for the causal half's 2 B Hq S^2 hd
-    operations) and the ptxas line of the instantiation.  Prints one
-    ``phase 1: LM shape`` line each and returns the rows."""
+    """flash_attention's tensor-core route at the LM's prefill shapes, in
+    the model layout (``flash_attention_bshd``), bf16, causal, on seeded
+    random q, k, v: one launch of ``general_tc`` a call, held within
+    2e-2 of the plain version, which runs the batch one row at a time
+    (its (B, H, S, S) float32 scores at B = 8 would take 17 GB a
+    tensor); one call's time and the device time alone, the plain
+    version's and SDPA's time on the same tensors, the bound (bf16
+    tensor-core peak for the causal half's 2 B Hq S^2 hd operations) and
+    the ptxas line of the instantiation, which must show no spills.
+    Prints one ``phase 1: LM shape`` line each and returns the rows."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as K
@@ -920,16 +955,17 @@ def check_flash_lm(dev, reports) -> list[dict]:
             return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
                                                   enable_gqa=True)
 
+        before = K.n_launches
         out = call()
-        route = K.last_route
+        route, n_calls = K.last_route, K.n_launches - before
         err = max(float((out[i:i + 1].float() - want.float()).abs().max())
                   for i, want in enumerate(plain()))
         lib_err = float((sdpa().transpose(1, 2).float()
                          - out.float()).abs().max())
-        if route != "general" or not err <= 2e-2:
+        if route != "general_tc" or n_calls != 1 or not err <= 2e-2:
             raise AssertionError(f"flash_attention at the {name} shape: "
-                                 f"route {route}, {err} from its plain "
-                                 "version (2e-2)")
+                                 f"route {route}, {n_calls} launches, {err} "
+                                 "from its plain version (2e-2)")
         del out
         n_bytes = 2 * (2 * b * s * hq * hd + 2 * b * s * hkv * hd)
         b_ms, b_by = bound_ms(n_bytes, 2 * b * hq * s * s * hd, BF16_OPS_S)
@@ -945,8 +981,12 @@ def check_flash_lm(dev, reports) -> list[dict]:
             bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
             ptxas=[f for f in ptxas_summary(reports.get("flash_attention",
                                                         ""))
-                   if f"fa_kernelILi{hd}E13__nv_bfloat16" in f["function"]]
+                   if f"fa_tc_kernelILi{hd}E" in f["function"]]
             or "not built here")
+        if any(f.get("spill_stores") or f.get("spill_loads")
+               for f in row["ptxas"] if isinstance(f, dict)):
+            raise AssertionError(f"flash_attention's tensor-core kernel at "
+                                 f"hd {hd} spills: {row['ptxas']}")
         row["bound_share"] = b_ms / row["ms"]
         row["device_bound_share"] = b_ms / row["device_ms"]
         row["ms_over_library_ms"] = row["ms"] / row["library_ms"]
@@ -2992,7 +3032,8 @@ def lm_path(dev) -> dict:
     tokens), one step's wall and host time, the decode_32k shape, the
     smoke configs card against CPU, and last the profiler over one step
     at each shape.
-    Returns the launches of the counted window."""
+    Returns the launches of the counted window, with the flash launches
+    by route under ``flash_routes`` (all ``general_tc``)."""
     import torch
     from repro_torch.configs import base as cfgbase
     from repro_torch.configs import lm_common
@@ -3023,6 +3064,7 @@ def lm_path(dev) -> dict:
     # ---- the counted window: the served prompts and their decode ----
     for mod in (is_k, tk_k, fa_k, eb_k):
         mod.n_launches = 0
+    fa_k.route_launches.clear()
     prefill_ms = []
     for _ in range(LM_PREFILLS):
         pre = None                       # free the last one's cache first
@@ -3045,13 +3087,16 @@ def lm_path(dev) -> dict:
     launches = {"impact_scan": is_k.n_launches, "topk": tk_k.n_launches,
                 "flash_attention": fa_k.n_launches,
                 "embedding_bag": eb_k.n_launches}
+    flash_routes = dict(fa_k.route_launches)
     # ---- end of the counted window ----
     peak = torch.cuda.max_memory_allocated(dev)
     if (prefill_launches != LM_PREFILLS * cfg.n_layers
-            or launches["flash_attention"] != prefill_launches):
+            or launches["flash_attention"] != prefill_launches
+            or flash_routes != {"general_tc": prefill_launches}):
         raise AssertionError(f"phase 13: flash launched {prefill_launches} "
                              f"times in {LM_PREFILLS} prefills and "
-                             f"{launches['flash_attention']} in the window")
+                             f"{launches['flash_attention']} in the window, "
+                             f"by route {flash_routes}")
     for name, x in [("prefill", logits)] + [
             (f"decode step {i + 1}", lg) for i, lg in enumerate(step_logits)]:
         if not bool(torch.isfinite(x).all()):
@@ -3065,7 +3110,7 @@ def lm_path(dev) -> dict:
         warmup_ms=prefill_ms[0], tokens_per_s=b * s / (p_ms / 1e3),
         model_flops=p_flops, model_tflops_per_s=p_flops / p_ms / 1e9,
         flash_launches_per_prefill=prefill_launches / LM_PREFILLS,
-        launches=launches)))
+        launches=launches, flash_routes=flash_routes)))
 
     # the plain path on the card for row 0, and the decode steps against
     # the kernel path's prefill of the prompt and the generated tokens
@@ -3119,7 +3164,7 @@ def lm_path(dev) -> dict:
          "decode_32k": _step_profile(long_step, long_row["step_ms"])}))
     del params, cache, long_step
     torch.cuda.empty_cache()
-    return launches
+    return dict(launches, flash_routes=flash_routes)
 
 
 def _busy_us(events) -> float:
@@ -3277,6 +3322,15 @@ def main() -> int:
     fa_row["lm"] = dict({k: lm_rows[0][k] for k in (
         "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
         "library_ms")}, launches=lm_launches["flash_attention"])
+    # the tensor-core kernel (fa_tc_kernel) on a line of its own: phase
+    # 13's prefills launch it alone, at tinyllama's prefill shape
+    tc_row = dict(
+        {k: lm_rows[0][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")},
+        name="flash_attention general_tc", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:110",
+        launches=lm_launches["flash_routes"].get("general_tc", 0))
     log("phase 5: flash_attention's path call, CUDA activities per call: "
         + json.dumps(check_flash_activities(dev, fcfg.bst, fcfg.pool_depth)))
     if args.profile:
@@ -3311,7 +3365,7 @@ def main() -> int:
             row.pop(extra, None)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
-    print(json.dumps({"kernels": list(rows)}))
+    print(json.dumps({"kernels": list(rows) + [tc_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -18,9 +18,14 @@
 // S = 21, H = 8, HD = 4, fp32): q, k, v read once and o written once are
 // 4 x 1.024 M x 21 x 4 x 4 B = 1.376 GB, 0.41 ms at 3.35 TB/s; the
 // 4 S^2 HD operations per (row, head) are 7.2 GFLOP, 0.11 ms at 67 TFLOP/s
-// fp32.  Bytes bound it, and tensor cores buy nothing at HD = 4.
+// fp32.  Bytes bound it, and tensor cores buy nothing at HD = 4.  At the
+// LM's prefill shapes (B 8, S 4096, Hq 32, bf16, causal) operations bound
+// it: the causal half's 2 B Hq S^2 HD operations are 5.50e11 at
+// tinyllama-1.1b's (Hkv 4, HD 64), 0.556 ms at 989 TFLOP/s bf16, and
+// 1.10e12 at qwen3-4b's (Hkv 8, HD 128), 1.112 ms; the bytes (q, k, v
+// and o once: 302 and 335 MB) take 0.090 and 0.100 ms.
 //
-// Two paths.
+// Two paths; the general one has two routes.
 //
 // * Short path (S <= SHORT_MAX_S, HD <= SHORT_MAX_HD): the funnel's case.
 //   What held the first kernel at 35% of the byte bound was the way it
@@ -61,8 +66,9 @@
 //   flash_attention_launch picks the path and the route from the shape
 //   and the operands' strides and alignment, and reports which it took.
 //
-// * General path (long S or HD up to 128: the LM shapes): a group of G
-//   threads owns one query row, each holding DPT = HD / G (at most 8) of
+// * General path (long S or HD up to 128: the LM shapes), route
+//   general: a group of G threads owns one query row, each holding
+//   DPT = HD / G (at most 8) of
 //   its query and accumulator dims in registers and summing its partial
 //   dot products with warp shuffles; a block owns `rows` query rows of
 //   `bpb` consecutive (batch, head) pairs, walks the kv tiles itself
@@ -74,8 +80,47 @@
 //   masks apply per element; kv tiles no row of the block can reach are
 //   never loaded.  A masked key is skipped, where the TPU kernel adds
 //   exp(-1e30 - m) = 0 once a live key has been seen: the same result,
-//   since every row reaches its own diagonal key.  Tensor-core tiles
-//   (`wgmma`, TMA) for these shapes are later work.
+//   since every row reaches its own diagonal key.  This route runs on
+//   the CUDA cores, so it stays for what the tensor-core route does not
+//   take: float32 (which must stay within 2e-5; TF32 would not), head
+//   dims other than 64 and 128, and operands TMA cannot address.
+//
+// * General path on the tensor cores (route general_tc: bf16, HD 64 or
+//   128, q, k and v addressable by TMA: 16-byte aligned bases and byte
+//   strides that are multiples of 16 on every axis longer than 1).  A
+//   work item is 128 query positions of one query head; the g query
+//   heads of one KV head at one query tile are adjacent items, so their
+//   K and V tiles come from L2, and the last (heaviest causal) query
+//   tiles come first.  Blocks are persistent, one an SM, each walking
+//   items gridDim.x apart.  Warpgroup 2 produces: one thread loads each
+//   item's Q tile once and keeps a ring of TC_STAGES (K, V) tiles of 128
+//   keys in flight with TMA (4-D tensor maps (HD, H, S, B) over the
+//   operands' own strides, encoded on the host per call; 128-byte
+//   swizzle; at HD = 128 a row is two boxes of 64 columns; completion on
+//   mbarriers; keys past S arrive as zeros).  The ring runs on across
+//   items, so the next item's Q and first tiles load while this one's
+//   last tiles and epilogue run (`kernels/flash_attention/cutouts.py`
+//   times a build with a block an item against it).  Warpgroups 0 and 1
+//   consume, 64 query rows each,
+//   with registers moved to them by setmaxnreg: S = Q.K^T is one
+//   `wgmma` m64n128k16 per 16 dims (bf16 in, f32 out, both K-major);
+//   the online softmax runs in registers, each row's max over the 4
+//   threads that hold it, p = 2^(s scale log2(e) - max), O rescaled once
+//   a tile; P is packed in registers into the bf16 A fragments of
+//   O += P.V (`wgmma` with A from registers, V MN-major through the
+//   transpose bit).  Tile t's Q.K^T is issued beside tile t - 1's P.V,
+//   and its softmax runs while P.V is in flight.  Masks apply per
+//   element only on tiles that reach S, the causal diagonal or the
+//   window's far end; a row with no live key yet keeps max -inf and
+//   subtracts 0, so no -inf - -inf is formed.  Tiles above the diagonal
+//   or wholly outside the window are never loaded.  The output is
+//   O / max(l, 1e-30) in bf16, stored through o's strides; rows past S
+//   are not written.  One rounding point is new: P is cast to bf16 as
+//   the PV product's A operand, where the Pallas kernel keeps it in
+//   fp32; the reference model path rounds there too (`_attend_block`,
+//   src/repro/models/attention.py, which casts its normalised
+//   probabilities; here the unnormalised p in [0, 1] are cast and the
+//   row sums stay fp32).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,6 +129,9 @@
 #include <atomic>
 #include <cmath>
 #include <initializer_list>
+#include <type_traits>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -107,6 +155,7 @@ constexpr int SHORT_SMEM_MAX = STAGES * (STAGE_BYTES + 48);
 constexpr int ROUTE_GENERAL = 0;
 constexpr int ROUTE_SHORT_BULK = 1;
 constexpr int ROUTE_SHORT_LOADS = 2;
+constexpr int ROUTE_GENERAL_TC = 3;
 
 struct Strides {
   long long b, s, h;  // elements; the head dim has stride 1
@@ -338,53 +387,6 @@ __global__ void __launch_bounds__(MAX_THREADS)
 
 // -------------------------------------------------------------- short --
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t n) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(n)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-// 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
-// from device memory into shared memory; completion adds to `bar`'s
-// transaction count.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
 // n / d for 0 <= n, d < 2^16 as one wide multiply: m = ceil(2^32 / d)
 // (exact while n * d < 2^32).
 struct FastDiv {
@@ -503,7 +505,7 @@ __global__ void __launch_bounds__(SHORT_THREADS)
   if (bulk) {
     if (threadIdx.x == 0) {
       for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      mbar_init_fence();
     }
     __syncthreads();
     if (threadIdx.x == 0) {
@@ -622,6 +624,307 @@ __global__ void __launch_bounds__(SHORT_THREADS)
         // order the block's reads of the stage before the async writes
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         fill_stage(p, pl, nxt, stage, &full[st]);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------- tensor cores --
+
+// The tensor-core route: a block owns TC_BM query rows of one query
+// head.  Warpgroups 0 and 1 consume 64 rows each; warpgroup 2 produces
+// (one thread issues the copies).  Keys come in tiles of TC_BN through
+// a ring of TC_STAGES stages, each K then V.
+constexpr int TC_BM = 128;
+constexpr int TC_BN = 128;
+constexpr int TC_STAGES = 3;
+constexpr int TC_CONSUMERS = 256;
+constexpr int TC_THREADS = TC_CONSUMERS + 128;
+constexpr int BOX_COLS = 64;  // bf16 columns of one 128-byte swizzled row
+// 1000 + the CUresult of a tensor map the driver refused
+constexpr int TC_ENCODE_ERROR = 1000;
+
+// Shared memory: Q's boxes, then the stages.  A box holds BOX_COLS
+// columns of every row (rows of 128 bytes, TMA's 128-byte swizzle); at
+// HD = 128 a row spans two boxes.
+template <int HD>
+struct TcLayout {
+  static constexpr int BOXES = HD / BOX_COLS;
+  static constexpr int Q_BOX = TC_BM * 128;
+  static constexpr int KV_BOX = TC_BN * 128;
+  static constexpr int Q_BYTES = BOXES * Q_BOX;
+  static constexpr int KV_BYTES = BOXES * KV_BOX;  // K or V of one tile
+  static constexpr int STAGE = 2 * KV_BYTES;
+  // + slack to put the first box on 1024 bytes (a swizzle atom)
+  static constexpr int SMEM = Q_BYTES + TC_STAGES * STAGE + 1024;
+};
+
+struct TcArgs {
+  __nv_bfloat16* o;
+  Strides os;
+  int B, S, Hq, g, n_qt, causal, window;
+  float scale_log2;
+};
+
+// S = Q . K^T for one warpgroup's 64 rows and a tile's TC_BN keys: HD / 16
+// steps of 16 dims, each 32 bytes further along the swizzled rows.
+template <int HD>
+__device__ __forceinline__ void tc_scores(float (&sc)[TC_BN / 2],
+                                          uint32_t q_at, uint32_t k_at) {
+  using L = TcLayout<HD>;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_m64n128k16_ss(
+        sc, sw128_desc(q_at + kk / 4 * L::Q_BOX + kk % 4 * 32, 16, 1024),
+        sw128_desc(k_at + kk / 4 * L::KV_BOX + kk % 4 * 32, 16, 1024),
+        kk > 0);
+}
+
+// O += P . V: P from registers in TC_BN / 16 steps of 16 keys (2048
+// bytes of V each); V is MN-major (HD contiguous), its two boxes at
+// HD = 128 one KV_BOX apart.
+template <int HD>
+__device__ __forceinline__ void tc_pv(float (&acc)[HD / 2],
+                                      const uint32_t (&pb)[TC_BN / 4],
+                                      uint32_t v_at) {
+  using L = TcLayout<HD>;
+#pragma unroll
+  for (int kk = 0; kk < TC_BN / 16; ++kk) {
+    const uint64_t d = sw128_desc(v_at + kk * 16 * 128, L::KV_BOX, 1024);
+    if constexpr (HD == 64)
+      wgmma_m64n64k16_rs(acc, pb + 4 * kk, d);
+    else
+      wgmma_m64n128k16_rs(acc, pb + 4 * kk, d);
+  }
+}
+
+// The online softmax of one tile's scores, in place: masks (only on a
+// tile that reaches an edge), the running max of each of the thread's two
+// rows over the 4 threads that share it, p = 2^(s * scale log2(e) - max)
+// and the thread's part of the row sums.  `alpha` rescales what was
+// summed before.  A row with no live key so far keeps max -inf and takes
+// 0 as the max it subtracts, so no -inf - -inf is formed.
+__device__ __forceinline__ void tc_softmax(float (&sc)[TC_BN / 2],
+                                           float (&m)[2], float (&l)[2],
+                                           float (&alpha)[2], int j0,
+                                           int row, int col, bool edge,
+                                           const TcArgs& a) {
+  if (edge) {
+#pragma unroll
+    for (int i = 0; i < TC_BN / 2; ++i) {
+      const int j = j0 + 8 * (i / 4) + col + (i % 2);
+      const int r = row + 8 * ((i / 2) % 2);
+      bool live = j < a.S;
+      if (a.causal) live = live && j <= r;
+      if (a.window > 0) live = live && r - j < a.window;
+      if (!live) sc[i] = -INFINITY;
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < TC_BN / 2; ++i)
+    mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+  float mc[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float mn = fmaxf(m[r], mx[r] * a.scale_log2);
+    mc[r] = mn == -INFINITY ? 0.f : mn;
+    alpha[r] = ex2(m[r] - mc[r]);
+    m[r] = mn;
+  }
+#pragma unroll
+  for (int i = 0; i < TC_BN / 2; ++i) {
+    const int r = (i / 2) % 2;
+    sc[i] = ex2(fmaf(sc[i], a.scale_log2, -mc[r]));
+    sum[r] += sc[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = fmaf(l[r], alpha[r], sum[r]);
+}
+
+// p (fp32, the scores' accumulator layout) to the bf16 A fragments of
+// the PV product: register i holds p[2i] (low half) and p[2i + 1].
+__device__ __forceinline__ void tc_pack(const float (&sc)[TC_BN / 2],
+                                        uint32_t (&pb)[TC_BN / 4]) {
+#pragma unroll
+  for (int i = 0; i < TC_BN / 4; ++i)
+    pb[i] = pack(sc + 2 * i, __nv_bfloat16());
+}
+
+// One work item: 128 query rows of one query head.  Items are numbered
+// so that the g query heads of one KV head at one query tile are
+// adjacent (their K and V tiles come from L2) and the last, heaviest
+// causal query tiles come first.
+struct TcItem {
+  int b, h, hk, q0, n_lo, n_tiles;  // n_lo, n_tiles: its key tiles
+};
+
+__device__ __forceinline__ TcItem tc_item(int idx, const TcArgs& a) {
+  TcItem w;
+  const int hg = idx % a.g;
+  idx /= a.g;
+  w.hk = idx % (a.Hq / a.g);
+  idx /= a.Hq / a.g;
+  w.b = idx % a.B;
+  w.q0 = (a.n_qt - 1 - idx / a.B) * TC_BM;
+  w.h = w.hk * a.g + hg;
+  // the key tiles some row of the item may see
+  const int kv_end = a.causal ? min(a.S, w.q0 + TC_BM) : a.S;
+  w.n_lo = (a.window > 0 ? max(0, w.q0 - a.window + 1) : 0) / TC_BN;
+  w.n_tiles = (kv_end + TC_BN - 1) / TC_BN - w.n_lo;
+  return w;
+}
+
+// Persistent: block k takes items k, k + gridDim.x, ...  The ring runs on
+// across items (`it` counts the block's tiles), so the producer loads the
+// next item's Q and first tiles while the consumers finish this one.
+template <int HD>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    fa_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const TcArgs a) {
+  using L = TcLayout<HD>;
+  extern __shared__ uint4 tc_raw[];
+  __shared__ uint64_t full[TC_STAGES], empty[TC_STAGES], q_full, q_empty;
+  unsigned char* qs = reinterpret_cast<unsigned char*>(tc_raw);
+  qs += (1024 - (smem_addr(qs) & 1023)) & 1023;
+  unsigned char* kv = qs + L::Q_BYTES;  // stage st: K at st * STAGE, V after
+  const int n_items = a.n_qt * a.B * a.Hq;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TC_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], TC_CONSUMERS);
+    }
+    mbar_init(&q_full, 1);
+    mbar_init(&q_empty, TC_CONSUMERS);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= TC_CONSUMERS / 32) {  // the producer warpgroup
+    regs_lower<24>();
+    if (warp == TC_CONSUMERS / 32 && lane == 0) {
+      int it = 0, k = 0;
+      for (int idx = blockIdx.x; idx < n_items; idx += gridDim.x, ++k) {
+        const TcItem w = tc_item(idx, a);
+        mbar_wait(&q_empty, (k & 1) ^ 1);  // the last item's Q is used
+        mbar_expect_tx(&q_full, L::Q_BYTES);
+        for (int c = 0; c < L::BOXES; ++c)
+          tma_load_4d(qs + c * L::Q_BOX, &tq, c * BOX_COLS, w.h, w.q0, w.b,
+                      &q_full);
+        for (int t = 0; t < w.n_tiles; ++t, ++it) {
+          const int st = it % TC_STAGES;
+          const int j0 = (w.n_lo + t) * TC_BN;
+          mbar_wait(&empty[st], ((it / TC_STAGES) & 1) ^ 1);
+          unsigned char* ks = kv + st * L::STAGE;
+          mbar_expect_tx(&full[st], L::STAGE);
+          for (int c = 0; c < L::BOXES; ++c) {
+            tma_load_4d(ks + c * L::KV_BOX, &tk, c * BOX_COLS, w.hk, j0, w.b,
+                        &full[st]);
+            tma_load_4d(ks + L::KV_BYTES + c * L::KV_BOX, &tv, c * BOX_COLS,
+                        w.hk, j0, w.b, &full[st]);
+          }
+        }
+      }
+    }
+  } else {  // a consumer warpgroup: 64 query rows of each item
+    regs_raise<240>();
+    const uint32_t q_at = smem_addr(qs) + warp / 4 * 64 * 128;
+    const uint32_t kv_at = smem_addr(kv);
+    float sc[TC_BN / 2], acc[HD / 2], alpha[2];
+    uint32_t pb[TC_BN / 4];
+    int it = 0, k = 0;
+    for (int idx = blockIdx.x; idx < n_items; idx += gridDim.x, ++k) {
+      const TcItem w = tc_item(idx, a);
+      const int qw0 = w.q0 + warp / 4 * 64;
+      // this thread's rows (row, row + 8) and first column of each 8
+      // columns of an accumulator
+      const int row = qw0 + warp % 4 * 16 + lane / 4;
+      const int col = 2 * (lane % 4);
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+      // whether a tile reaches an edge of this warpgroup's rows: past S,
+      // the causal diagonal or the window's far end
+      auto edge = [&](int j0) {
+        return j0 + TC_BN > a.S || (a.causal && j0 + TC_BN - 1 > qw0) ||
+               (a.window > 0 && qw0 + 63 - j0 >= a.window);
+      };
+
+      mbar_wait(&q_full, k & 1);
+      mbar_wait(&full[it % TC_STAGES], (it / TC_STAGES) & 1);
+      hold_regs(sc);
+      wgmma_fence();
+      tc_scores<HD>(sc, q_at, kv_at + it % TC_STAGES * L::STAGE);
+      wgmma_commit();
+      wgmma_wait<0>();
+      hold_regs(sc);
+      if (w.n_tiles == 1) mbar_arrive(&q_empty);
+      tc_softmax(sc, m, l, alpha, w.n_lo * TC_BN, row, col,
+                 edge(w.n_lo * TC_BN), a);
+      tc_pack(sc, pb);
+      // Tile t's scores run on the tensor cores beside tile t - 1's P.V;
+      // its softmax runs while P.V is still in flight, and rescales O
+      // once P.V has landed.
+      for (int t = 1; t < w.n_tiles; ++t) {
+        const int st = (it + t) % TC_STAGES, prev = (it + t - 1) % TC_STAGES;
+        const int j0 = (w.n_lo + t) * TC_BN;
+        mbar_wait(&full[st], ((it + t) / TC_STAGES) & 1);
+        hold_regs(sc);
+        hold_regs(acc);
+        hold_regs(pb);
+        wgmma_fence();
+        tc_scores<HD>(sc, q_at, kv_at + st * L::STAGE);
+        wgmma_commit();
+        tc_pv<HD>(acc, pb, kv_at + prev * L::STAGE + L::KV_BYTES);
+        wgmma_commit();
+        wgmma_wait<1>();
+        hold_regs(sc);
+        if (t == w.n_tiles - 1) mbar_arrive(&q_empty);  // Q's last use
+        tc_softmax(sc, m, l, alpha, j0, row, col, edge(j0), a);
+        wgmma_wait<0>();
+        hold_regs(acc);
+        hold_regs(pb);
+        mbar_arrive(&empty[prev]);
+#pragma unroll
+        for (int i = 0; i < HD / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+        tc_pack(sc, pb);
+      }
+      it += w.n_tiles;
+      const int last = (it - 1) % TC_STAGES;
+      hold_regs(acc);
+      hold_regs(pb);
+      wgmma_fence();
+      tc_pv<HD>(acc, pb, kv_at + last * L::STAGE + L::KV_BYTES);
+      wgmma_commit();
+      wgmma_wait<0>();
+      hold_regs(acc);
+      hold_regs(pb);
+      mbar_arrive(&empty[last]);
+
+      // O / max(l, 1e-30) in bf16, two values a 4-byte store; rows past
+      // S are not written
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        const int qi = row + 8 * r;
+        if (qi >= a.S) continue;
+        const float inv = 1.f / fmaxf(l[r], 1e-30f);
+        __nv_bfloat16* dst = a.o + (long long)w.b * a.os.b
+                             + (long long)qi * a.os.s
+                             + (long long)w.h * a.os.h + col;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j) {
+          const float x[2] = {acc[4 * j + 2 * r] * inv,
+                              acc[4 * j + 2 * r + 1] * inv};
+          *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+              pack(x, __nv_bfloat16());
+        }
       }
     }
   }
@@ -836,6 +1139,89 @@ int launch_general(const Operands<T>& p, long long B, int S, int Hq, int g,
   return (int)cudaGetLastError();
 }
 
+// Whether TMA can address an operand (B, S, H, HD) of bf16: a 16-byte
+// aligned base, and on every axis longer than 1 a byte stride that is a
+// positive multiple of 16 below 2^40.
+bool tma_fits(const void* ptr, Strides st, long long B, int S, int H) {
+  const long long n[3] = {H, S, B}, s[3] = {st.h, st.s, st.b};
+  if ((uintptr_t)ptr % 16) return false;
+  for (int i = 0; i < 3; ++i)
+    if (n[i] > 1 && (s[i] <= 0 || s[i] * 2 % 16 || s[i] * 2 >= (1ll << 40)))
+      return false;
+  return true;
+}
+
+// Whether the tensor-core route takes a bf16 call: q, k and v addressable
+// by TMA, o writable two values a store, the work items within 2^31.
+bool tc_fits(const Operands<__nv_bfloat16>& p, long long B, int S, int Hq,
+             int g) {
+  const long long blocks = (long long)((S + TC_BM - 1) / TC_BM) * B * Hq;
+  return blocks <= 0x7fffffffLL && tma_fits(p.q, p.qs, B, S, Hq) &&
+         tma_fits(p.k, p.ks, B, S, Hq / g) &&
+         tma_fits(p.v, p.vs, B, S, Hq / g) &&
+         align16({(unsigned long long)(uintptr_t)p.o,
+                  (unsigned long long)(p.os.b * 2),
+                  (unsigned long long)(p.os.s * 2),
+                  (unsigned long long)(p.os.h * 2)}) >= 4;
+}
+
+// A 4-D tensor map (HD, H, S, B) of a bf16 operand with boxes of
+// BOX_COLS x 1 x rows x 1, 128-byte swizzle; out-of-range elements load
+// as zeros.  An axis of length 1 is never stepped and gets the packed
+// stride.
+int tc_map(CUtensorMap* map, const void* ptr, Strides st, long long B,
+           int S, int H, int HD, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {
+      (cuuint64_t)(H > 1 ? st.h : HD) * 2,
+      (cuuint64_t)(S > 1 ? st.s : (long long)H * HD) * 2,
+      (cuuint64_t)(B > 1 ? st.b : (long long)S * H * HD) * 2};
+  const cuuint32_t box[4] = {BOX_COLS, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : TC_ENCODE_ERROR + (int)r;
+}
+
+template <int HD>
+int launch_tc(const Operands<__nv_bfloat16>& p, long long B, int S, int Hq,
+              int g, int causal, int window, float scale,
+              cudaStream_t stream) {
+  using L = TcLayout<HD>;
+  CUtensorMap tq, tk, tv;
+  int e = tc_map(&tq, p.q, p.qs, B, S, Hq, HD, TC_BM);
+  if (!e) e = tc_map(&tk, p.k, p.ks, B, S, Hq / g, HD, TC_BN);
+  if (!e) e = tc_map(&tv, p.v, p.vs, B, S, Hq / g, HD, TC_BN);
+  if (e) return e;
+  auto kernel = fa_tc_kernel<HD>;
+  static bool opted_in[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t ce = cudaGetDevice(&dev);
+  if (ce != cudaSuccess) return (int)ce;
+  if (dev >= MAX_DEVICES || !opted_in[dev]) {
+    ce = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+    if (ce != cudaSuccess) return (int)ce;
+    if (dev < MAX_DEVICES) opted_in[dev] = true;
+  }
+  int sms = 0;
+  const int err = sm_count(dev, &sms);
+  if (err) return err;
+  const int n_qt = (S + TC_BM - 1) / TC_BM;
+  const long long items = (long long)n_qt * B * Hq;
+  const TcArgs a{p.o, p.os, (int)B, S, Hq, g, n_qt, causal, window,
+                 scale * LOG2E};
+  kernel<<<(unsigned)(items < sms ? items : sms), TC_THREADS, L::SMEM,
+           stream>>>(tq, tk, tv, a);
+  return (int)cudaGetLastError();
+}
+
 template <int HD, typename T>
 int launch(const Operands<T>& p, long long B, int S, int Hq, int g,
            int causal, int window, float scale, int* route,
@@ -846,6 +1232,13 @@ int launch(const Operands<T>& p, long long B, int S, int Hq, int g,
       *route = bulk ? ROUTE_SHORT_BULK : ROUTE_SHORT_LOADS;
       return launch_short<HD, T>(p, B, S, Hq, g, causal, window, scale, bulk,
                                  stream);
+    }
+  }
+  if constexpr (std::is_same<T, __nv_bfloat16>::value &&
+                (HD == 64 || HD == 128)) {
+    if (tc_fits(p, B, S, Hq, g)) {
+      *route = ROUTE_GENERAL_TC;
+      return launch_tc<HD>(p, B, S, Hq, g, causal, window, scale, stream);
     }
   }
   *route = ROUTE_GENERAL;
@@ -884,7 +1277,9 @@ int run(void* q, void* k, void* v, void* o, const long long* st,
 // twelve values) and stride 1 on the head dim.  dtype: 0 float32,
 // 1 bfloat16.  window <= 0 means no window.  The launcher picks the
 // path and writes it to `route`: 0 general, 1 short with bulk copies,
-// 2 short with plain loads (-1: nothing launched).
+// 2 short with plain loads, 3 general on the tensor cores (-1: nothing
+// launched).  Returns cudaGetLastError(), or 1000 + the CUresult of a
+// tensor map the driver refused.
 extern "C" int flash_attention_launch(void* q, void* k, void* v, void* o,
                                       const long long* strides,
                                       long long B, int S, int Hq, int g,

@@ -3,9 +3,11 @@
 Each ``csrc/<name>.cu`` exposes a plain C launcher (no PyTorch headers),
 so ``nvcc`` takes seconds, not minutes.  Libraries go to
 ``<repo>/build/repro_torch/`` (listed in ``.gitignore``), named by a hash
-of their source so an edited kernel is rebuilt.  Pointers and the stream
-cross as ``c_void_p``; every launcher returns ``cudaGetLastError()`` and
-``check`` raises when it is not 0.
+of the nvcc flags, the source and every ``csrc`` header it includes, so
+an edited kernel, header or flag is rebuilt.  Pointers and the stream
+cross as ``c_void_p``; every launcher returns ``cudaGetLastError()`` (or
+a code of its own for a failure before the launch) and ``check`` raises
+when it is not 0.
 
 Nothing here runs at import: the CPU tests import every module, so
 ``nvcc`` and the card stay out of import time.
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -62,15 +65,36 @@ def nvcc_path() -> str:
                        "first use on a machine with the CUDA toolkit")
 
 
+#: nvcc's flags for every kernel library
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the ``csrc`` files it includes (``#include
+    "..."``), transitively, in the order first reached."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [CSRC / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return found
+
+
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _nvcc_cmd(name: str, out: Path) -> list[str]:
-    return [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
-            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-            "-Xptxas", "-v", "-o", str(out), str(CSRC / f"{name}.cu")]
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out),
+            str(CSRC / f"{name}.cu")]
 
 
 def _build_missing(names) -> dict[str, str]:

@@ -3,8 +3,9 @@
 Replaces the Pallas TPU kernel ``flash_attention_fwd`` of
 ``src/repro/kernels/flash_attention/kernel.py`` and the fold of its
 wrapper; the CUDA source is ``src/repro_torch/csrc/flash_attention.cu``,
-whose header gives the bound (bytes at the funnel's shape) and the
-design of its two paths:
+whose header gives the bounds (bytes at the funnel's shape, bf16
+tensor-core operations at the LM shapes) and the design of its paths
+and routes:
 
 * ``short``: S <= 32 and hd <= 16 (BST's attention).  Persistent
   blocks, a ring of groups of whole batch rows in shared memory, two
@@ -13,18 +14,28 @@ design of its two paths:
   batch row of q, k and v is one 16-byte aligned contiguous span (and
   the batch stride 16-byte aligned); otherwise ``short_loads`` stages the
   same groups with plain loads.
-* ``general``: the rest (the LM shapes: long S, hd up to 128), an
-  online softmax over kv tiles.
+* ``general_tc``: bf16 at hd 64 or 128 where TMA can address q, k and v
+  (16-byte aligned bases, byte strides multiples of 16 on every axis
+  longer than 1; the LM shapes).  Persistent blocks walk work items of
+  128 query rows of one head: two warpgroups of ``wgmma`` (QK^T and P.V
+  on the tensor cores, P cast to bf16 for P.V), K and V tiles of 128
+  keys through a TMA ring fed by a producer warp.  ``cutouts.py`` times
+  builds of it with parts of its work cut out.
+* ``general``: the rest (float32, other head dims, a sliced head dim or
+  broadcast heads at hd 64 or 128), an online softmax over kv tiles on
+  the CUDA cores.
 
-The C launcher picks the path and route from the shape, strides and
-alignment it is given, and reports it: ``last_route`` holds the route of
-the last launch.  ``flash_attention_bshd`` takes the model layout, q
-(B, S, Hq, hd) and k, v (B, S, Hkv, hd) with Hkv dividing Hq, through
-their strides: any operand whose last axis has stride 1 is read in place
-(the kernel reads key/value head h // g for query head h), and the
-output is a new contiguous (B, S, Hq, hd).  ``flash_attention_fwd`` is
-the TPU kernel's (BH, S, hd) layout, the case H = 1.  Both launch the
-kernel on a CUDA tensor and run their plain version (the oracle
+The C launcher picks the path and route from the dtype, shape, strides
+and alignment it is given, before the launch, and reports it:
+``last_route`` holds the route of the last launch and
+``route_launches`` counts launches by route.  ``flash_attention_bshd``
+takes the model layout, q (B, S, Hq, hd) and k, v (B, S, Hkv, hd) with
+Hkv dividing Hq, through their strides: any operand whose last axis has
+stride 1 is read in place (the kernel reads key/value head h // g for
+query head h), and the output is a new contiguous (B, S, Hq, hd).
+``flash_attention_fwd`` is the TPU kernel's (BH, S, hd) layout, the case
+H = 1.  Both launch the kernel on a CUDA tensor and run their plain
+version (the oracle
 ``attention_ref``, through the fold) on a CPU tensor; ``n_launches``
 counts launches.  Neither has a backward: an input that requires grad
 under grad mode raises (``_build.check_no_grad``); training goes through
@@ -45,12 +56,12 @@ from repro_torch.kernels.flash_attention.ref import (attention_ref,
 
 __all__ = ["HEAD_DIMS", "ROUTES", "flash_attention_bshd",
            "flash_attention_fwd", "flash_attention_fwd_plain", "last_route",
-           "n_launches"]
+           "n_launches", "route_launches"]
 
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (4, 8, 16, 32, 64, 128)
 #: the routes by the code the launcher reports
-ROUTES = ("general", "short_bulk", "short_loads")
+ROUTES = ("general", "short_bulk", "short_loads", "general_tc")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the twelve (batch, sequence, head) element strides of q, k, v and o as
 #: the launcher reads them
@@ -62,6 +73,8 @@ _ROUTE_OUT = ctypes.byref(_route_code)
 n_launches = 0
 #: the route of the last launch (one of ROUTES), None before the first
 last_route: str | None = None
+#: kernel launches by route since the last reset (``clear()`` resets)
+route_launches: dict[str, int] = {}
 
 
 def _check(q, k, v, window) -> None:
@@ -130,6 +143,7 @@ def _launch(q, k, v, out, strides, b, s, hq, g, hd, causal, window):
     _build.check(err, "flash_attention")
     n_launches += 1
     last_route = ROUTES[_route_code.value]
+    route_launches[last_route] = route_launches.get(last_route, 0) + 1
     return out
 
 

@@ -14,7 +14,9 @@ Tolerances, with their reasons:
     whose stage-2 scores are within float32 rounding of each other, so
     ranked lists are equal.
   * flash_attention: 2e-5 in float32, 2e-2 in bfloat16 (against the
-    plain softmax: exp and the order of sums differ).
+    plain softmax: exp and the order of sums differ; the tensor-core
+    route also casts P to bfloat16 for P.V, as the reference model path
+    does).
   * embedding_bag: bit-equal, in float32 and in bfloat16; the kernel and
     its plain version both add the slots left to right, a bfloat16 sum
     rounded after every add.
@@ -898,12 +900,85 @@ def test_lm_smoke_serving_on_card_matches_cpu(cuda_device, arch, s):
 @pytest.mark.parametrize("hkv,hd", [(4, 64), (8, 128)])
 def test_flash_attention_cuda_lm_shape_bf16(cuda_device, hkv, hd):
     """Causal GQA in bfloat16 at a small LM shape (tinyllama's heads at
-    hd 64, qwen3-4b's at hd 128): one launch of the general route,
+    hd 64, qwen3-4b's at hd 128): one launch of the tensor-core route,
     within 2e-2 of the plain version."""
     r = np.random.default_rng(hd)
     q = torch.from_numpy(r.normal(size=(2, 640, 32, hd)).astype(np.float32))
     k, v = (torch.from_numpy(r.normal(size=(2, 640, hkv, hd)).astype(
         np.float32)) for _ in range(2))
     q, k, v = (x.to(cuda_device, torch.bfloat16) for x in (q, k, v))
+    _hold_flash(q, k, v, True, None)
+    assert fa_kernel.last_route == "general_tc"
+
+
+def _bf16_normal(r, *shape):
+    return torch.from_numpy(r.normal(size=shape).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [1, 4, 7, 8])
+@pytest.mark.parametrize("s", [1, 63, 65, 127, 129, 200, 640])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_cuda_tensor_core_route(cuda_device, hd, s, g):
+    """The tensor-core route at ragged S (one key, either side of the 64-
+    row warpgroup and the 128-key tile, several tiles), every GQA group
+    (g = 7: qwen2-0.5b's 14 / 2 heads), causal, non-causal and windowed
+    (a window inside one tile and one across tiles): each call one
+    launch of ``general_tc`` within 2e-2 of the plain version."""
+    r = np.random.default_rng(hd + s + g)
+    hkv = 1 if g == 8 else 2
+    q = _bf16_normal(r, 2, s, g * hkv, hd)
+    k, v = (_bf16_normal(r, 2, s, hkv, hd) for _ in range(2))
+    for causal, window in ((True, None), (False, None), (True, 16),
+                           (False, 100)):
+        _hold_flash(q, k, v, causal, window)
+        assert fa_kernel.last_route == "general_tc", (causal, window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("kind", ["fused", "batch_stride"])
+def test_flash_attention_cuda_tensor_core_strides(cuda_device, hd, kind):
+    """The tensor-core route reads strided operands in place: q, k and v
+    as slices of one fused (B, S, Hq + 2 Hkv, hd) projection, and every
+    operand with a batch stride past S H hd."""
+    r = np.random.default_rng(hd)
+    b, s, hq, hkv = 3, 200, 8, 2
+    if kind == "fused":
+        x = _bf16_normal(r, b, s, hq + 2 * hkv, hd)
+        q, k, v = x[:, :, :hq], x[:, :, hq:hq + hkv], x[:, :, hq + hkv:]
+    else:
+        q = _bf16_normal(r, 2 * b, s, hq, hd)[::2]
+        k, v = (_bf16_normal(r, b + 1, s, hkv, hd)[1:] for _ in range(2))
+    _hold_flash(q, k, v, True, None)
+    assert fa_kernel.last_route == "general_tc"
+    _hold_flash(q, k, v, False, 16)
+    assert fa_kernel.last_route == "general_tc"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["float32", "hd32", "head_slice",
+                                  "broadcast"])
+def test_flash_attention_cuda_keeps_the_cuda_core_route(cuda_device, kind):
+    """What the tensor-core route does not take keeps ``general``:
+    float32 (within 2e-5), hd 32, a sliced head dim (a 2-byte aligned
+    base) and broadcast KV heads (stride 0)."""
+    r = np.random.default_rng(11)
+    b, s, hq, hkv, hd = 2, 200, 8, 2, 64
+    if kind == "float32":
+        q = _bf16_normal(r, b, s, hq, hd).float()
+        k, v = (_bf16_normal(r, b, s, hkv, hd).float() for _ in range(2))
+    elif kind == "hd32":
+        q = _bf16_normal(r, b, s, hq, 32)
+        k, v = (_bf16_normal(r, b, s, hkv, 32) for _ in range(2))
+    elif kind == "head_slice":
+        q = _bf16_normal(r, b, s, hq, hd + 1)[..., 1:]
+        k, v = (_bf16_normal(r, b, s, hkv, hd + 1)[..., 1:]
+                for _ in range(2))
+    else:
+        q = _bf16_normal(r, b, s, hq, hd)
+        k, v = (_bf16_normal(r, b, s, 1, hd).expand(b, s, hq, hd)
+                for _ in range(2))
     _hold_flash(q, k, v, True, None)
     assert fa_kernel.last_route == "general"

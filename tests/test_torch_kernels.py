@@ -332,6 +332,67 @@ def test_flash_attention_bfloat16_matches_pallas():
                                atol=2e-2)
 
 
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, 16)])
+def test_flash_attention_tensor_core_shapes_match_pallas(hd, causal, window):
+    # bf16 at the shapes the card's tensor-core route takes (hd 64 and
+    # 128, qwen2-0.5b's 14 / 2 heads, S past one 64-row warpgroup; the
+    # Pallas kernel takes S in whole blocks): the plain version the card
+    # holds that route against, here against the Pallas kernel in
+    # interpret mode
+    q, k, v = _qkv(1, 96, 14, 2, hd, seed=hd + (window or 0))
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
+    pallas = np.asarray(j_fa_ops.flash_attention(
+        jq, jk, jv, causal=causal, window=window, block_q=32, block_kv=32),
+        np.float32)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    out = t_fa_ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert out.dtype == torch.bfloat16 and out.shape == (1, 96, 14, hd)
+    np.testing.assert_allclose(out.float().numpy(), pallas, rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_build_digest_covers_included_headers_and_flags(tmp_path,
+                                                        monkeypatch):
+    """A kernel library's name hashes the nvcc flags, its source and the
+    csrc headers it includes, transitively: editing any of them builds a
+    new library instead of loading a stale one."""
+    from repro_torch.kernels import _build
+    assert _build._sources("flash_attention")[1].name == "sm90.cuh"
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cuda.h>\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [p.name for p in _build._sources("k")] == ["k.cu", "a.cuh",
+                                                      "b.cuh"]
+    first = _build._lib_path("k")
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    second = _build._lib_path("k")
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-g",))
+    third = _build._lib_path("k")
+    assert len({first, second, third}) == 3
+
+
+def test_flash_attention_cutouts_apply_to_the_source():
+    """Each cut of ``cutouts.py`` (a timing tool for the tensor-core
+    route) matches flash_attention.cu exactly once, so it still cuts what
+    it names."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import cutouts
+    text = (_build.CSRC / "flash_attention.cu").read_text()
+    for name, edits in cutouts.CUTS.items():
+        for old, _ in edits:
+            assert text.count(old) == 1, name
+
+
+def test_cpu_tensors_leave_the_route_counts_alone(monkeypatch):
+    monkeypatch.setattr(t_fa_kernel, "route_launches", {})
+    x = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
+    t_fa_ops.flash_attention(x, x, x)
+    assert t_fa_kernel.route_launches == {}
+    assert t_fa_kernel.ROUTES[3] == "general_tc"
+
+
 def test_flash_attention_validation():
     x = torch.zeros((2, 8, 4))
     with pytest.raises(ValueError, match="window must be >= 1"):
