@@ -49,7 +49,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ((32, 512) postings, 50 000 docs, per-slot rho in [0, 512], idle
      slots at rho 0 with the empty bounds (n_docs, -1), ``chunk_ms`` the
      whole chunk stage with its ``acc + inc``), topk on one finalize
-     group ((8, 50 000), kp 100).
+     group ((8, 50 000), kp 100).  A ``phase 1: LM training shape`` line
+     trains flash at tinyllama-1.1b's train_4k attention (B 8, S 4096,
+     Hq 32, Hkv 4, hd 64, bf16, causal) through ``ops.FlashAttention``:
+     one ``general_tc`` forward, the backward by query blocks of 512
+     (``flash_attention_bwd_blocked``), SDPA's forward + backward as the
+     library call, the forward's and the backward's bounds (bf16 tensor
+     cores; the backward 2.5x the forward's operations), the backward's
+     peak memory above its inputs (held under one float32 (B, Hq, S, S),
+     17.2 GB), and dq, dk, dv of all 8 rows within 2^-7 of each
+     gradient's largest magnitude of the whole-matrix
+     ``flash_attention_bwd``, run one batch row at a time (its ``plain_ms``
+     times those 8 calls).
   2. the batch-once serving path at the repo's paper-validation scale
      ("paperish": 50 000 docs, 60 000 terms, 8 000 queries, streams of
      4096): build the system, MED tables and envelope labels, train the
@@ -57,7 +68,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ``RetrievalServer(device="cuda")``, with the kernel launch counters
      zeroed just before and read just after.  The ranked lists are held
      against the per-bucket reference on the card and, for one batch,
-     against the same server on the CPU.
+     against the same server on the CPU.  Then per knob an ``mlp``
+     cascade (``core/mlp.py`` nodes trained on the card on the same
+     queries and labels) serves the same batches through
+     ``RetrievalServer``: well-formed lists, classes equal to the same
+     nodes' ``predict_sequential``, and ``serve_fixed`` at each served
+     class's cutoff equal to that class's served lists.
   3. the recsys funnel at full width (BST ``model_config``, two towers
      over 1 M candidates, pool 1000): label 1024 synthetic requests on
      the card in batches of 128 (gold and per-cutoff runs, MED_RBP,
@@ -89,11 +105,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      q/s, and inline over the same batches served just before by
      ``serve_batch`` / ``Funnel.serve`` (``direct``).  Then ``python -m repro_torch.launch.serve`` runs as a
      subprocess at the verify sizes (batch 30, off the pad grid) and its
-     trace and metrics snapshot must be valid.
+     trace and metrics snapshot must be valid.  Then the port's drivers
+     of the JAX examples as subprocesses: ``python -m
+     repro_torch.examples.serve_retrieval --knob rho`` and ``--online``,
+     and ``python -m repro_torch.examples.recsys_funnel``, started
+     together: exit 0 and the JAX example's lines in order.
   5. the path's flash_attention call at the labelling and the served
      shape under ``torch.profiler``: its CUDA activities must be the
      kernel alone (after every timed phase, phase 6 included, since the
-     profiler is left loaded in the process).
+     profiler is left loaded in the process).  Every profiler window
+     is bracketed by two marker kernels and taken again until both show
+     (``_profiled``): the card's activities can land off on the host's
+     clock, and the profiler drops what falls outside its window.
   7. (run after phase 4) the continuous scheduler on the card, per knob
      over phase 2's servers and 512 requests: ``ContinuousBackend``
      (slots 32, grain 8, chunk 512: 8 chunks a stream) behind
@@ -186,8 +209,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      shape bit-equal twice and within 1e-4 of a float64 sum; and
      flash_attention at the training shape (B = 65 536, 8 heads, S 21,
      hd 4) against its plain version and its backward against autograd,
-     with one call's times, SDPA's and the backward's (a ``phase 1:
-     training shape`` line).
+     with one call's times, SDPA's and the backward's, the whole-matrix
+     ``flash_attention_bwd`` and the blocked one training runs (a
+     ``phase 1: training shape`` line).
   13. (after phase 12, before phase 5) LM serving on the card:
      tinyllama-1.1b at its full ``model_config()`` (bf16, 22 layers,
      seeded random weights) serves 8 prompts of 4096 tokens from the LM
@@ -205,10 +229,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      tokens/s, bytes read and GB/s, its host (enqueue) time, the peak
      memory; one step at decode_32k's cache length (32 768) and the
      largest batch of 128, 64, 32 that fits, on a seeded random cache
-     (timing only); the four served archs' smoke configs (float32) on
-     the card against the CPU port, greedy tokens equal and logits
-     within 2e-5; last one step at batch 8 and one at decode_32k under
-     the profiler: CUDA activities, device-busy ms and idle share.
+     (timing only); the five LM archs' smoke configs (float32; deepseek's
+     MLA and its latent cache, prefill launching no flash) on the card
+     against the CPU port, prefill and 8 decode steps, greedy tokens
+     equal and logits within 2e-5; last one step at batch 8 and one
+     at decode_32k under the profiler: CUDA activities, device-busy ms
+     and idle share.
+  14. (last, after phase 5 and the profile, so that its numbers are
+     its subprocesses' own) LM training on the card.
+     ``python -m repro_torch.launch.train --arch tinyllama-1.1b --full
+     --batch 8 --seq-len 4096 --steps 6`` as a subprocess (train_4k's
+     global batch of 256 cut to 8; checkpoints in
+     ``build/phase14_ckpt``, removed after): every loss finite, flash
+     launched 44 times a step (each layer's forward and its recompute
+     under ``remat="full"``), all ``general_tc``; a ``phase 14: full
+     width`` line with the median step ms of steps 2-6, tokens/s, model
+     TFLOP/s, peak memory, and the flash backward's device ms a step
+     (CUDA events around each backward inside the CLI's steps) and its
+     share of the step, beside 22 of phase 1's isolated backward.  Then
+     tinyllama's and deepseek's smoke configs (float32), 6 steps of
+     batch 8 x 128 through the CLI on the card, on the card preempted at
+     step 3, and on the CPU, all started together: losses within 1e-5
+     relative card against CPU, the preempted run's final checkpoint
+     equal to the clean run's bit for bit; beside them (started
+     together) ``python -m repro_torch.examples.train_lm`` (the JAX
+     example's command: 200 steps, preempted at 90) must exit 0 after
+     one restart.  Last a profiler canary: three known launches must
+     show three CUDA activities (``profiler_canary``).
   9. one JSON line with every kernel's launches (phases 2 and 3),
      service launches (the inline and FIFO runs of phase 4), continuous
      launches (phase 7's inline runs), online launches (phase 8's shadow
@@ -218,9 +265,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      flash_attention's ``train`` field its row at the training shape with
      the launches of phase 12's clean BST run, and its ``lm`` field its
      row at tinyllama's prefill shape with phase 13's launches
-     (``lm_launches`` on every row); a last entry, ``flash_attention
-     general_tc``, gives the tensor-core kernel's row at that shape with
-     phase 13's launches of its route.
+     (``lm_launches`` on every row), and its ``lm_train`` field phase
+     1's LM training row with phase 14's full-width launches; a last
+     entry, ``flash_attention general_tc``, gives the tensor-core
+     kernel's row at that shape with phase 13's launches of its route.
   10. the last line: {"ok": true, "device": {...}}.
 
 With ``--profile DIR``, after phase 5 each knob's server and the funnel
@@ -258,9 +306,9 @@ BF16_OPS_S = 989e12
 #: timed for its device work alone is enqueued (about 1 ms at the H100's
 #: 1.98 GHz boost clock, longer than any timed call's host work)
 HOLD_CYCLES = 2_000_000
-#: the JAX package's configs/paper_retrieval.py experiment_config("paperish")
-PAPERISH = dict(n_docs=50_000, vocab=60_000, n_queries=8_000,
-                stream_cap=4096, pool_depth=10_000, gold_depth=1000)
+#: the paper-validation scale, the port's configs/paper_retrieval.py
+#: experiment_config("paperish") (the JAX package's numbers)
+from repro_torch.configs.paper_retrieval import PAPERISH  # noqa: E402
 BATCH, N_BATCHES, RERANK_DEPTH, TAU = 128, 4, 100, 0.05
 #: stage-2 tolerance: log/divide in float32 on two devices
 STAGE2_RTOL = 1e-6
@@ -639,36 +687,70 @@ def _bst_qkv(b, bst_cfg, randn):
         b, s, bst_cfg.n_heads, bst_cfg.head_dim) for _ in range(3)]
 
 
-def _cuda_activities(fn, calls: int = 3) -> dict | None:
-    """The CUDA activities (kernels, copies, memsets) per call of ``fn``
-    over ``calls`` calls under ``torch.profiler``, after one traced
-    warm-up call (the tracer can miss a launch just after it starts),
-    their names, the device-busy ms per call (the union of their
-    intervals) and the five names with the most device ms per call;
-    None if the profiler saw no device activity."""
+#: the profiler places the card's activities on the host's clock and
+#: drops what falls outside its window.  After the process sat idle or
+#: another process used the card, they landed tens of ms to seconds off
+#: (the canary's ``lag_ms``), so a window could lose some or all of them.
+#: ``_profiled`` brackets its window with two marker kernels
+#: (``torch.cuda._sleep``) and retries, with idle host time (from
+#: PROFILE_PAD_S, doubled each try) around the markers, until both show
+PROFILE_PAD_S, PROFILE_TRIES, MARK_CYCLES = 0.25, 5, 1000
+
+
+def _profiled(body) -> tuple:
+    """``body()`` under ``torch.profiler`` (CPU and CUDA), bracketed by
+    two marker kernels, each after a sync: once both markers show, every
+    activity between them is in the window.  Returns the profile, its
+    events without the markers, and the tries it took; raises after
+    PROFILE_TRIES windows that lost a marker."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
-    from torch.profiler import schedule
 
-    events = []
+    def mark():
+        torch.cuda.synchronize()
+        torch.cuda._sleep(MARK_CYCLES)
+        torch.cuda.synchronize()
 
-    def collect(prof):          # the schedule's step markers are no work
-        events.extend(e for e in prof.events()
-                      if e.device_type == DeviceType.CUDA
-                      and not e.name.startswith("ProfilerStep"))
+    pad = PROFILE_PAD_S
+    for tries in range(1, PROFILE_TRIES + 1):
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            mark()
+            body()
+            mark()
+            time.sleep(pad)
+        events = list(prof.events())
+        marks = [e for e in events if e.device_type == DeviceType.CUDA
+                 and "spin_kernel" in e.name]
+        if len(marks) == 2:
+            return prof, [e for e in events if not (
+                e.device_type == DeviceType.CUDA
+                and "spin_kernel" in e.name)], tries
+        pad *= 2
+    raise AssertionError(f"the profiler lost a marker kernel in each of "
+                         f"{PROFILE_TRIES} windows")
+
+
+def _cuda_activities(fn, calls: int = 3) -> dict | None:
+    """The CUDA activities (kernels, copies, memsets) per call of ``fn``
+    over ``calls`` calls, each followed by a sync, under ``torch.profiler``
+    (``_profiled``, after one call outside it), their names, the device-busy ms per call (the
+    union of their intervals) and the five names with the most device
+    ms per call; None if the profiler saw no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+
+    def body():
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
 
     fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA],
-                       schedule=schedule(wait=0, warmup=1, active=calls,
-                                         repeat=1),
-                       on_trace_ready=collect) as prof:
-        for _ in range(calls + 1):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
+    events = [e for e in _profiled(body)[1]
+              if e.device_type == DeviceType.CUDA]
     if not events:
         return None
     by_name = {}
@@ -678,6 +760,33 @@ def _cuda_activities(fn, calls: int = 3) -> dict | None:
     return dict(per_call=len(events) / calls, names=sorted(by_name),
                 busy_ms=_busy_us(events) / 1e3 / calls,
                 top_ms=sorted(by_name.items(), key=lambda kv: -kv[1])[:5])
+
+
+def profiler_canary(dev) -> dict:
+    """One known launch, an elementwise multiply of 1 M floats, three
+    times under ``_profiled``: it must show one CUDA activity a call, or
+    a later profile would read too little.  Returns the tries the window
+    took and each kernel's start less its ``aten::mul``'s on the
+    profiler's clock (``lag_ms``)."""
+    import torch
+    from torch.autograd import DeviceType
+
+    x = torch.ones(1 << 20, device=dev)
+
+    def body():
+        for _ in range(3):
+            x.mul(2)
+            torch.cuda.synchronize()
+
+    _, events, tries = _profiled(body)
+    cpu = sorted(e.time_range.start for e in events if e.name == "aten::mul")
+    gpu = sorted(e.time_range.start for e in events
+                 if e.device_type == DeviceType.CUDA)
+    if len(gpu) != 3 or len(cpu) != 3:
+        raise AssertionError(f"the profiler saw {len(gpu)} CUDA activities "
+                             f"of three known launches")
+    return dict(cuda_activities=len(gpu), tries=tries,
+                lag_ms=[(g - c) / 1e3 for g, c in zip(gpu, cpu)])
 
 
 def check_flash_attention(dev, bst_cfg, pool: int):
@@ -997,6 +1106,143 @@ def check_flash_lm(dev, reports) -> list[dict]:
     return rows
 
 
+#: phase 1's LM training line: tinyllama-1.1b's train_4k attention at
+#: phase 14's batch (B, S, Hq, Hkv, hd), bf16, causal; the backward's
+#: query block (the config's block_q)
+LM_TRAIN_SHAPE, LM_TRAIN_BLOCK_Q = (8, 4096, 32, 4, 64), 512
+#: the blocked backward against the whole-matrix one, bf16 outputs of
+#: float32 sums in another order: two bf16 steps of each gradient's
+#: largest magnitude
+LM_TRAIN_BWD_RTOL = 2 ** -7
+
+
+def check_flash_train_lm(dev) -> dict:
+    """flash_attention trained at tinyllama-1.1b's training shape
+    (LM_TRAIN_SHAPE, bf16, causal) through ``ops.FlashAttention``: one
+    forward (one ``general_tc`` launch) and the blocked backward
+    (``flash_attention_bwd_blocked``, query blocks of LM_TRAIN_BLOCK_Q);
+    SDPA's forward + backward as the library call; the forward's bound
+    at the bf16 tensor-core peak and the backward's from its operations
+    (five products of the causal half against the forward's two: 2.5x);
+    the backward's peak device memory above its inputs, which must stay
+    under one float32 (B, Hq, S, S) tensor; and dq, dk, dv of all B rows
+    held against the whole-matrix ``flash_attention_bwd`` within
+    LM_TRAIN_BWD_RTOL of each gradient's largest magnitude.  The plain
+    version runs one batch row at a time, as ``check_flash_lm``'s does:
+    at B 8 its float32 (B, Hq, S, S) logits, P, dP and dS would take
+    17.2 GB each.  ``max_abs_err`` is the largest absolute difference
+    over the three gradients, ``backward_rel_err`` each one's relative
+    to its largest magnitude.  Prints the ``phase 1: LM training shape``
+    line and returns its row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ops
+
+    b, s, hq, hkv, hd = LM_TRAIN_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    q, k, v = randn(b, s, hq, hd), randn(b, s, hkv, hd), randn(b, s, hkv, hd)
+    do = randn(b, s, hq, hd)
+    xs = [x.requires_grad_(True) for x in (q, k, v)]
+    before = K.n_launches
+    o = ops.flash_attention(*xs, causal=True, block_q=LM_TRAIN_BLOCK_Q)
+    route, n_calls = K.last_route, K.n_launches - before
+    if route != "general_tc" or n_calls != 1 or o.grad_fn is None:
+        raise AssertionError(f"LM training forward: route {route}, "
+                             f"{n_calls} launches")
+    o = o.detach()
+    for x in xs:
+        x.requires_grad_(False)
+
+    def backward():
+        return ops.flash_attention_bwd_blocked(
+            q, k, v, o, do, causal=True, block_q=LM_TRAIN_BLOCK_Q)
+
+    def plain(i):
+        sl = slice(i, i + 1)
+        return ops.flash_attention_bwd(q[sl], k[sl], v[sl], o[sl], do[sl],
+                                       causal=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    grads = backward()
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated(dev) - base
+    whole_bytes = 4 * b * hq * s * s
+    if not all(bool(torch.isfinite(g).all()) for g in grads) \
+            or scratch >= whole_bytes:
+        raise AssertionError(f"LM training backward: peak {scratch} bytes "
+                             f"above its inputs (one float32 (B, Hq, S, S) "
+                             f"tensor: {whole_bytes})")
+    names = ("dq", "dk", "dv")
+    diff, mag = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0.0)
+    for i in range(b):
+        for n, g, w in zip(names, grads, plain(i)):
+            w = w.float()
+            diff[n] = max(diff[n], float((g[i:i + 1].float() - w).abs()
+                                         .max()))
+            mag[n] = max(mag[n], float(w.abs().max()))
+        torch.cuda.empty_cache()
+    rel = {n: diff[n] / mag[n] for n in names}
+    if max(rel.values()) > LM_TRAIN_BWD_RTOL:
+        raise AssertionError(f"blocked backward differs from the "
+                             f"whole-matrix one: {rel}")
+    del grads
+    torch.cuda.empty_cache()
+
+    def forward():
+        xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        return ops.flash_attention(*xs, causal=True,
+                                   block_q=LM_TRAIN_BLOCK_Q)
+
+    q4, k4, v4 = (x.detach().transpose(1, 2) for x in (q, k, v))
+    do4 = do.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        xs = [x.requires_grad_(True) for x in (q4.detach(), k4.detach(),
+                                                 v4.detach())]
+        out = F.scaled_dot_product_attention(*xs, is_causal=True,
+                                             enable_gqa=True)
+        return torch.autograd.grad(out, xs, do4)
+
+    fwd_ops = 2 * b * hq * s * s * hd          # the causal half's products
+    n_bytes = 2 * (2 * b * s * hq * hd + 2 * b * s * hkv * hd)
+    f_ms, f_by = bound_ms(n_bytes, fwd_ops, BF16_OPS_S)
+    bwd_bytes = 2 * (3 * b * s * hq * hd + 4 * b * s * hkv * hd)
+    b_ms, b_by = bound_ms(bwd_bytes, 2.5 * fwd_ops, BF16_OPS_S)
+    row = dict(
+        name="tinyllama-1.1b train", shape=f"B={b} S={s} Hq={hq} "
+        f"Hkv={hkv} hd={hd} bf16 causal", route=route,
+        max_abs_err=max(diff.values()), backward_rel_err=rel,
+        block_q=LM_TRAIN_BLOCK_Q,
+        ms=time_ms(forward, reps=5, warm=1),
+        backward_ms=time_ms(backward, reps=3, warm=1),
+        plain_ms=time_ms(lambda: [plain(i) for i in range(b)], reps=3,
+                         warm=1),
+        plain="the whole-matrix backward, one batch row at a time",
+        library_ms=time_ms(sdpa_fwd_bwd, reps=5, warm=2),
+        library="SDPA forward + backward (enable_gqa)",
+        library_forward_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=True), reps=5, warm=2),
+        bound_ms=f_ms, bound_by=f_by, backward_bound_ms=b_ms,
+        backward_bound_by=b_by, backward_peak_bytes_above_inputs=scratch,
+        whole_matrix_float32_bytes=whole_bytes)
+    row["fwd_bwd_ms"] = row["ms"] + row["backward_ms"]
+    row["fwd_bwd_over_library"] = row["fwd_bwd_ms"] / row["library_ms"]
+    row["backward_bound_share"] = b_ms / row["backward_ms"]
+    log("phase 1: LM training shape: " + json.dumps(row))
+    del q, k, v, o, do, q4, k4, v4, do4, xs
+    torch.cuda.empty_cache()
+    return row
+
+
 def check_embedding_bag(dev):
     """262 144 bags of 8 over a 1 000 000 x 32 table (wide_deep's field
     width and vocabulary, the serve_bulk batch) and the JAX benchmark's
@@ -1265,6 +1511,79 @@ def main_path(sys_, servers, batches):
             cpu_stage_ms={k: v for k, v in want["timings"].items()})
         log(f"phase 2: {knob}: " + json.dumps(report[knob]))
     return launches, report, served
+
+
+#: phase 2's mlp cascade: the reference's MLP node (hidden (64, 32),
+#: batch 512), fewer epochs than its default 30
+MLP_KW = dict(epochs=10)
+
+
+def mlp_path(sys_, batches, meds) -> dict:
+    """Phase 2, the ``mlp`` node kind: per knob an MLP cascade
+    (``core/mlp.py`` nodes trained on the card on phase 2's training
+    queries and labels) served through ``RetrievalServer`` over phase
+    2's batches.  Its lists must be well formed, its classes equal to
+    the same nodes' ``predict_sequential`` (Algorithm 2, one query at a
+    time), and ``serve_fixed`` at each served class's cutoff equal to
+    the served lists of that class.  Returns per knob the mean stage
+    ms, q/s and mean parameter of batches 2-4."""
+    import numpy as np
+    from repro_torch.core import cascade as cascade_lib
+    from repro_torch.core import labeling
+    from repro_torch.kernels.impact_scan import kernel as is_kernel
+    from repro_torch.serving import pipeline
+
+    n_train = sys_.cfg.n_queries - BATCH * N_BATCHES
+    x_served = sys_.features[n_train:]
+    out = {}
+    for knob in ("rho", "k"):
+        t0 = time.perf_counter()
+        cuts = sys_.k_cutoffs if knob == "k" else sys_.rho_cutoffs
+        labels = labeling.envelope_labels(meds[knob], TAU).numpy()
+        casc = cascade_lib.train_cascade(
+            sys_.features[:n_train], labels[:n_train], n_cutoffs=len(cuts),
+            kind="mlp", mlp_kwargs=MLP_KW, device="cuda")
+        train_s = time.perf_counter() - t0
+        scfg = pipeline.ServingConfig(knob=knob, cutoffs=cuts,
+                                      rerank_depth=RERANK_DEPTH,
+                                      stream_cap=sys_.cfg.stream_cap)
+        server = pipeline.RetrievalServer(sys_.index, casc, scfg,
+                                          device="cuda")
+        before = is_kernel.n_launches
+        served = [server.serve_batch(qt) for qt in batches]
+        n_is = is_kernel.n_launches - before
+        classes = np.concatenate([o["classes"] for o in served])
+        seq = np.array([cascade_lib.predict_sequential(
+            casc, x_served[i], scfg.threshold)
+            for i in range(len(classes))])
+        if not np.array_equal(seq, classes):
+            raise AssertionError(f"phase 2: mlp {knob}: served classes "
+                                 f"differ from predict_sequential in "
+                                 f"{int((seq != classes).sum())} queries")
+        n_fixed = 0
+        for qt, o in zip(batches, served):
+            _check_ranked(o["ranked"], sys_.cfg.n_docs)
+            for c in np.unique(o["classes"]):
+                param = int(server.params_of(np.array([c]))[0])
+                fixed = server.serve_fixed(qt, param)["ranked"]
+                sel = o["classes"] == c
+                if not np.array_equal(fixed[sel], o["ranked"][sel]):
+                    raise AssertionError(
+                        f"phase 2: mlp {knob}: serve_fixed({param}) "
+                        f"differs from the served lists of class {c}")
+                n_fixed += 1
+        steady = served[1:]
+        stages = {k: statistics.mean(o["timings"][k] for o in steady)
+                  for k in steady[0]["timings"]}
+        out[knob] = dict(
+            kind=casc.kind, train_s=train_s,
+            classes=np.bincount(classes, minlength=len(cuts) + 1).tolist(),
+            stage_ms=stages, qps=BATCH / (stages["total_ms"] / 1e3),
+            mean_param=statistics.mean(o["mean_param"] for o in steady),
+            impact_scan_launches=n_is, predict_sequential_equal=True,
+            serve_fixed_classes_checked=n_fixed)
+        log(f"phase 2: mlp cascade {knob}: " + json.dumps(out[knob]))
+    return out
 
 
 # ------------------------------------------------------------- phase 3 --
@@ -1715,6 +2034,68 @@ def serve_cli() -> None:
                              f"counters {counters}")
     log(f"phase 4: serve CLI exit 0 in {time.perf_counter() - t0:.1f} s, "
         f"trace valid, counters {json.dumps(counters)}")
+
+
+#: phase 4: the port's drivers of the JAX package's examples, and the
+#: lines each must print in order (the JAX example's, by their start)
+DRIVERS = (
+    ("serve_retrieval", ("--knob", "rho"), (
+        "== labeling (rho knob, MED_RBP <= 0.05) ==", "   class histogram:",
+        "== training the cascade ==", " ", "dynamic ", "fixed max ",
+        "top-10 agreement dynamic vs fixed-max: ", "service: q=256 ",
+        "shape census: ")),
+    ("serve_retrieval", ("--online", "--trace-out",
+                         "build/repro_torch/serve_retrieval_trace.json"), (
+        "== labeling (k knob, MED_RBP <= 0.05) ==", "   class histogram:",
+        "== training the cascade ==", "   (boot era: ", " ", "dynamic ",
+        "fixed max ", "top-10 agreement dynamic vs fixed-max: ",
+        "service: q=256 ", "shape census: ",
+        "== online adaptation: the query distribution shifts ==",
+        "  frozen cascade ", "  adapted (v", "  loop: ",
+        "== trace of the replay ==", "  ", "  kinds: ",
+        "  attribution for trace_id=", "  counters: ")),
+    ("recsys_funnel", (), (
+        "== gold + per-k candidate runs (no judgments) ==",
+        "   class histogram:", "   mean MED_RBP per k:",
+        "== train cascade on request features ==",
+        "   dynamic mean k = ", "   held-out realized MED_RBP = ",
+        "   retrieval work saved vs fixed: ")),
+)
+
+
+def drivers_cli() -> None:
+    """The port's drivers of ``examples/serve_retrieval.py`` (ρ knob, and
+    ``--online``) and ``examples/recsys_funnel.py`` as a user runs them
+    on the card, each in a process of its own, the three started
+    together (the q/s they print share the card and are no
+    measurement): exit 0 and the JAX example's lines in order."""
+    t0 = time.perf_counter()
+    procs = []
+    for module, args, want in DRIVERS:
+        cmd = [sys.executable, "-m", f"repro_torch.examples.{module}",
+               *args]
+        log("phase 4: " + " ".join(cmd[1:]))
+        procs.append(subprocess.Popen(
+            cmd, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True,
+            env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))))
+    for (module, args, want), proc in zip(DRIVERS, procs):
+        stdout, stderr = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"{module} exited {proc.returncode}:\n"
+                                 f"{stderr[-4000:]}")
+        lines = [ln for ln in stdout.splitlines() if ln.strip()]
+        i = 0
+        for ln in lines:
+            if i < len(want) and ln.startswith(want[i]):
+                i += 1
+        if i != len(want):
+            raise AssertionError(f"{module} {args}: line {want[i]!r} not "
+                                 f"printed in order:\n{stdout}")
+        for ln in lines:
+            log(f"phase 4: {module} | " + ln)
+        log(f"phase 4: {module} {' '.join(args)}: exit 0 in "
+            f"{time.perf_counter() - t0:.1f} s, {len(want)} lines in order")
 
 
 # ------------------------------------------------------------- phase 7 --
@@ -2699,8 +3080,8 @@ def gather_determinism(dev) -> dict:
     import torch
     from repro_torch.configs import dien as dien_configs
     from repro_torch.data import recsys_data
-    from repro_torch.models.recsys import embedding
-    from repro_torch.models.recsys.embedding import scatter_rows
+    from repro_torch.models import layers
+    from repro_torch.models.layers import scatter_rows
 
     cfg = dien_configs.model_config()
     ids = torch.from_numpy(recsys_data.dien_batch(
@@ -2733,12 +3114,12 @@ def gather_determinism(dev) -> dict:
         raise AssertionError(f"scatter_rows differs from a float64 sum by "
                              f"{err} of the largest row")
     ref = index_put()
-    chunk = embedding.SCATTER_CHUNK
-    embedding.SCATTER_CHUNK = ids.numel()      # one chunk a run
+    chunk = layers.SCATTER_CHUNK
+    layers.SCATTER_CHUNK = ids.numel()         # one chunk a run
     try:
         unchunked_ms = time_ms(lambda: scatter_rows(rows, ids, v), reps=5)
     finally:
-        embedding.SCATTER_CHUNK = chunk
+        layers.SCATTER_CHUNK = chunk
     return dict(ids=ids.numel(), rows=v, dim=cfg.embed_dim,
                 row0_count=int((ids == 0).sum()), rel_err=err,
                 index_put_rel_err=rel_err(ref),
@@ -2756,9 +3137,11 @@ def gather_determinism(dev) -> dict:
 def check_flash_train(dev, bst_cfg) -> dict:
     """flash_attention at BST's training shape (train_batch rows x 8
     heads, S 21, hd 4, on BST's (B, S, H, hd) views): the kernel within
-    2e-5 of the plain attention, ``flash_attention_bwd`` within 2e-5
-    (of each gradient's largest magnitude) of autograd through the plain
-    attention; one call's times, SDPA's, and the backward's."""
+    2e-5 of the plain attention, ``flash_attention_bwd`` and the blocked
+    backward training runs (``flash_attention_bwd_blocked``, one block
+    at S 21) within 2e-5 (of each gradient's largest magnitude) of
+    autograd through the plain attention; one call's times, SDPA's, and
+    each backward's."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
@@ -2785,7 +3168,14 @@ def check_flash_train(dev, bst_cfg) -> dict:
     if bwd_err > 2e-5:
         raise AssertionError(f"flash_attention_bwd differs from autograd "
                              f"by {bwd_err} of the gradient's scale")
-    del xs, want, got
+    blocked = ops.flash_attention_bwd_blocked(q, k, v, o, do, causal=False)
+    blocked_err = max(float((a - b).abs().max() / b.abs().max())
+                      for a, b in zip(blocked, want))
+    if blocked_err > 2e-5:
+        raise AssertionError(f"flash_attention_bwd_blocked differs from "
+                             f"autograd by {blocked_err} of the gradient's "
+                             "scale")
+    del xs, want, got, blocked
     q4, k4, v4 = (x.transpose(1, 2) for x in (q, k, v))
     n_bytes = 4 * q.numel() * q.element_size()
     b_ms, b_by = bound_ms(n_bytes, 4 * TRAIN_BATCH * h * s * s * hd)
@@ -2801,6 +3191,9 @@ def check_flash_train(dev, bst_cfg) -> dict:
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, scale=hd ** -0.5)),
         backward_ms=time_ms(lambda: ops.flash_attention_bwd(
+            q, k, v, o, do, causal=False), reps=10),
+        blocked_backward_max_rel_err=blocked_err,
+        blocked_backward_ms=time_ms(lambda: ops.flash_attention_bwd_blocked(
             q, k, v, o, do, causal=False), reps=10),
         bound_ms=b_ms, bound_by=b_by)
 
@@ -2825,7 +3218,8 @@ def train_path(dev, bst_cfg) -> dict:
     torch.cuda.empty_cache()
     return dict({k: row[k] for k in ("shape", "max_abs_err", "ms",
                                      "plain_ms", "bound_ms", "bound_by",
-                                     "library_ms", "backward_ms")},
+                                     "library_ms", "backward_ms",
+                                     "blocked_backward_ms")},
                 launches=launches)
 
 
@@ -2843,7 +3237,7 @@ LM_LONG_CACHE, LM_LONG_BATCHES = 32768, (128, 64, 32)
 #: crosses its window of 16), decode steps and the float32 tolerance of
 #: tests/test_torch_lm.py
 LM_SMOKE = (("tinyllama-1.1b", 24), ("qwen2-0.5b", 24), ("qwen3-4b", 24),
-            ("mixtral-8x22b", 32))
+            ("mixtral-8x22b", 32), ("deepseek-v3-671b", 24))
 LM_SMOKE_STEPS, LM_SMOKE_TOL = 8, 2e-5
 #: bf16 tolerance of tinyllama's logits, absolute: two bf16 steps at
 #: |logit| in [4, 8).  The logits are bf16 products widened to float32;
@@ -2854,9 +3248,10 @@ LM_ATOL = 0.0625
 
 
 def _lm_handoff(cache, pre) -> None:
-    """The prefill's keys and values into slots [0, clen) of ``cache``."""
+    """The prefill's keys and values (MLA: its latent and rope key) into
+    slots [0, clen) of ``cache``."""
     for g in pre:
-        for x in ("k", "v"):
+        for x in pre[g]:
             cache[g][x][:, :, :pre[g][x].shape[2]] = pre[g][x]
 
 
@@ -2947,7 +3342,9 @@ def _lm_smoke_serve(cfg, toks, device):
 def lm_smoke_card_vs_cpu(dev) -> dict:
     """Each served arch's smoke config (float32) on the card against the
     same calls on the CPU port: greedy tokens equal, logits within
-    LM_SMOKE_TOL.  Returns the largest difference per arch."""
+    LM_SMOKE_TOL; a GQA prefill launches flash once a layer, deepseek's
+    MLA (value head dim 16 against 24) takes the plain torch path and
+    launches none.  Returns the largest difference per arch."""
     import torch
     from repro_torch.configs import base as cfgbase
     from repro_torch.data import lm_pipeline
@@ -2959,7 +3356,8 @@ def lm_smoke_card_vs_cpu(dev) -> dict:
             vocab=cfg.vocab, batch=2, seq_len=s, seed=1)).batch(0)["tokens"]
         before = fa_k.n_launches
         card, card_toks = _lm_smoke_serve(cfg, toks, dev)
-        if fa_k.n_launches - before != cfg.n_layers:
+        want = 0 if cfg.attn_type == "mla" else cfg.n_layers
+        if fa_k.n_launches - before != want:
             raise AssertionError(f"phase 13: {arch} smoke prefill launched "
                                  f"flash {fa_k.n_launches - before} times")
         cpu, cpu_toks = _lm_smoke_serve(cfg, toks, torch.device("cpu"))
@@ -3167,6 +3565,190 @@ def lm_path(dev) -> dict:
     return dict(launches, flash_routes=flash_routes)
 
 
+# ------------------------------------------------------------ phase 14 --
+
+#: phase 14: tinyllama-1.1b trained at full width through the CLI (the
+#: train_4k shape with its global batch of 256 cut to 8), the steps,
+#: the flash launches a step (each layer's forward and its recompute
+#: under remat="full"), the checkpoint directory (removed after)
+LM_TRAIN_ARCH, LM_TRAIN_STEPS = "tinyllama-1.1b", 6
+#: the smoke configs trained card against CPU (float32, full fp32
+#: products): steps, preemption step, batch and length, and the relative
+#: tolerance of the losses (float32 sums in another order, 6 AdamW steps)
+LM_TRAIN_SMOKE = ("tinyllama-1.1b", "deepseek-v3-671b")
+LM_TRAIN_SMOKE_BATCH, LM_TRAIN_SMOKE_SEQ, LM_TRAIN_SMOKE_RTOL = 8, 128, 1e-5
+
+
+def _lm_train_cmd(arch: str, ckpt_dir: str, *extra: str) -> list[str]:
+    return [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+            "--ckpt-dir", ckpt_dir, *extra]
+
+
+def _lm_train_finish(cmd, proc) -> tuple[list[str], dict]:
+    """A train CLI process's lines and ``report:``, every loss finite."""
+    import math
+    out, err = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[1:])} exited "
+                             f"{proc.returncode}:\n{out[-2000:]}\n"
+                             f"{err[-4000:]}")
+    lines = out.splitlines()
+    report = json.loads(lines[-1].removeprefix("report: "))
+    if not all(math.isfinite(x) for x in report["losses"]):
+        raise AssertionError(f"{' '.join(cmd[1:])}: losses "
+                             f"{report['losses']}")
+    return lines, report
+
+
+def _lm_train_start(cmd, **env):
+    log("phase 14: " + " ".join(cmd[1:]))
+    return subprocess.Popen(
+        cmd, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+                            **env))
+
+
+def lm_train_full(train_row: dict) -> dict:
+    """Phase 14, part 1: ``python -m repro_torch.launch.train --arch
+    tinyllama-1.1b --full --batch 8 --seq-len 4096 --steps 6`` as a user
+    runs it: every loss finite, the median step ms of steps 2-6,
+    tokens/s, model TFLOP/s and peak memory; flash launched only on its
+    tensor-core route, 2 x 22 a step; the flash backward's device ms a
+    step as the CLI measures it inside each step (CUDA events around
+    each ``FlashAttention.backward``, median of steps 2-6) and its share
+    of the median step, beside the estimate from phase 1's LM training
+    line (22 isolated calls at that shape)."""
+    import shutil
+    from repro_torch.configs import base as cfgbase
+    cfg = cfgbase.get(LM_TRAIN_ARCH).model_config()
+    b, s = LM_TRAIN_SHAPE[0], LM_TRAIN_SHAPE[1]
+    root = os.path.join(HERE, "build", "phase14_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    cmd = _lm_train_cmd(LM_TRAIN_ARCH, root, "--full", "--batch", str(b),
+                        "--seq-len", str(s), "--steps", str(LM_TRAIN_STEPS))
+    t0 = time.perf_counter()
+    try:
+        lines, rep = _lm_train_finish(cmd, _lm_train_start(cmd))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for ln in lines[:-1]:
+        log("phase 14: | " + ln)
+    want = 2 * cfg.n_layers * LM_TRAIN_STEPS
+    if (len(rep["losses"]) != LM_TRAIN_STEPS
+            or rep["flash_routes"] != {"general_tc": want}):
+        raise AssertionError(f"phase 14: {len(rep['losses'])} losses, flash "
+                             f"launches by route {rep['flash_routes']} "
+                             f"(want {want} on general_tc)")
+    med, bwd_step = rep["median_step_ms"], rep["median_flash_backward_ms"]
+    if len(rep["flash_backward_ms"]) != LM_TRAIN_STEPS or not bwd_step > 0:
+        raise AssertionError(f"phase 14: flash backward ms a step "
+                             f"{rep['flash_backward_ms']}")
+    row = dict(
+        arch=LM_TRAIN_ARCH, batch=b, seq_len=s, steps=LM_TRAIN_STEPS,
+        step_ms=rep["step_ms"], step_ms_median_2_6=med,
+        tokens_per_s=rep["tokens_per_s"],
+        model_flops_per_step=rep["model_flops"],
+        model_tflops_per_s=rep["model_tflop_s"],
+        peak_bytes=rep["peak_bytes"], flash_routes=rep["flash_routes"],
+        flash_launches_per_step=want // LM_TRAIN_STEPS,
+        flash_backward_ms=rep["flash_backward_ms"],
+        flash_backward_ms_per_step=bwd_step,
+        flash_backward_share_of_step=bwd_step / med,
+        flash_backward_ms_per_step_from_phase1=cfg.n_layers
+        * train_row["backward_ms"],
+        flash_forward_ms_per_step_from_phase1=2 * cfg.n_layers
+        * train_row["ms"],
+        losses=rep["losses"], grad_norms=rep["grad_norms"],
+        ckpt=[{k: w[k] for k in ("step", "bytes", "seconds")}
+              for w in rep["ckpt"]], wall_s=time.perf_counter() - t0)
+    log("phase 14: full width: " + json.dumps(row))
+    return row
+
+
+def lm_train_smoke() -> dict:
+    """Phase 14, part 2: the smoke configs of LM_TRAIN_SMOKE (float32),
+    6 steps through the CLI on the card (clean, and preempted at step 3)
+    and on the CPU: the card's losses within LM_TRAIN_SMOKE_RTOL of the
+    CPU's, and the preempted run's final checkpoint equal to the clean
+    run's bit for bit.  Beside them the driver of
+    ``examples/train_lm.py`` (the reference's command) on the card must
+    exit 0 after one restart.  All are started together."""
+    import shutil
+    root = os.path.join(HERE, "build", "phase14_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    flags = ("--steps", str(TRAIN_STEPS), "--batch",
+             str(LM_TRAIN_SMOKE_BATCH), "--seq-len", str(LM_TRAIN_SMOKE_SEQ))
+    runs = {}
+    for arch in LM_TRAIN_SMOKE:
+        for name, extra in (("card", ("--device", "cuda")),
+                            ("preempted", ("--device", "cuda", "--preempt-at",
+                                           str(TRAIN_PREEMPT))),
+                            ("cpu", ("--device", "cpu"))):
+            cmd = _lm_train_cmd(arch, os.path.join(root, arch, name),
+                                *flags, *extra)
+            # the CPU runs share the host's cores with the card's
+            env = {"OMP_NUM_THREADS": "2"} if name == "cpu" else {}
+            runs[arch, name] = (cmd, _lm_train_start(cmd, **env))
+    driver_cmd = [sys.executable, "-m", "repro_torch.examples.train_lm"]
+    driver = _lm_train_start(driver_cmd)
+    t0 = time.perf_counter()
+    out = {}
+    try:
+        reps = {key: _lm_train_finish(*run) for key, run in runs.items()}
+        for arch in LM_TRAIN_SMOKE:
+            card, cpu = reps[arch, "card"][1], reps[arch, "cpu"][1]
+            rel = max(abs(a - b) / abs(b) for a, b in
+                      zip(card["losses"], cpu["losses"]))
+            if rel > LM_TRAIN_SMOKE_RTOL or "restarts=1" not in \
+                    reps[arch, "preempted"][0][0]:
+                raise AssertionError(f"phase 14: {arch} smoke losses card "
+                                     f"{card['losses']} against CPU "
+                                     f"{cpu['losses']}")
+            if reps[arch, "preempted"][1]["losses"] != card["losses"]:
+                raise AssertionError(f"phase 14: {arch} preempted losses "
+                                     "differ from the clean run's")
+            n_bytes = _same_checkpoints(os.path.join(root, arch, "card"),
+                                        os.path.join(root, arch,
+                                                     "preempted"))
+            out[arch] = dict(max_rel_loss_diff_card_cpu=rel,
+                             restart_bit_equal_bytes=n_bytes,
+                             losses_card=card["losses"],
+                             flash_routes=card["flash_routes"])
+            log(f"phase 14: {arch} smoke: " + json.dumps(out[arch]))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    stdout, stderr = driver.communicate(timeout=600)
+    lines = stdout.splitlines()
+    if driver.returncode != 0 or not any(
+            ln.startswith("arch=tinyllama-1.1b steps=200 restarts=1")
+            for ln in lines):
+        raise AssertionError(f"train_lm driver exited {driver.returncode}:"
+                             f"\n{stdout[-2000:]}\n{stderr[-4000:]}")
+    for ln in lines[:3]:
+        log("phase 14: train_lm | " + ln[:300])
+    log(f"phase 14: smoke runs and train_lm: exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def lm_train_path(dev, train_row: dict) -> dict:
+    """Phase 14: LM training on the card.  Returns the flash row's
+    ``lm_train`` field: phase 1's LM training line with the launches of
+    the full-width run."""
+    import torch
+    torch.cuda.empty_cache()
+    full = lm_train_full(train_row)
+    lm_train_smoke()
+    return dict({k: train_row[k] for k in (
+        "shape", "max_abs_err", "backward_rel_err", "ms", "backward_ms",
+        "plain_ms", "plain", "library_ms", "library", "library_forward_ms",
+        "bound_ms", "bound_by", "backward_bound_ms",
+        "backward_peak_bytes_above_inputs")},
+        launches=full["flash_launches_per_step"] * LM_TRAIN_STEPS,
+        step_ms=full["step_ms_median_2_6"],
+        flash_backward_ms_per_step=full["flash_backward_ms_per_step"])
+
+
 def _busy_us(events) -> float:
     """Length of the union of the events' [start, end] intervals (us)."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -3186,9 +3768,7 @@ def _busy_us(events) -> float:
 def profile(targets, trace_dir: str) -> None:
     """Device busy and idle share of each path's steady batches.
     ``targets``: {name: (serve function, list of argument tuples)}."""
-    import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as torch_profile
 
     os.makedirs(trace_dir, exist_ok=True)
     for name, (serve, batches) in targets.items():
@@ -3198,13 +3778,12 @@ def profile(targets, trace_dir: str) -> None:
             t0 = time.perf_counter()
             serve(*args)
             wall.append((time.perf_counter() - t0) * 1e3)
-        with torch_profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA]) as prof:
+        def body():
             for args in steady:
                 serve(*args)
-        torch.cuda.synchronize()
-        dev_events = [e for e in prof.events()
-                      if e.device_type == DeviceType.CUDA]
+
+        prof, events, _ = _profiled(body)
+        dev_events = [e for e in events if e.device_type == DeviceType.CUDA]
         busy_ms = _busy_us(dev_events) / 1e3 / len(steady)
         by_name = {}
         for e in dev_events:
@@ -3280,12 +3859,14 @@ def main() -> int:
             log("phase 1: continuous path's shape: " + json.dumps(cont))
             row["continuous"] = cont
     lm_rows = check_flash_lm(dev, reports)
+    lm_train_row = check_flash_train_lm(dev)
     log(f"phase 1: kernels hold against their plain versions "
         f"({time.perf_counter() - t0:.1f} s)")
     torch.cuda.empty_cache()
 
     sys_, servers, batches, meds = build_servers()
     launches, report, served = main_path(sys_, servers, batches)
+    mlp_path(sys_, batches, meds)
     funnel, fbatches, fmixed = build_funnel()
     f_launches, _, fserved = funnel_path(funnel, fbatches, fmixed)
     launches.update(flash_attention=f_launches["flash_attention"],
@@ -3294,6 +3875,7 @@ def main() -> int:
     service_launches = service_path(sys_, servers, batches, served, funnel,
                                     fbatches, fserved)
     serve_cli()
+    drivers_cli()
     log(f"phase 4: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     cont_launches = continuous_path(servers, batches)
@@ -3338,6 +3920,13 @@ def main() -> int:
                    for knob, (server, _, _) in servers.items()}
         targets["funnel"] = (funnel.serve, fbatches)
         profile(targets, args.profile)
+    # last, since every number of phase 14 is its subprocesses' own; the
+    # profiler still sees the card after their processes used it
+    t0 = time.perf_counter()
+    fa_row["lm_train"] = lm_train_path(dev, lm_train_row)
+    log("phase 14: profiler canary after its processes: "
+        + json.dumps(profiler_canary(dev)))
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s")
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["service_launches"] = service_launches[row["name"]]

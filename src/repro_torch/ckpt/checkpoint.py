@@ -9,6 +9,10 @@ directory is written as ``.tmp`` and committed by an atomic rename.
 
 Leaves are tensors (on any device) or numpy arrays; ``restore`` returns
 each leaf as ``like``'s leaf is: a tensor on its device, or an array.
+numpy has no bfloat16, so a bfloat16 tensor (the LM's parameters) is
+written as its raw bits, a uint16 array, and read back into a bfloat16
+tensor bit for bit (the JAX package writes ``ml_dtypes`` arrays there,
+so such a leaf does not cross between the packages).
 The mesh-elastic restore (``shardings``) waits for ROADMAP item 7.
 
 ``save`` copies one leaf at a time to the host, so its host peak is the
@@ -54,7 +58,10 @@ def _to_host(leaf) -> np.ndarray:
     """A numpy copy that later in-place updates of ``leaf`` cannot
     touch."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
     return np.array(leaf, copy=True)
 
 
@@ -109,7 +116,13 @@ def restore(path: str, like: Any, step: int | None = None) -> tuple[Any, dict]:
     for name, leaf in zip(names, flat):
         arr = np.load(os.path.join(d, by_name[name]["file"]))
         if isinstance(leaf, torch.Tensor):
-            arr = torch.from_numpy(np.asarray(arr, order="C")).to(leaf.device)
+            arr = np.asarray(arr, order="C")
+            if leaf.dtype == torch.bfloat16:
+                arr = torch.from_numpy(arr.view(np.int16)).view(
+                    torch.bfloat16)
+            else:
+                arr = torch.from_numpy(arr)
+            arr = arr.to(leaf.device)
         out.append(arr)
     return unflatten(like, out), manifest["extra"]
 

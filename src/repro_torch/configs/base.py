@@ -1,6 +1,6 @@
 """Config registry of the port: the JAX package's ``configs/base.py:get``
-over the four recsys archs and the four LM archs served here
-(deepseek-v3-671b waits for ROADMAP item 7b, graphsage-reddit for 7e)."""
+over the four recsys archs and the five LM archs (graphsage-reddit waits
+for ROADMAP item 7e)."""
 
 from __future__ import annotations
 
@@ -9,7 +9,8 @@ import importlib
 __all__ = ["RECSYS_ARCHS", "LM_ARCHS", "get"]
 
 RECSYS_ARCHS = ("wide-deep", "dien", "bst", "mind")
-LM_ARCHS = ("tinyllama-1.1b", "qwen2-0.5b", "qwen3-4b", "mixtral-8x22b")
+LM_ARCHS = ("tinyllama-1.1b", "qwen2-0.5b", "qwen3-4b", "mixtral-8x22b",
+            "deepseek-v3-671b")
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
             for a in RECSYS_ARCHS + LM_ARCHS}

@@ -164,16 +164,17 @@ def adamw_state_from_numpy(state: dict, params: dict) -> dict:
 
 
 def lm_from_numpy(params: dict, *, device=None) -> dict:
-    """The port's LM parameters (``models.transformer``) from the JAX
-    package's tree, bit for bit.  float32 leaves pass as they are;
-    bfloat16 leaves (``ml_dtypes.bfloat16`` arrays, which
-    ``torch.from_numpy`` does not take) are viewed as uint16 and the
-    tensor as ``torch.bfloat16``, so the bits pass unchanged."""
-    top = {"embed", "final_norm", "lm_head", "dense", "moe"}
+    """The port's LM parameters (``models.transformer``, MLA and MTP
+    trees included) from the JAX package's tree, bit for bit.  float32
+    leaves pass as they are; bfloat16 leaves (``ml_dtypes.bfloat16``
+    arrays, which ``torch.from_numpy`` does not take) are viewed as
+    uint16 and the tensor as ``torch.bfloat16``, so the bits pass
+    unchanged."""
+    top = {"embed", "final_norm", "lm_head", "dense", "moe", "mtp"}
     if not {"embed", "final_norm", "lm_head"} <= set(params) <= top:
         raise ValueError(f"LM params have keys {sorted(params)}, expected "
-                         f"embed, final_norm, lm_head and dense or moe "
-                         "(MLA and MTP are not ported)")
+                         f"embed, final_norm, lm_head, dense or moe, and "
+                         "mtp (deepseek)")
     dev = resolve_device(device)
 
     def leaf(a):

@@ -28,10 +28,11 @@ from repro_torch.core import labeling
 from repro_torch.core import mlp as mlp_lib
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import to_device
+from repro_torch.tree import map_tree
 
 __all__ = ["Cascade", "train_cascade", "predict_batched",
            "predict_sequential", "tune_thresholds",
-           "proba0_from_params", "classes_from_proba"]
+           "proba0_from_params", "classes_from_proba", "place_node_params"]
 
 
 def _check_features(x: torch.Tensor) -> None:
@@ -60,6 +61,20 @@ def proba0_from_params(kind: str, node_params, x: torch.Tensor,
     list (the form the server keeps swappable)."""
     cols = [_node_proba(kind, p, x, max_depth)[:, 0] for p in node_params]
     return torch.stack(cols, dim=1)
+
+
+def place_node_params(kind: str, node_params, max_depth: int,
+                      device) -> list:
+    """Per-node parameter trees (forest tables or MLP states) as tensors
+    on ``device``; forest tables padded to the depth-derived capacity
+    (``forest.node_capacity``), so every same-depth retrain has the same
+    shapes.  Padding is inert: inference is bit-identical."""
+    out = [map_tree(lambda v: torch.as_tensor(v).to(device), p)
+           for p in node_params]
+    if kind != "forest":
+        return out
+    cap = forest_lib.node_capacity(max_depth)
+    return [forest_lib.pad_forest_params(p, cap) for p in out]
 
 
 def classes_from_proba(p0: torch.Tensor, t) -> torch.Tensor:

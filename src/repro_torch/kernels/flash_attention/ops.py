@@ -9,11 +9,18 @@ Either way the output is a contiguous (B, S, Hq, hd).
 Where autograd needs a gradient (grad mode on and an input requiring
 grad), the kernel route runs through ``FlashAttention``, a
 ``torch.autograd.Function``: its forward is the same single kernel
-launch, and its backward is ``flash_attention_bwd``, explicit torch ops
-from the saved q, k, v and output.  The TPU kernel has no backward
-either: the JAX package differentiates its jnp ``chunked_attention``,
-whose blocks are checkpointed, so the probabilities are recomputed
-there too.
+launch, and its backward is ``flash_attention_bwd_blocked``, explicit
+torch ops from the saved q, k, v and output that recompute the
+probabilities one block of ``block_q`` query rows at a time, from the
+keys that block can reach (``block_key_range``: ``[0, q_end)`` when
+causal, the window's slice when windowed).  Its live scores are at most
+(B, Hq, block_q, S) in float32, never (B, Hq, S, S): at tinyllama's
+training shape (B 8, Hq 32, S 4096) one whole-matrix float32 tensor is
+17.2 GB.  ``flash_attention_bwd`` keeps the whole-matrix form as the
+plain version the tests and the card's check hold the blocked one
+against.  The TPU kernel has no backward either: the JAX package
+differentiates its jnp ``chunked_attention``, whose query blocks are
+checkpointed, so the probabilities are recomputed by block there too.
 """
 
 from __future__ import annotations
@@ -24,7 +31,9 @@ from repro_torch.kernels.flash_attention import kernel as _kernel_mod
 from repro_torch.kernels.flash_attention.ref import (NEG_INF,
                                                      attention_ref_bshd)
 
-__all__ = ["flash_attention", "flash_attention_bwd", "FlashAttention"]
+__all__ = ["flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_blocked", "block_key_range", "block_mask",
+           "FlashAttention", "backward_events"]
 
 
 def _heads_first(x: torch.Tensor, g: int = 1) -> torch.Tensor:
@@ -80,39 +89,148 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
             back(_group_sum(dv, g), v))
 
 
+def block_key_range(q0: int, q1: int, s: int, causal: bool,
+                    window: int | None) -> tuple[int, int]:
+    """The keys [k0, k1) that query rows [q0, q1) of S can reach: up to
+    the block's last row when causal, from its first row's window
+    start when windowed (mask k <= q, q - k < window)."""
+    k1 = min(q1, s) if causal else s
+    k0 = max(0, q0 - window + 1) if window is not None else 0
+    return k0, k1
+
+
+def block_mask(q0: int, q1: int, k0: int, k1: int, causal: bool,
+               window: int | None, device) -> torch.Tensor | None:
+    """The live (query, key) pairs of rows [q0, q1) and keys [k0, k1):
+    a (q1 - q0, k1 - k0) bool mask, or None where every pair is live (no
+    causal mask, no window)."""
+    if not causal and window is None:
+        return None
+    qpos = torch.arange(q0, q1, device=device)[:, None]
+    kpos = torch.arange(k0, k1, device=device)[None, :]
+    ok = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool, device=device)
+    if causal:
+        ok &= qpos >= kpos
+    if window is not None:
+        ok &= (qpos - kpos) < window
+    return ok
+
+
+def flash_attention_bwd_blocked(q, k, v, o, do, *, causal: bool = True,
+                                window: int | None = None,
+                                block_q: int = 512):
+    """``flash_attention_bwd``'s gradients, recomputed one block of
+    ``block_q`` query rows at a time.  Block i reads only the keys
+    ``block_key_range`` gives it, and holds float32 scores of (B, Hkv,
+    G * block_q, k1 - k0): the g query heads of a key/value head are
+    rows of one product, so dK and dV come out summed over the group.
+    The arithmetic is ``flash_attention_bwd``'s (P with the forward's
+    -1e30 masks and scale, ``dV = P^T dO``, ``dS = P * (dO V^T -
+    rowsum(dO * O))``, dQ and dK scaled); only the order of the sums
+    differs.  Returns dq, dk, dv in the layouts and dtypes of q, k, v."""
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale = hd ** -0.5
+    bq = min(block_q, s)
+    f32 = torch.float32
+
+    def grouped(x):                      # (B, S, Hq, hd) -> (B, Hkv, G, S, hd)
+        return x.to(f32).reshape(b, s, hkv, g, hd).permute(0, 2, 3, 1, 4)
+
+    qg, dog = grouped(q), grouped(do)
+    delta = (dog * grouped(o)).sum(dim=-1)                  # (B, Hkv, G, S)
+    kf, vf = k.to(f32).transpose(1, 2), v.to(f32).transpose(1, 2)
+    dq = torch.empty((b, hkv, g, s, hd), dtype=f32, device=q.device)
+    # one block (BST's S 21): its dK and dV are the gradients; a zero
+    # fill and an add there cost 0.5 of 12.6 ms on an H100 (phase 12 of
+    # chip_smoke.py)
+    one_block = bq == s
+    if not one_block:
+        dk = torch.zeros((b, hkv, s, hd), dtype=f32, device=q.device)
+        dv = torch.zeros_like(dk)
+    for q0 in range(0, s, bq):
+        q1 = min(q0 + bq, s)
+        n = q1 - q0
+        k0, k1 = block_key_range(q0, q1, s, causal, window)
+        qb = qg[:, :, :, q0:q1].reshape(b, hkv, g * n, hd)
+        dob = dog[:, :, :, q0:q1].reshape(b, hkv, g * n, hd)
+        kb, vb = kf[:, :, k0:k1], vf[:, :, k0:k1]
+        logits = torch.matmul(qb, kb.transpose(-1, -2)).mul_(scale)
+        ok = block_mask(q0, q1, k0, k1, causal, window, q.device)
+        if ok is not None:
+            logits.view(b, hkv, g, n, k1 - k0).masked_fill_(~ok, NEG_INF)
+        p = torch.softmax(logits, dim=-1)
+        del logits
+        dvb = torch.matmul(p.transpose(-1, -2), dob)
+        ds = torch.matmul(dob, vb.transpose(-1, -2))
+        ds.sub_(delta[:, :, :, q0:q1].reshape(b, hkv, g * n, 1)).mul_(p)
+        del p
+        dq[:, :, :, q0:q1] = torch.matmul(ds, kb).mul_(scale).view(
+            b, hkv, g, n, hd)
+        dkb = torch.matmul(ds.transpose(-1, -2), qb).mul_(scale)
+        del ds
+        if one_block:
+            dk, dv = dkb, dvb
+        else:
+            dk[:, :, k0:k1] += dkb
+            dv[:, :, k0:k1] += dvb
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(b, s, hq, hd)
+    return (dq.to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
+
+
+#: None, or a list to which ``FlashAttention.backward`` appends a
+#: (start, end) pair of CUDA events around each backward on the card:
+#: the training CLI sums them a step (two event records a call)
+backward_events: list | None = None
+
+
 class FlashAttention(torch.autograd.Function):
     """The kernel's forward (one launch on a CUDA tensor, the plain
-    version on a CPU tensor) with ``flash_attention_bwd`` as backward."""
+    version on a CPU tensor) with ``flash_attention_bwd_blocked`` as
+    backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, block_q):
         o = _kernel_mod.flash_attention_bshd(q, k, v, causal=causal,
                                              window=window)
         ctx.save_for_backward(q, k, v, o)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.block_q = causal, window, block_q
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, causal=ctx.causal,
-                                         window=ctx.window)
-        return dq, dk, dv, None, None
+        events = backward_events if do.is_cuda else None
+        if events is not None:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+        dq, dk, dv = flash_attention_bwd_blocked(
+            q, k, v, o, do, causal=ctx.causal, window=ctx.window,
+            block_q=ctx.block_q)
+        if events is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            events.append((start, end))
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
-                    use_kernel: bool = True) -> torch.Tensor:
+                    use_kernel: bool = True,
+                    block_q: int = 512) -> torch.Tensor:
     """q: (B, S, Hq, hd); k, v: (B, S, Hkv, hd) -> (B, S, Hq, hd).
 
     ``use_kernel=False`` runs the oracle (differentiable by autograd),
     for the tests; the kernel route launches the CUDA kernel on a CUDA
     tensor and its plain version on a CPU tensor, through
-    ``FlashAttention`` where a gradient is needed."""
+    ``FlashAttention`` where a gradient is needed (``block_q``: the
+    query rows its backward recomputes at a time)."""
     if use_kernel:                   # checks the shapes itself
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
-            return FlashAttention.apply(q, k, v, causal, window)
+            return FlashAttention.apply(q, k, v, causal, window, block_q)
         return _kernel_mod.flash_attention_bshd(q, k, v, causal=causal,
                                                 window=window)
     hq, hkv = q.shape[2], k.shape[2]

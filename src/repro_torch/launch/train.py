@@ -1,60 +1,76 @@
-"""Training driver of the port: the recsys branch of the JAX package's
-``launch/train.py`` (wide-deep, DIEN, BST, MIND).
+"""Training driver of the port: the JAX package's ``launch/train.py``
+for the recsys archs (wide-deep, DIEN, BST, MIND) and the LM archs
+(tinyllama-1.1b, qwen2-0.5b, qwen3-4b, mixtral-8x22b, deepseek-v3-671b).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch bst \
       --steps 6 --preempt-at 3 --ckpt-dir build/ck --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
+      --steps 200 --batch 8 --seq-len 128 --ckpt-every 40 \
+      --preempt-at 90 --ckpt-dir build/ck_lm --device cpu
 
 Runs on the CUDA card unless ``--device cpu`` asks for the CPU; with no
-card and no ``--device`` it raises ``RuntimeError``.  Each step draws the
-arch's synthetic batch (``data.recsys_data``, a pure function of seed
-and step), takes the loss's gradients by ``torch.autograd`` and applies
-``optim.adamw`` (weight decay 1e-5, no schedule, as the reference),
-under ``ckpt.failover.run_resilient``: asynchronous checkpoints every
+card and no ``--device`` it raises ``RuntimeError``.  A recsys step
+draws the arch's synthetic batch (``data.recsys_data``), an LM step
+``data.lm_pipeline.LMPipeline``'s (``--batch`` x ``--seq-len``
+tokens); both are pure functions of seed and step.  The loss's
+gradients come from ``torch.autograd`` (the LM's ``train_loss``
+checkpoints each layer, as the reference's ``remat="full"`` does), then
+``optim.adamw``: weight decay 1e-5 and no schedule for recsys, the
+default AdamW with ``schedules.warmup_cosine(step, --warmup, --steps)``
+as ``lr_scale`` for the LM, as the reference.  All of it runs under
+``ckpt.failover.run_resilient``: asynchronous checkpoints every
 ``--ckpt-every`` steps, a final one at the end, and a restart from the
 newest checkpoint after each simulated preemption (``--preempt-at``).
 A checkpoint left in ``--ckpt-dir`` by an earlier run is restored
 first, as in the reference.  Float32 products run in full float32
 (``layers.full_fp32_matmul``): TF32 would part the card from the CPU.
+One device holds the parameters (the reference's ``lm_param_specs``
+mesh placement waits for ROADMAP item 7d); ``--full`` is the arch's
+``model_config()`` (deepseek-v3-671b's does not fit one card).
 
 It prints the JAX CLI's two lines, then a ``ckpt:`` line for every
 checkpoint written (bytes, seconds) and one ``report:`` JSON line: the
-losses and milliseconds of every step, the step's model FLOPs
-(``_model_flops``), the peak device memory on a card, and the
-flash_attention kernel launches (BST's one a step).  The LM archs
-(served by ``models.transformer``; LM training waits for ROADMAP item
-7c) and the GNN (item 7e) exit with a message, as the JAX CLI exits for
-GNN; ``--seq-len``, ``--warmup`` and ``--multi-pod`` are the
-LM branch's flags, taken and unused here as in the reference's recsys
-branch.
+losses and milliseconds of every step, the step's model FLOPs (the
+recsys ``_model_flops``, or ``lm_common.model_flops(cfg, "train", B,
+S)``), the peak device memory on a card, and the flash_attention kernel
+launches (BST's one a step; an LM's two a layer a step, the forward and
+its recompute) with their routes.  An LM run also reports tokens a
+step, and tokens/s and model TFLOP/s at the median step time of steps 2
+on; on a card, the device ms of each step's flash backwards
+(``ops.FlashAttention.backward`` between two CUDA events a call) and
+their median over steps 2 on.  The GNN (graphsage-reddit) exits naming ROADMAP item 7e, as the
+JAX CLI exits for it; ``--multi-pod`` is taken and unused.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 
 import torch
 
 from repro_torch.ckpt import failover
 from repro_torch.configs import base as cfgbase
-from repro_torch.data import recsys_data
+from repro_torch.configs import lm_common
+from repro_torch.data import lm_pipeline, recsys_data
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import layers as L
 from repro_torch.models.recsys import bst as BS
 from repro_torch.models.recsys import dien as DN
 from repro_torch.models.recsys import mind as MD
 from repro_torch.models.recsys import wide_deep as WD
-from repro_torch.optim import adamw
+from repro_torch.models import transformer as T
+from repro_torch.optim import adamw, schedules
 from repro_torch.tree import leaves, unflatten
 
-__all__ = ["FAMILIES", "LM_ARCHS", "make_step", "recsys_setup", "main"]
+__all__ = ["FAMILIES", "NOT_PORTED", "make_step", "recsys_setup",
+           "lm_setup", "main"]
 
 #: arch -> why the CLI does not train it
-LM_ARCHS = {**{a: "LM training waits for ROADMAP item 7c"
-               for a in ("tinyllama-1.1b", "qwen3-4b", "qwen2-0.5b",
-                         "deepseek-v3-671b", "mixtral-8x22b")},
-            "graphsage-reddit": "the GNN waits for ROADMAP item 7e"}
+NOT_PORTED = {"graphsage-reddit": "the GNN waits for ROADMAP item 7e"}
 
 #: arch -> (init, loss, batch generator)
 FAMILIES = {
@@ -67,10 +83,11 @@ FAMILIES = {
 
 
 def make_step(loss_fn, cfg, adam: adamw.AdamWConfig):
-    """The reference's ``step_fn``: ``(params, opt, batch) -> (params,
-    opt, metrics)``, the loss's value and gradients by autograd, then
-    ``adamw_update`` (which updates ``params`` and ``opt`` in place)."""
-    def step(params, opt, batch):
+    """The reference's ``step_fn``: ``(params, opt, batch, lr_scale=1)
+    -> (params, opt, metrics)``, the loss's value and gradients by
+    autograd, then ``adamw_update`` (which updates ``params`` and
+    ``opt`` in place)."""
+    def step(params, opt, batch, lr_scale=1.0):
         flat = leaves(params)
         for p in flat:
             p.requires_grad_(True)
@@ -81,7 +98,8 @@ def make_step(loss_fn, cfg, adam: adamw.AdamWConfig):
             for p in flat:
                 p.requires_grad_(False)
         grads = unflatten(params, list(grads))
-        params, opt, m = adamw.adamw_update(adam, params, grads, opt)
+        params, opt, m = adamw.adamw_update(adam, params, grads, opt,
+                                            lr_scale)
         return params, opt, {"loss": loss.detach(), **m}
 
     return step
@@ -113,6 +131,46 @@ def recsys_setup(arch: str, args, dev: torch.device):
     return cfg, init_state, train_step
 
 
+def _lm_loss(params, cfg, batch):
+    return T.train_loss(params, cfg, batch["tokens"], batch["targets"],
+                        batch["mask"])
+
+
+def lm_setup(arch: str, args, dev: torch.device):
+    """(cfg, init_state, train_step) of an LM arch, as the JAX CLI's
+    ``_lm_setup`` builds them (its mesh placement left out)."""
+    mod = cfgbase.get(arch)
+    cfg = mod.model_config() if args.full else mod.smoke_config()
+    pipe = lm_pipeline.LMPipeline(lm_pipeline.LMDataConfig(
+        vocab=cfg.vocab, batch=args.batch, seq_len=args.seq_len,
+        seed=args.seed))
+    step_fn = make_step(_lm_loss, cfg, adamw.AdamWConfig(lr=args.lr))
+    events = None
+    if dev.type == "cuda":
+        fa_ops.backward_events = events = []
+
+    def init_state():
+        params = T.init_params(cfg, seed=args.seed, device=dev)
+        return {"params": params, "opt": adamw.init_opt_state(params)}
+
+    def train_step(state, step):
+        batch = _to_device(pipe.batch(step), dev)
+        lr_scale = schedules.warmup_cosine(
+            torch.tensor(step, dtype=torch.int32), warmup=args.warmup,
+            total=args.steps)
+        if events is not None:
+            events.clear()
+        p, o, m = step_fn(state["params"], state["opt"], batch, lr_scale)
+        out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+        if events:                   # the step's flash backwards, device ms
+            events[-1][1].synchronize()
+            out["flash_backward_ms"] = sum(a.elapsed_time(b)
+                                           for a, b in events)
+        return {"params": p, "opt": o}, out
+
+    return cfg, init_state, train_step
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
@@ -132,16 +190,19 @@ def main(argv=None) -> None:
                     help="torch device; 'cuda' raises without a card")
     args = ap.parse_args(argv)
 
-    if args.arch in LM_ARCHS:
-        raise SystemExit(f"{args.arch}: {LM_ARCHS[args.arch]}")
-    if args.arch not in FAMILIES:
+    if args.arch in NOT_PORTED:
+        raise SystemExit(f"{args.arch}: {NOT_PORTED[args.arch]}")
+    lm = args.arch in cfgbase.LM_ARCHS
+    if not lm and args.arch not in FAMILIES:
         raise SystemExit(f"unknown arch {args.arch!r}; the port trains "
-                         f"{sorted(FAMILIES)}")
+                         f"{sorted(FAMILIES) + sorted(cfgbase.LM_ARCHS)}")
     dev = resolve_device(args.device)
     L.full_fp32_matmul()
     mod = cfgbase.get(args.arch)
-    cfg, init_state, train_step = recsys_setup(args.arch, args, dev)
+    setup = lm_setup if lm else recsys_setup
+    cfg, init_state, train_step = setup(args.arch, args, dev)
     fa_kernel.n_launches = 0
+    fa_kernel.route_launches.clear()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
@@ -160,15 +221,32 @@ def main(argv=None) -> None:
     for w in res.ckpt_writes:
         print(f"ckpt: step={w['step']} bytes={w['bytes']} "
               f"seconds={w['seconds']:.3f} ({w['kind']})")
-    print("report: " + json.dumps({
+    step_ms = [1e3 * m["step_time_s"] for m in res.metrics]
+    report = {
         "arch": args.arch, "device": str(dev), "batch": args.batch,
-        "losses": losses,
-        "step_ms": [1e3 * m["step_time_s"] for m in res.metrics],
-        "model_flops": mod._model_flops(cfg, args.batch, "train"),
+        "losses": losses, "step_ms": step_ms,
+        "model_flops": (
+            lm_common.model_flops(cfg, "train", args.batch, args.seq_len)
+            if lm else mod._model_flops(cfg, args.batch, "train")),
         "peak_bytes": (torch.cuda.max_memory_allocated(dev)
                        if dev.type == "cuda" else None),
         "flash_launches": fa_kernel.n_launches,
-        "ckpt": res.ckpt_writes}))
+        "flash_routes": dict(fa_kernel.route_launches),
+        "ckpt": res.ckpt_writes}
+    if lm:
+        steady = statistics.median(step_ms[1:] or step_ms)
+        report.update(
+            seq_len=args.seq_len, tokens_per_step=args.batch * args.seq_len,
+            median_step_ms=steady,
+            tokens_per_s=args.batch * args.seq_len / (steady / 1e3),
+            model_tflop_s=report["model_flops"] / (steady / 1e3) / 1e12,
+            grad_norms=[m["grad_norm"] for m in res.metrics])
+        if dev.type == "cuda":
+            bwd = [m.get("flash_backward_ms", 0.0) for m in res.metrics]
+            report.update(flash_backward_ms=bwd,
+                          median_flash_backward_ms=statistics.median(
+                              bwd[1:] or bwd))
+    print("report: " + json.dumps(report))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """Attention cores of the port: ``chunked_attention`` through the
-flash-attention kernel, ``decode_attention`` in plain torch ops, and
+flash-attention kernel (or, for MLA's value heads, plain torch ops by
+query block), ``decode_attention`` in plain torch ops, and
 ``repeat_kv``.
 
 The JAX package's ``models/attention.py:chunked_attention`` is the oracle
@@ -20,11 +21,25 @@ no query of its block can reach, which is what the slicing and the block
 skipping do on the TPU.  On a CUDA tensor the CUDA kernel runs, on a CPU
 tensor its plain version (``attention_ref``).  Under autograd the call
 goes through ``ops.FlashAttention``: the same kernel forward, and a
-backward of explicit torch ops that recomputes the probabilities, as the
-JAX package's checkpointed blocks do.  ``use_kernel=False`` runs the
-plain oracle under autograd instead (the reference of the tests and of
-the card's gradient check).  Value heads wider than the query heads
-(MLA) are not ported.
+backward of explicit torch ops that recomputes the probabilities one
+block of ``block_q`` query rows at a time, as the JAX package's
+checkpointed blocks do.  ``use_kernel=False`` runs the plain oracle
+under autograd instead (the reference of the tests and of the card's
+gradient check).
+
+A value head dim other than the query head dim (MLA: 192 against 128,
+smoke 24 against 16) takes a plain torch path, since the kernel has one
+head dim (as the Pallas kernel has; the reference's model path is jnp
+there too).  It keeps the reference's rounding points
+(``_attend_block``): scores in the input dtype, then float32 times the
+scale, the -1e30 bias, a float32 softmax, P cast to V's dtype, then the
+product.  It works one query block at a time over the keys that block
+can reach (``ops.block_key_range``), so it never holds (B, H, S, S);
+under autograd each block is checkpointed, as the reference's are.  In
+a layer checkpointed under ``remat="full"`` this costs a third run of
+each block, and it is kept: the layer's recompute runs the path under
+grad, and without the block checkpoints would save every block's
+float32 P, (B, H, S, S) / 2 in all.
 
 ``decode_attention`` is one query token against a KV cache.  The JAX
 package writes it in jnp (no Pallas kernel), so the port writes it in
@@ -41,6 +56,7 @@ product with V in that dtype.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import NEG_INF
@@ -57,20 +73,57 @@ def repeat_kv(kv: torch.Tensor, groups: int) -> torch.Tensor:
         .reshape(b, s, h * groups, d)
 
 
+def _attend_block(qb, kb, vb, ok, scale):
+    """qb: (B, Hkv, G, bq, hd); kb, vb: (B, Hkv, K, hd/hd_v); ok: (bq, K)
+    the live keys, or None.  The reference's rounding points."""
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qb, kb).to(torch.float32) * scale
+    if ok is not None:
+        s = s + torch.where(ok, 0.0, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(vb.dtype)
+    return torch.einsum("bhgqk,bhkd->bhgqd", p, vb)
+
+
+def _plain_blocked(q, k, v, *, causal: bool, window: int | None,
+                   block_q: int) -> torch.Tensor:
+    """Grouped attention of q (B, S, Hq, hd), k (B, S, Hkv, hd) and v
+    (B, S, Hkv, hd_v) by query blocks: (B, S, Hq, hd_v)."""
+    b, s, hq, hd = q.shape
+    hkv, hd_v = k.shape[2], v.shape[-1]
+    g = hq // hkv
+    bq = min(block_q, s)
+    scale = hd ** -0.5
+    qT = q.reshape(b, s, hkv, g, hd).permute(0, 2, 3, 1, 4)
+    kT, vT = k.transpose(1, 2), v.transpose(1, 2)
+    grad = torch.is_grad_enabled()
+    outs = []
+    for q0 in range(0, s, bq):
+        q1 = min(q0 + bq, s)
+        k0, k1 = fa_ops.block_key_range(q0, q1, s, causal, window)
+        ok = fa_ops.block_mask(q0, q1, k0, k1, causal, window, q.device)
+        args = (qT[:, :, :, q0:q1], kT[:, :, k0:k1], vT[:, :, k0:k1], ok,
+                scale)
+        outs.append(checkpoint(_attend_block, *args, use_reentrant=False)
+                    if grad else _attend_block(*args))
+    out = torch.cat(outs, dim=3)                      # (B, Hkv, G, S, hd_v)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, hd_v)
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int | None = None,
+                      block_q: int = 512,
                       use_kernel: bool = True) -> torch.Tensor:
-    """Grouped attention.  q: (B, S, Hq, hd); k, v: (B, S, Hkv, hd) with
-    Hq % Hkv == 0.  Returns (B, S, Hq, hd)."""
-    if v.shape[-1] != q.shape[-1]:
-        raise ValueError(f"value head dim {v.shape[-1]} differs from the "
-                         f"query head dim {q.shape[-1]}; the kernel takes "
-                         "one head dim")
+    """Grouped attention.  q: (B, S, Hq, hd); k: (B, S, Hkv, hd); v:
+    (B, S, Hkv, hd_v) with Hq % Hkv == 0.  Returns (B, S, Hq, hd_v).  A
+    window makes it causal, as the reference's window branch is;
+    ``block_q`` is the query block of the backward (and of the plain
+    path, taken where hd_v != hd)."""
     if window is not None:
-        return fa_ops.flash_attention(q, k, v, causal=True, window=window,
-                                      use_kernel=use_kernel)
-    return fa_ops.flash_attention(q, k, v, causal=causal,
-                                  use_kernel=use_kernel)
+        causal = True
+    if v.shape[-1] != q.shape[-1]:
+        return _plain_blocked(q, k, v, causal=causal, window=window,
+                              block_q=block_q)
+    return fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  use_kernel=use_kernel, block_q=block_q)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -8,7 +8,19 @@ the abstract draw (``FakeArray``, ``AbstractRNG``, ``rng_or_abstract``)
 that counts parameters without making them.  Initialisers return numpy
 arrays drawn from a caller's ``np.random.Generator``; ``to_device`` turns
 a parameter tree of them into tensors.  ``chunked_softmax_xent`` is the
-LM's training loss and waits with LM training (ROADMAP item 7).
+LM's training loss: (block, V) float32 logits at a time, recomputed in
+backward as the reference's ``jax.checkpoint(one)`` recomputes them.
+
+``gather_rows`` is the row gather of the token embedding and of every
+recsys table (``jnp.take`` and table indexing in the JAX package), with
+a deterministic backward (``scatter_rows``): the ids are sorted stably,
+each run of one id summed in a fixed order by ``torch.segment_reduce``,
+and the sums written to their distinct rows of a dense zero gradient.
+A restarted training run must equal the clean run bit for bit, and the
+library's backwards do not promise it: ``index_add_`` adds duplicates
+with atomics, and ``index_put_`` with accumulate repeated its bits on
+the card only by its implementation's sort, 30x slower at DIEN's
+history shape (PERF.md, section 6).
 """
 
 from __future__ import annotations
@@ -16,10 +28,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 __all__ = ["layer_norm", "rms_norm", "rope", "dense", "swiglu",
            "init_linear", "init_norm", "draw_linear", "full_fp32_matmul",
            "check_full_fp32_matmul", "to_device", "torch_dtype",
+           "chunked_softmax_xent", "gather_rows", "scatter_rows",
+           "SCATTER_CHUNK",
            "FakeArray", "AbstractRNG", "rng_or_abstract"]
 
 #: model dtypes the port runs.  A bfloat16 parameter is drawn in float32
@@ -107,6 +122,97 @@ def layer_norm(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     mu = x32.mean(dim=-1, keepdim=True)
     var = ((x32 - mu) ** 2).mean(dim=-1, keepdim=True)
     return ((x32 - mu) * torch.rsqrt(var + eps)).to(dt) * w + b
+
+
+def _xent_block(hb, lm_head, tb, mb):
+    """The summed masked cross-entropy of one block of rows."""
+    logits = (hb @ lm_head).to(torch.float32)               # (block, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, 1, tb[:, None])[:, 0]
+    return torch.sum((lse - gold) * mb)
+
+
+def chunked_softmax_xent(hidden: torch.Tensor, lm_head: torch.Tensor,
+                         targets: torch.Tensor, mask: torch.Tensor,
+                         block: int = 1024) -> torch.Tensor:
+    """Cross-entropy without materialising (T, V) logits.
+
+    hidden: (T, D), lm_head: (D, V), targets: (T,), mask: (T,) float32.
+    Runs over T in ``block`` rows, adding each block's sum in order, so
+    the live logits are (block, V); under autograd each block is
+    checkpointed, so its logits are recomputed in backward.  Returns the
+    sum over T divided by max(sum(mask), 1)."""
+    t, _ = hidden.shape
+    nblk = t // block
+    if nblk * block != t:
+        raise ValueError(f"T={t} not divisible by block={block}")
+    targets = targets.long()
+    grad = torch.is_grad_enabled()
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(nblk):
+        sl = slice(i * block, (i + 1) * block)
+        args = (hidden[sl], lm_head, targets[sl], mask[sl])
+        total = total + (checkpoint(_xent_block, *args, use_reentrant=False)
+                         if grad else _xent_block(*args))
+    return total / torch.clamp(mask.sum(), min=1.0)
+
+
+#: a run of one id is summed in chunks of this many rows, then the chunk
+#: sums in order: one thread adds a run, and DIEN's padding reads row 0
+#: some 2.4 M times a step at full width
+SCATTER_CHUNK = 1024
+
+
+def scatter_rows(rows: torch.Tensor, ids: torch.Tensor,
+                 n_rows: int) -> torch.Tensor:
+    """The (n_rows, D) sum of ``rows`` (N, D) into rows ``ids`` (N,), in
+    an order fixed by the ids alone: a stable sort, an in-order sum of
+    each chunk of up to ``SCATTER_CHUNK`` rows of one id, an in-order sum
+    of each id's chunk sums, and one write to each distinct row."""
+    out = rows.new_zeros((n_rows, rows.shape[1]))
+    n = ids.numel()
+    if n == 0:
+        return out
+    sorted_ids, order = torch.sort(ids, stable=True)
+    pos = torch.arange(n, device=ids.device)
+    first = torch.ones(n, dtype=torch.bool, device=ids.device)
+    first[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    run_start = torch.cummax(torch.where(first, pos, 0), dim=0).values
+    chunk_start = first | ((pos - run_start) % SCATTER_CHUNK == 0)
+    starts = torch.nonzero(chunk_start).flatten()
+    lengths = torch.diff(starts, append=starts.new_full((1,), n))
+    sums = torch.segment_reduce(rows[order], "sum", lengths=lengths, axis=0)
+    uniq, counts = torch.unique_consecutive(sorted_ids[starts],
+                                            return_counts=True)
+    out[uniq] = torch.segment_reduce(sums, "sum", lengths=counts, axis=0)
+    return out
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.n_rows = table.shape[0]
+        return table.index_select(0, ids)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        return scatter_rows(grad.contiguous(), ids, ctx.n_rows), None
+
+
+def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` for a 2-D ``table`` and ids of any shape, each in
+    [0, V): (*ids.shape, D).  Under autograd its backward is
+    ``scatter_rows`` (deterministic on the card)."""
+    flat = ids.reshape(-1).long()
+    if torch.is_grad_enabled() and table.requires_grad:
+        rows = _GatherRows.apply(table, flat)
+    else:
+        rows = table.index_select(0, flat)
+    return rows.reshape(*ids.shape, table.shape[1])
+
+
 
 
 def init_linear(rng: np.random.Generator, shape, scale: float | None = None,

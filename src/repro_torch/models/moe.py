@@ -107,7 +107,10 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig):
     # are unique, and a dropped token adds an exact zero to its expert's
     # slot 0, so the accumulating scatter gives the reference's values in
     # any order of its adds.
-    x_rep = x.repeat_interleave(k, dim=0)                     # (T*K, D)
+    # each token repeated for its k slots; the backward of an expand is
+    # a sum over the slots, in a fixed order (``repeat_interleave``'s
+    # is an atomic ``index_add_`` on the card)
+    x_rep = x[:, None].expand(t, k, d).reshape(t * k, d)      # (T*K, D)
     x_rep = torch.where(keep[:, None], x_rep, torch.zeros((), dtype=x.dtype,
                                                           device=dev))
     buf = torch.zeros((e, cap, d), dtype=x.dtype, device=dev)

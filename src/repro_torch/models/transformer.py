@@ -1,13 +1,19 @@
-"""Decoder-only transformer LM: the serving half of the JAX package's
-``models/transformer.py`` (``init_params``, ``prefill``, ``decode_step``
-over ``init_cache``).
+"""Decoder-only transformer LM: the JAX package's
+``models/transformer.py`` (``init_params``, ``train_loss``, ``prefill``,
+``decode_step`` over ``init_cache``).
 
 One configurable implementation covering:
 
   * GQA attention with optional QKV bias (qwen2) and qk-norm (qwen3),
   * head_dim decoupled from d_model (qwen3: 128 * 32 heads != 2560),
   * sliding-window attention (mixtral) with ring-buffer decode caches,
-  * dense SwiGLU or MoE FFN (``models/moe.py``).
+  * MLA (deepseek's multi-head latent attention): a compressed cache of
+    the latent ``c_kv`` and the *rotated* rope key, and the
+    absorbed-matmul decode in the latent (``_decode_attn_mla``),
+  * dense SwiGLU or MoE FFN (``models/moe.py``),
+  * multi-token prediction (deepseek MTP) as an extra loss head of
+    ``train_loss``: one block over (h_t, embed(token_{t+1})) @ proj
+    predicting t+2.
 
 Parameters are the reference's tree: ``embed``, ``final_norm``,
 ``lm_head`` and per group (``dense``, ``moe``) ``ln1``, ``ln2``,
@@ -18,23 +24,30 @@ JAX draw bit for bit in float32 and bfloat16; a stacked weight keeps the
 reference's ``fan_in = prod(shape[:-1])`` scale, (L * d) ** -0.5.
 
 Layers run as a Python loop over the stacked tensors, where the
-reference scans.  Prefill attention is ``attention.chunked_attention``
-(the flash-attention kernel on a CUDA tensor, once a layer;
-``use_kernel=False`` runs its plain version), decode attention
+reference scans.  Prefill and training attention is
+``attention.chunked_attention`` (the flash-attention kernel on a CUDA
+tensor, once a layer; ``use_kernel=False`` runs its plain version; MLA's
+value head dim takes its plain torch path), decode attention
 ``attention.decode_attention`` in torch ops.  The serving entry points
-run under ``torch.inference_mode()``.  ``decode_step`` writes the new
-key and value into the cache in place and returns that cache: a
+run under ``torch.inference_mode()``.  ``train_loss`` runs under
+autograd: with ``remat == "full"`` each layer body is checkpointed
+(``torch.utils.checkpoint``), as the reference's ``_scan_layers`` does,
+so backward recomputes it (flash's forward launches again); the loss is
+``layers.chunked_softmax_xent``.  The token embedding is read through
+``layers.gather_rows``, whose backward adds duplicate tokens
+in a fixed order (a bit-exact restart on the card needs that).
+``decode_step`` writes the new key and value into the cache in place
+and returns that cache: a
 functional copy of the whole cache on every step would not fit beside
 it on the card at the decode_32k shape (the reference's decode bundle
 donates the cache for the same reason).
 
 The reference's ``hint(...)`` calls place activations on a mesh and have
-no counterpart on one device, so they are left out.  The config's
-``block_q``, ``remat``, ``unroll`` and ``loss_block`` steer the
-reference's tiling, rematerialisation and dry-run; serving here ignores
-them (the kernel tiles itself).  MLA and MTP (deepseek) wait for
-ROADMAP item 7b, ``train_loss`` for item 7c: ``init_params`` raises for
-them.
+no counterpart on one device, so they are left out.  ``block_q`` is the
+query block of flash's backward and of the plain MLA path,
+``loss_block`` the loss's row block, ``remat`` steers training only;
+``unroll`` (the reference's dry-run) is ignored, and so is ``remat ==
+"ffn"`` (no config of either package sets it).
 
 A quirk of the reference, kept: ``prefill`` leaves the last ``clen =
 min(S, window)`` keys in slots ``0 .. clen-1``, while ``decode_step``
@@ -49,6 +62,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
@@ -56,8 +70,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.tree import leaves
 
-__all__ = ["MLAConfig", "LMConfig", "init_params", "prefill", "decode_step",
-           "init_cache", "cache_len", "backbone"]
+__all__ = ["MLAConfig", "LMConfig", "init_params", "train_loss", "prefill",
+           "decode_step", "init_cache", "cache_len", "backbone"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,7 +86,7 @@ class MLAConfig:
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
     """The reference's LM config, field for field.  Serving ignores
-    ``remat``, ``block_q``, ``loss_block`` and ``unroll``."""
+    ``remat`` and ``loss_block``; nothing reads ``unroll``."""
     name: str
     n_layers: int
     d_model: int
@@ -188,9 +202,6 @@ def init_params(cfg: LMConfig, seed: int = 0, *, device=None,
     JAX package's ``init_params`` for the same seed.  With ``abstract``
     every leaf is a ``layers.FakeArray`` and nothing is drawn or placed
     (no device is needed): what ``param_count`` counts."""
-    if not abstract and (cfg.attn_type == "mla" or cfg.mtp):
-        raise NotImplementedError(
-            f"{cfg.name}: MLA and MTP are not ported (ROADMAP item 7b)")
     dev = None if abstract else resolve_device(device)
     rng = L.rng_or_abstract(seed, abstract)
     dt = cfg.torch_dtype
@@ -243,10 +254,27 @@ def _n_layers(stacked: dict) -> int:
 
 def _project_qkv(lp: dict, cfg: LMConfig, x: torch.Tensor,
                  positions: torch.Tensor):
-    """q/k/v of x (B, S, D) at ``positions`` (B, S): the GQA branch."""
-    if cfg.attn_type == "mla":
-        raise NotImplementedError("MLA is not ported (ROADMAP item 7b)")
+    """q/k/v of x (B, S, D) at ``positions`` (B, S), and MLA's latent
+    (``c_kv`` (B, S, kv_lora_rank), the rotated rope key (B, S,
+    qk_rope_dim)) or None."""
     b, s, _ = x.shape
+    if cfg.attn_type == "mla":
+        m = cfg.mla
+        h = cfg.n_heads
+        cq = L.rms_norm(lp["q_norm"], x @ lp["wdq"])
+        q = (cq @ lp["wuq"]).reshape(b, s, h, m.qk_nope_dim + m.qk_rope_dim)
+        q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+        q_rope = L.rope(q_rope, positions, cfg.rope_theta)
+        dkv = x @ lp["wdkv"]
+        c_kv = L.rms_norm(lp["kv_norm"], dkv[..., :m.kv_lora_rank])
+        k_rope = L.rope(dkv[..., None, m.kv_lora_rank:], positions,
+                        cfg.rope_theta)                      # (B, S, 1, rope)
+        k_nope = (c_kv @ lp["wuk"]).reshape(b, s, h, m.qk_nope_dim)
+        v = (c_kv @ lp["wuv"]).reshape(b, s, h, m.v_dim)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope.expand(b, s, h, m.qk_rope_dim)],
+                      dim=-1)
+        return q, k, v, (c_kv, k_rope[:, :, 0])
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = x @ lp["wq"], x @ lp["wk"], x @ lp["wv"]
     if cfg.qkv_bias:
@@ -259,7 +287,7 @@ def _project_qkv(lp: dict, cfg: LMConfig, x: torch.Tensor,
         k = L.rms_norm(lp["kn"], k)
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return q, k, v, None
 
 
 def _ffn(lp: dict, hn: torch.Tensor, moe_cfg):
@@ -272,32 +300,62 @@ def _ffn(lp: dict, hn: torch.Tensor, moe_cfg):
     return y.reshape(hn.shape), aux
 
 
+def _layer_body(cfg: LMConfig, moe_cfg, use_kernel: bool, lp: dict,
+                x: torch.Tensor, positions: torch.Tensor):
+    """One layer over x (B, S, D): (its output, its MoE aux loss or
+    None, what the cache keeps: (k, v), or MLA's (c_kv, k_rope))."""
+    b, s, _ = x.shape
+    q, k, v, lat = _project_qkv(lp["attn"], cfg, L.rms_norm(lp["ln1"], x),
+                                positions)
+    o = A.chunked_attention(q, k, v, causal=True, window=cfg.window,
+                            block_q=cfg.block_q, use_kernel=use_kernel)
+    h = x + o.reshape(b, s, -1) @ lp["attn"]["wo"]
+    y, aux = _ffn(lp, L.rms_norm(lp["ln2"], h), moe_cfg)
+    return h + y, aux, (lat if lat is not None else (k, v))
+
+
+def _layer_train(cfg: LMConfig, moe_cfg, use_kernel: bool, lp: dict,
+                 x: torch.Tensor, positions: torch.Tensor):
+    """``_layer_body`` for training: (output, aux as a 0-d float32)."""
+    y, aux, _ = _layer_body(cfg, moe_cfg, use_kernel, lp, x, positions)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return y, aux
+
+
+def _cache_names(cfg: LMConfig) -> tuple[str, str]:
+    return ("c_kv", "k_rope") if cfg.attn_type == "mla" else ("k", "v")
+
+
 def _run_layers(cfg: LMConfig, stacked: dict, x: torch.Tensor,
                 positions: torch.Tensor, moe_cfg, clen: int | None,
                 use_kernel: bool):
     """The group's layers over x (B, S, D): (x, the sum of the MoE aux
-    losses, and with ``clen`` the last ``clen`` keys and values of each
-    layer stacked (L, B, clen, Hkv, hd))."""
-    b, s, _ = x.shape
-    ks, vs = [], []
+    losses, and with ``clen`` the last ``clen`` positions of each
+    layer's cache entries stacked: {"k", "v"} (L, B, clen, Hkv, hd), or
+    MLA's {"c_kv", "k_rope"} (L, B, clen, rank)).  Under autograd with
+    ``remat == "full"`` each layer is checkpointed."""
+    s = x.shape[1]
+    remat = (clen is None and cfg.remat == "full"
+             and torch.is_grad_enabled())
+    kept = ([], [])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(_n_layers(stacked)):
         lp = _layer(stacked, i)
-        q, k, v = _project_qkv(lp["attn"], cfg, L.rms_norm(lp["ln1"], x),
-                               positions)
-        o = A.chunked_attention(q, k, v, causal=True, window=cfg.window,
-                                use_kernel=use_kernel)
-        h = x + o.reshape(b, s, -1) @ lp["attn"]["wo"]
-        y, a = _ffn(lp, L.rms_norm(lp["ln2"], h), moe_cfg)
-        x = h + y
+        if remat:
+            x, a = checkpoint(_layer_train, cfg, moe_cfg, use_kernel, lp, x,
+                              positions, use_reentrant=False)
+        else:
+            x, a, kv = _layer_body(cfg, moe_cfg, use_kernel, lp, x,
+                                   positions)
+            if clen is not None:
+                for out, t in zip(kept, kv):
+                    out.append(t[:, s - clen:])
         if a is not None:
             aux = aux + a
-        if clen is not None:
-            ks.append(k[:, s - clen:])
-            vs.append(v[:, s - clen:])
-    kv = None if clen is None else {"k": torch.stack(ks),
-                                    "v": torch.stack(vs)}
-    return x, aux, kv
+    cache = None if clen is None else {
+        name: torch.stack(t) for name, t in zip(_cache_names(cfg), kept)}
+    return x, aux, cache
 
 
 def _groups(params: dict, cfg: LMConfig):
@@ -310,11 +368,15 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None].expand(b, s)
 
 
+def _embed(params: dict, cfg: LMConfig, tokens: torch.Tensor):
+    return L.gather_rows(params["embed"], tokens).to(cfg.torch_dtype)
+
+
 def backbone(params: dict, cfg: LMConfig, tokens: torch.Tensor,
              positions: torch.Tensor, *, use_kernel: bool = True):
     """tokens: (B, S) -> final hidden (B, S, D), aux loss (the sum of
     the MoE layers')."""
-    x = params["embed"][tokens.long()].to(cfg.torch_dtype)
+    x = _embed(params, cfg, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g, moe_cfg in _groups(params, cfg):
         x, a, _ = _run_layers(cfg, params[g], x, positions, moe_cfg, None,
@@ -323,15 +385,44 @@ def backbone(params: dict, cfg: LMConfig, tokens: torch.Tensor,
     return L.rms_norm(params["final_norm"], x), aux
 
 
+def train_loss(params: dict, cfg: LMConfig, tokens: torch.Tensor,
+               targets: torch.Tensor, mask: torch.Tensor, *,
+               use_kernel: bool = True) -> torch.Tensor:
+    """The mean masked next-token cross-entropy of tokens (B, S) against
+    targets (B, S), plus ``mtp_weight`` times the MTP loss (deepseek:
+    one dense block over (h_t, embed(token_{t+1})) @ proj, predicting
+    t+2, the last position masked) and the MoE aux loss: a float32
+    0-d tensor, differentiable in ``params``."""
+    b, s = tokens.shape
+    positions = _positions(b, s, tokens.device)
+    h, aux = backbone(params, cfg, tokens, positions, use_kernel=use_kernel)
+    loss = L.chunked_softmax_xent(
+        h.reshape(b * s, -1), params["lm_head"], targets.reshape(-1),
+        mask.reshape(-1).to(torch.float32), block=cfg.loss_block)
+    if cfg.mtp:
+        mp = _layer(params["mtp"], 0)
+        nxt = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
+        hm = torch.cat([h, _embed(params, cfg, nxt)], dim=-1) @ mp["proj"]
+        hm, _, _ = _layer_body(cfg, None, use_kernel, mp, hm, positions)
+        t2 = torch.cat([targets[:, 1:], targets[:, -1:]], dim=1)
+        m2 = torch.cat([mask[:, 1:], torch.zeros_like(mask[:, -1:])], dim=1)
+        mtp_loss = L.chunked_softmax_xent(
+            hm.reshape(b * s, -1), params["lm_head"], t2.reshape(-1),
+            m2.reshape(-1).to(torch.float32), block=cfg.loss_block)
+        loss = loss + cfg.mtp_weight * mtp_loss
+    return loss + aux
+
+
 @torch.inference_mode()
 def prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor, *,
             use_kernel: bool = True):
     """Run the backbone over a prompt (B, S), build the KV cache, and
     return (logits of the last position (B, V) float32, cache): per
-    group {"k", "v"} of (L, B, min(S, window), Hkv, hd)."""
+    group {"k", "v"} of (L, B, min(S, window), Hkv, hd), or MLA's
+    {"c_kv", "k_rope"} of (L, B, S, rank)."""
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
-    x = params["embed"][tokens.long()].to(cfg.torch_dtype)
+    x = _embed(params, cfg, tokens)
     clen = cache_len(cfg, s)
     cache = {}
     for g, moe_cfg in _groups(params, cfg):
@@ -350,20 +441,26 @@ def cache_len(cfg: LMConfig, seq_len: int) -> int:
 
 def init_cache(cfg: LMConfig, batch: int, seq_len: int, *,
                device=None) -> dict:
-    """Zeroed KV caches on ``device`` (default ``"cuda"``): per group
-    {"k", "v"} of (L, batch, cache_len, Hkv, hd) in the model dtype."""
-    if cfg.attn_type == "mla":
-        raise NotImplementedError("MLA caches are not ported (ROADMAP "
-                                  "item 7b)")
+    """Zeroed caches on ``device`` (default ``"cuda"``) in the model
+    dtype: per group {"k", "v"} of (L, batch, cache_len, Hkv, hd), or
+    MLA's {"c_kv": (L, batch, cache_len, kv_lora_rank), "k_rope": (L,
+    batch, cache_len, qk_rope_dim)}."""
     dev = resolve_device(device)
     s = cache_len(cfg, seq_len)
+    if cfg.attn_type == "mla":
+        m = cfg.mla
+        per_layer = {"c_kv": (batch, s, m.kv_lora_rank),
+                     "k_rope": (batch, s, m.qk_rope_dim)}
+    else:
+        kv = (batch, s, cfg.n_kv_heads, cfg.head_dim)
+        per_layer = {"k": kv, "v": kv}
     n_dense = cfg.moe.first_dense_layers if cfg.moe else cfg.n_layers
     cache = {}
     for g, n in (("dense", n_dense), ("moe", cfg.n_layers - n_dense)):
         if n:
-            cache[g] = {x: torch.zeros(
-                (n, batch, s, cfg.n_kv_heads, cfg.head_dim),
-                dtype=cfg.torch_dtype, device=dev) for x in ("k", "v")}
+            cache[g] = {x: torch.zeros((n, *shape), dtype=cfg.torch_dtype,
+                                       device=dev)
+                        for x, shape in per_layer.items()}
     return cache
 
 
@@ -382,7 +479,7 @@ def _decode_attn_gqa(lp: dict, cfg: LMConfig, x: torch.Tensor, lc: dict,
     pos % S; pos: (B,) the token's position."""
     b = x.shape[0]
     s = lc["k"].shape[1]
-    q, k_new, v_new = _project_qkv(lp, cfg, x, pos[:, None])
+    q, k_new, v_new, _ = _project_qkv(lp, cfg, x, pos[:, None])
     slot = pos % s
     rows = torch.arange(b, device=pos.device)
     lc["k"][rows, slot] = k_new[:, 0]
@@ -394,13 +491,54 @@ def _decode_attn_gqa(lp: dict, cfg: LMConfig, x: torch.Tensor, lc: dict,
     return o.reshape(b, 1, -1) @ lp["wo"]
 
 
+def _decode_attn_mla(lp: dict, cfg: LMConfig, x: torch.Tensor, lc: dict,
+                     pos: torch.Tensor) -> torch.Tensor:
+    """Absorbed-matmul MLA decode: attention in the compressed latent.
+    x: (B, 1, D); lc's c_kv (B, S, lora) and k_rope (B, S, rope) written
+    in place at slot pos % S.  The reference's rounding points: scores
+    in the cache dtype, float32 times the scale, the -1e30 mask, a
+    float32 softmax, P cast to the cache dtype."""
+    m = cfg.mla
+    h = cfg.n_heads
+    b = x.shape[0]
+    s = lc["c_kv"].shape[1]
+    cq = L.rms_norm(lp["q_norm"], x @ lp["wdq"])
+    q = (cq @ lp["wuq"]).reshape(b, 1, h, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    q_rope = L.rope(q_rope, pos[:, None], cfg.rope_theta)
+    dkv = x @ lp["wdkv"]
+    c_new = L.rms_norm(lp["kv_norm"], dkv[..., :m.kv_lora_rank])
+    kr_new = L.rope(dkv[..., None, m.kv_lora_rank:], pos[:, None],
+                    cfg.rope_theta)[:, :, 0]
+    slot = pos % s
+    rows = torch.arange(b, device=pos.device)
+    c_kv, k_rope = lc["c_kv"], lc["k_rope"]
+    c_kv[rows, slot] = c_new[:, 0]
+    k_rope[rows, slot] = kr_new[:, 0]
+    # absorb wuk into q: (B, 1, H, nope) x (lora, H * nope) -> (B, H, lora)
+    wuk = lp["wuk"].reshape(m.kv_lora_rank, h, m.qk_nope_dim)
+    q_lat = torch.einsum("bqhn,lhn->bhl", q_nope, wuk)
+    scores = (torch.einsum("bhl,bsl->bhs", q_lat, c_kv)
+              + torch.einsum("bqhr,bsr->bhs", q_rope, k_rope))
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    stored = _slot_positions(s, slot, pos)
+    valid = (stored >= 0) & (stored <= pos[:, None])
+    scores = torch.where(valid[:, None, :], scores.to(torch.float32) * scale,
+                         torch.full((), A.NEG_INF, device=x.device))
+    p = torch.softmax(scores, dim=-1).to(c_kv.dtype)
+    o_lat = torch.einsum("bhs,bsl->bhl", p, c_kv)
+    wuv = lp["wuv"].reshape(m.kv_lora_rank, h, m.v_dim)
+    o = torch.einsum("bhl,lhv->bhv", o_lat, wuv).reshape(b, 1, -1)
+    return o @ lp["wo"]
+
+
 def _decode_layers(cfg: LMConfig, stacked: dict, cache: dict, x, pos,
                    moe_cfg):
+    attn = _decode_attn_mla if cfg.attn_type == "mla" else _decode_attn_gqa
     for i in range(_n_layers(stacked)):
         lp = _layer(stacked, i)
-        h = x + _decode_attn_gqa(lp["attn"], cfg,
-                                 L.rms_norm(lp["ln1"], x),
-                                 _layer(cache, i), pos)
+        h = x + attn(lp["attn"], cfg, L.rms_norm(lp["ln1"], x),
+                     _layer(cache, i), pos)
         x = h + _ffn(lp, L.rms_norm(lp["ln2"], h), moe_cfg)[0]
     return x
 
@@ -413,7 +551,7 @@ def decode_step(params: dict, cfg: LMConfig, cache: dict,
     Returns (next_token (B,) int32, logits (B, V) float32, cache), the
     cache updated in place."""
     pos = pos.long()
-    x = params["embed"][token.long()][:, None, :].to(cfg.torch_dtype)
+    x = _embed(params, cfg, token)[:, None, :]
     for g, moe_cfg in _groups(params, cfg):
         x = _decode_layers(cfg, params[g], cache[g], x, pos, moe_cfg)
     h = L.rms_norm(params["final_norm"], x)[:, 0]

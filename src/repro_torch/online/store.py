@@ -6,11 +6,11 @@ and accepts retrained cascades from ``online.trainer``.  ``publish``:
 
   1. checks that the retrain is swap-compatible with the template (same
      node kind, cutoff count, tree count, max depth);
-  2. pads every forest node table to the shared depth-derived capacity
-     (``core.forest.node_capacity``) on the store's device, so all
-     versions have identical parameter shapes whatever the trees grew
-     (padding is inert: inference is bit-identical to the unpadded
-     tables);
+  2. places the node params on the store's device and pads every forest
+     node table to the shared depth-derived capacity
+     (``core.cascade.place_node_params``), so all versions have
+     identical parameter shapes whatever the trees grew (padding is
+     inert: inference is bit-identical to the unpadded tables);
   3. waits for that device work on the publishing thread's stream
      (``device.fence``), stamps a monotone version and installs it as
      ``current`` -- so a predict on another stream (the service's
@@ -32,6 +32,7 @@ import time
 import torch
 
 from repro_torch.core import forest as forest_lib
+from repro_torch.core.cascade import place_node_params
 from repro_torch.device import fence, resolve_device
 
 __all__ = ["PredictorVersion", "PredictorStore"]
@@ -87,19 +88,13 @@ class PredictorStore:
                 raise ValueError(
                     f"retrained n_trees {t} != template {self.n_trees}")
 
-    def _pad(self, node_params) -> list:
-        out = [{k: torch.as_tensor(v).to(self.device) for k, v in p.items()}
-               for p in node_params]
-        if self.kind != "forest":
-            return out
-        return [forest_lib.pad_forest_params(p, self.capacity) for p in out]
-
     # ----------------------------------------------------------- publish --
     def publish(self, cascade, thresholds, *,
                 trained_on: int = 0) -> PredictorVersion:
         """Pad and place a retrained cascade and make it current."""
         self._check_compatible(cascade)
-        padded = self._pad(cascade.node_params)
+        padded = place_node_params(self.kind, cascade.node_params,
+                                   self.max_depth, self.device)
         thr = torch.as_tensor(thresholds, dtype=torch.float32).to(
             self.device)
         if tuple(thr.shape) != (self.n_cutoffs,):

@@ -21,13 +21,13 @@ import torch
 
 from repro_torch.core import cascade as cascade_lib
 from repro_torch.core import features as feat_lib
-from repro_torch.core import forest as forest_lib
 from repro_torch.core import knobs as knobs_lib
 from repro_torch.device import resolve_device
 from repro_torch.retrieval import gold, jass
 from repro_torch.serving import bucketing
 from repro_torch.serving.engine import (ServingEngine, ShardedServingEngine,
                                        _pad_ranked)
+from repro_torch.tree import leaves_with_paths, map_tree
 
 __all__ = ["ServingConfig", "RetrievalServer"]
 
@@ -76,21 +76,23 @@ class ServingConfig:
 
 
 def _same_layout(new, old) -> None:
-    """Swapped node params must match the live ones in structure, shapes
-    and dtypes."""
+    """Swapped node params (forest tables or MLP states) must match the
+    live ones in structure, shapes and dtypes."""
     if len(new) != len(old):
         raise ValueError(f"swapped predictor has {len(new)} nodes, the "
                          f"live one {len(old)}")
     for a, b in zip(new, old):
-        if set(a) != set(b):
+        fa, fb = leaves_with_paths(a), leaves_with_paths(b)
+        if [k for k, _ in fa] != [k for k, _ in fb]:
             raise ValueError("swapped predictor tables differ from the "
-                             f"live ones ({sorted(a)} vs {sorted(b)})")
-        for k in b:
-            if a[k].shape != b[k].shape or a[k].dtype != b[k].dtype:
+                             f"live ones ({[k for k, _ in fa]} vs "
+                             f"{[k for k, _ in fb]})")
+        for (k, x), (_, y) in zip(fa, fb):
+            if x.shape != y.shape or x.dtype != y.dtype:
                 raise ValueError(
                     f"swapped predictor table {k!r} mismatch: "
-                    f"{tuple(a[k].shape)}/{a[k].dtype} vs live "
-                    f"{tuple(b[k].shape)}/{b[k].dtype} -- pad retrained "
+                    f"{tuple(x.shape)}/{x.dtype} vs live "
+                    f"{tuple(y.shape)}/{y.dtype} -- pad retrained "
                     "params to the template")
 
 
@@ -131,7 +133,7 @@ class RetrievalServer:
         self.ctf = ts.ctf.to(self.device)
         self.df = ts.df.to(self.device)
         self.n_docs = index.n_docs
-        self._depths = {}              # knob -> forest max_depth
+        self._kinds = {}               # knob -> (node kind, max_depth)
         self._live = {}                # knob -> (node_params, thresholds)
         self._swap_lock = threading.Lock()
         self.predictor_version = 0
@@ -145,26 +147,20 @@ class RetrievalServer:
                                with_depth=self.has_depth_knob)
 
     def _boot_knob(self, knob: str, casc: cascade_lib.Cascade) -> None:
-        """Install a knob's boot cascade: node tables padded to the
-        depth-derived capacity (so same-depth retrains swap in) on the
-        server's device."""
+        """Install a knob's boot cascade (forest or MLP nodes) on the
+        server's device; forest tables are padded to the depth-derived
+        capacity, so same-depth retrains swap in."""
         if knob not in self.knobs:
             raise ValueError(f"no cutoff grid declared for knob {knob!r}")
         if casc.n_cutoffs != self.knobs[knob].n_cutoffs:
             raise ValueError(
                 f"knob {knob!r}: cascade has {casc.n_cutoffs} nodes but "
                 f"the grid has {self.knobs[knob].n_cutoffs} cutoffs")
-        if casc.kind != "forest":
-            raise ValueError(f"node kind {casc.kind!r}: the port's server "
-                             "serves forest cascades only")
-        cap = forest_lib.node_capacity(casc.max_depth)
-        node_params = [
-            forest_lib.pad_forest_params(
-                {k: v.to(self.device) for k, v in p.items()}, cap)
-            for p in casc.node_params]
+        node_params = cascade_lib.place_node_params(
+            casc.kind, casc.node_params, casc.max_depth, self.device)
         thresholds = torch.full((casc.n_cutoffs,), self.cfg.threshold,
                                 dtype=torch.float32, device=self.device)
-        self._depths[knob] = casc.max_depth
+        self._kinds[knob] = (casc.kind, casc.max_depth)
         with self._swap_lock:
             self._live = {**self._live, knob: (node_params, thresholds)}
 
@@ -179,8 +175,8 @@ class RetrievalServer:
 
     def _proba0(self, knob: str, node_params, qt: torch.Tensor):
         x = feat_lib.query_features(qt, self.stats, self.ctf, self.df)
-        return cascade_lib.proba0_from_params("forest", node_params, x,
-                                              self._depths[knob])
+        kind, depth = self._kinds[knob]
+        return cascade_lib.proba0_from_params(kind, node_params, x, depth)
 
     # stage 0: prediction ------------------------------------------------
     def predict_classes(self, query_terms: np.ndarray,
@@ -221,14 +217,15 @@ class RetrievalServer:
                        knob: str | None = None) -> int:
         """Atomically replace a knob's live cascade tables (and optionally
         its per-node thresholds).  The new tables must match the live
-        ones in structure, shapes and dtypes."""
+        ones in structure, shapes and dtypes (``online.PredictorStore``
+        pads retrained forests to the template)."""
         knob = self.cfg.knob if knob is None else knob
-        if knob not in self._depths:
+        if knob not in self._kinds:
             raise RuntimeError(
                 f"server has no cascade predict path for knob {knob!r} "
                 "to swap (no boot cascade was installed for it)")
-        new_params = [{k: torch.as_tensor(v).to(self.device)
-                       for k, v in p.items()} for p in node_params]
+        new_params = [map_tree(lambda v: torch.as_tensor(v).to(self.device),
+                               p) for p in node_params]
         with self._swap_lock:
             old_params, old_thr = self._live[knob]
             _same_layout(new_params, old_params)

@@ -42,7 +42,14 @@ Tolerances, with their reasons:
   * LM serving at smoke size (float32): prefill and 8 greedy decode
     steps on the card against the CPU, greedy tokens equal and logits
     within 2e-5 (``tests/test_torch_lm.py``'s float32 tolerance: the
-    kernel's and the products' sums run in another order).
+    kernel's and the products' sums run in another order); deepseek's
+    MLA among them, launching no flash.
+  * LM training at smoke size (float32): the loss within 2e-5 relative
+    and each gradient leaf within 2e-5 of its largest magnitude, card
+    against CPU; the blocked flash backward against the whole-matrix
+    one on the card within 2e-5 (float32) or 2^-7 (bfloat16: float32
+    sums in another order, rounded to bfloat16 at the end) of each
+    gradient's largest magnitude.
 """
 
 import dataclasses
@@ -867,7 +874,7 @@ def _lm_serve(cfg, toks, device, steps=8):
     b, s = toks.shape
     cache = transformer.init_cache(cfg, b, s + steps, device=device)
     for g in pre:
-        for x in ("k", "v"):
+        for x in pre[g]:
             cache[g][x][:, :, :pre[g][x].shape[2]] = pre[g][x]
     out = [(None, logits.cpu())]
     tok = torch.argmax(logits, -1).to(torch.int32)
@@ -880,7 +887,8 @@ def _lm_serve(cfg, toks, device, steps=8):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch,s", [("tinyllama-1.1b", 24), ("qwen2-0.5b", 24),
-                                    ("qwen3-4b", 24), ("mixtral-8x22b", 32)])
+                                    ("qwen3-4b", 24), ("mixtral-8x22b", 32),
+                                    ("deepseek-v3-671b", 24)])
 def test_lm_smoke_serving_on_card_matches_cpu(cuda_device, arch, s):
     from repro_torch.configs import base as cfgbase
     from repro_torch.data import lm_pipeline
@@ -889,7 +897,9 @@ def test_lm_smoke_serving_on_card_matches_cpu(cuda_device, arch, s):
         vocab=cfg.vocab, batch=2, seq_len=s, seed=1)).batch(0)["tokens"]
     before = fa_kernel.n_launches
     card = _lm_serve(cfg, toks, cuda_device)
-    assert fa_kernel.n_launches == before + cfg.n_layers
+    # deepseek's MLA (value head dim 16 against 24) takes the plain path
+    want = 0 if cfg.attn_type == "mla" else cfg.n_layers
+    assert fa_kernel.n_launches == before + want
     for (tc, lc), (tp, lp) in zip(card, _lm_serve(cfg, toks, "cpu")):
         if tp is not None:
             assert torch.equal(tc, tp)
@@ -982,3 +992,75 @@ def test_flash_attention_cuda_keeps_the_cuda_core_route(cuda_device, kind):
                 for _ in range(2))
     _hold_flash(q, k, v, True, None)
     assert fa_kernel.last_route == "general"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,hq,hkv,hd,window", [
+    (700, 8, 2, 64, None), (333, 4, 4, 128, None), (500, 6, 3, 64, 100)])
+def test_flash_blocked_backward_on_card_matches_whole(cuda_device, dtype, s,
+                                                      hq, hkv, hd, window):
+    """The blocked backward on the card (causal, GQA, a window, S not a
+    multiple of the block) against the whole-matrix one on the card:
+    float32 within 2e-5 of each gradient's largest magnitude, bfloat16
+    within 2^-7 of it (two bf16 steps: the float32 sums round to bf16 at
+    the end)."""
+    r = np.random.default_rng(s + hd)
+    q, k, v, do = (torch.from_numpy(r.normal(size=(2, s, h, hd)).astype(
+        np.float32)).to(cuda_device, dtype) for h in (hq, hkv, hkv, hq))
+    o = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+    got = fa_ops.flash_attention_bwd_blocked(q, k, v, o, do, causal=True,
+                                             window=window, block_q=128)
+    want = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=True,
+                                      window=window)
+    tol = 2e-5 if dtype == torch.float32 else 2 ** -7
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        scale = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "deepseek-v3-671b"])
+def test_lm_train_loss_on_card_matches_cpu(cuda_device, arch):
+    """``train_loss`` and its gradients at the smoke config (float32) on
+    the card against the CPU: the loss within 2e-5 relative, each
+    gradient leaf within 2e-5 of its largest magnitude (the kernel's
+    forward and the products' sums run in another order); flash launches
+    twice a layer on the card for GQA (forward and its recompute under
+    remat="full"), never for MLA, and its backward, timed by CUDA events
+    where ``ops.backward_events`` asks, once a layer."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.data import lm_pipeline
+    from repro_torch.models import transformer
+    from repro_torch.tree import leaves
+
+    cfg = cfgbase.get(arch).smoke_config()
+    batch = lm_pipeline.LMPipeline(lm_pipeline.LMDataConfig(
+        vocab=cfg.vocab, batch=2, seq_len=64, seed=1)).batch(0)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        params = transformer.init_params(cfg, seed=0, device=dev)
+        flat = leaves(params)
+        for p in flat:
+            p.requires_grad_(True)
+        before = fa_kernel.n_launches
+        fa_ops.backward_events = events = []
+        try:
+            loss = transformer.train_loss(params, cfg, *(
+                torch.from_numpy(batch[k]).to(dev)
+                for k in ("tokens", "targets", "mask")))
+            grads = torch.autograd.grad(loss, flat)
+        finally:
+            fa_ops.backward_events = None
+        torch.cuda.synchronize()
+        out[dev.type] = (float(loss.detach()), [g.cpu() for g in grads],
+                         fa_kernel.n_launches - before,
+                         [a.elapsed_time(b) for a, b in events])
+    (lc, gc, nc, ms), (lp, gp, _, ms_cpu) = out["cuda"], out["cpu"]
+    assert nc == (0 if cfg.attn_type == "mla" else 2 * cfg.n_layers)
+    assert len(ms) == nc // 2 and all(t > 0 for t in ms) and ms_cpu == []
+    assert abs(lc - lp) <= 2e-5 * abs(lp)
+    for a, b in zip(gc, gp):
+        assert float((a - b).abs().max()) <= 2e-5 * float(b.abs().max())

@@ -47,7 +47,10 @@ def test_port_imports_neither_jax_nor_repro():
             "launch/serve.py", "core/baselines.py", "core/mlp.py",
             "examples/quickstart.py", "distrib/__init__.py",
             "distrib/collectives.py", "distrib/sharding.py",
-            "launch/mesh.py"} <= scanned
+            "launch/mesh.py", "configs/paper_retrieval.py",
+            "configs/deepseek_v3_671b.py", "examples/serve_retrieval.py",
+            "examples/recsys_funnel.py", "examples/train_lm.py",
+            "launch/train.py", "models/transformer.py"} <= scanned
     bad = {(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN}
     assert not bad, sorted(bad)
@@ -57,7 +60,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from repro_torch.configs import tinyllama_1_1b
     from repro_torch.core import experiment, mlp
     from repro_torch.device import resolve_device
-    from repro_torch.examples import quickstart
+    from repro_torch.configs import deepseek_v3_671b
+    from repro_torch.examples import (quickstart, recsys_funnel,
+                                      serve_retrieval, train_lm)
+    from repro_torch.launch import train
     from repro_torch.launch import serve
     from repro_torch.models import transformer
     from repro_torch.serving import pipeline
@@ -75,8 +81,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
             n_docs=50, vocab=80, n_queries=4))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--n-docs", "50", "--n-queries", "4", "--census", ""])
+    for driver in (quickstart, serve_retrieval, recsys_funnel, train_lm):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            driver.main([])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        quickstart.main([])
+        train.main(["--arch", "deepseek-v3-671b", "--ckpt-dir", ""])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mlp.train_mlp(np.zeros((4, 2), np.float32), np.zeros(4),
                       n_classes=2)
@@ -85,3 +94,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         transformer.init_params(lm)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         transformer.init_cache(lm, 2, 8)
+    mla = deepseek_v3_671b.smoke_config()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        transformer.init_params(mla)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        transformer.init_cache(mla, 2, 8)

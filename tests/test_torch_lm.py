@@ -1,6 +1,7 @@
 """The port's LM serving path against the JAX package on the CPU: the
-parameter draw, the layers, decode attention, the MoE FFN, prefill and
-greedy decode for the four served archs at smoke size, the token
+parameter draw (all five LM archs), the layers, decode attention, the
+MoE FFN, prefill and greedy decode for the four GQA archs at smoke size
+(deepseek's MLA serving is in ``test_torch_mla.py``), the token
 pipeline, the shapes and model FLOPs, and ``convert.lm_from_numpy``.
 
 Inputs come from seeded numpy (``np.random.default_rng``) or the LM
@@ -55,6 +56,8 @@ from repro_torch.models import transformer as t_tf
 from repro_torch.tree import leaves_with_paths
 
 ARCHS = t_cfgbase.LM_ARCHS
+#: the four archs of grouped-query attention (deepseek's MLA is the fifth)
+GQA_ARCHS = ARCHS[:4]
 TOL = dict(rtol=2e-5, atol=2e-5)
 DECODE_STEPS = 8
 BF16_LOGIT_ATOL = 6.25e-2
@@ -122,19 +125,23 @@ def test_lm_configs_copy_the_jax_numbers():
             jc, tc = getattr(j_mod, name)(), getattr(t_mod, name)()
             assert dataclasses.asdict(tc) == dataclasses.asdict(jc), arch
             assert tc.qk_dim == jc.qk_dim
-    ds = j_cfgbase.get("deepseek-v3-671b").smoke_config()
-    with pytest.raises(KeyError, match="not ported"):
-        t_cfgbase.get("deepseek-v3-671b")
-    t_ds = t_tf.LMConfig(**{
-        **dataclasses.asdict(ds),
-        "mla": t_tf.MLAConfig(**dataclasses.asdict(ds.mla)),
-        "moe": t_moe.MoEConfig(**dataclasses.asdict(ds.moe))})
-    assert t_ds.param_count() == ds.param_count()     # MLA and MTP counted
-    assert t_ds.qk_dim == ds.qk_dim
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7b"):
-        t_tf.init_params(t_ds, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7b"):
-        t_tf.init_cache(t_ds, 1, 8, device="cpu")
+    # deepseek (MLA, MTP, shared experts): its smoke params and caches
+    # are the JAX package's
+    jc, tc = _cfgs("deepseek-v3-671b")
+    assert tc.attn_type == "mla" and tc.mtp and tc.moe.n_shared == 1
+    want = _jax_leaves(j_tf.init_params(jc, seed=2))
+    got = {tuple(map(str, p)): v for p, v in leaves_with_paths(
+        t_tf.init_params(tc, seed=2, device="cpu"))}
+    assert set(got) == set(want) and ("mtp", "proj") in got
+    for name, w in want.items():
+        np.testing.assert_array_equal(_bits(got[name]), _bits(w))
+    jcache = _jax_leaves(j_tf.init_cache(jc, 3, 40))
+    tcache = {tuple(map(str, p)): v for p, v in leaves_with_paths(
+        t_tf.init_cache(tc, 3, 40, device="cpu"))}
+    assert set(tcache) == set(jcache)
+    for name, w in jcache.items():
+        assert tuple(tcache[name].shape) == w.shape, name
+        np.testing.assert_array_equal(tcache[name].numpy(), w)
 
 
 def test_lm_shapes_and_model_flops_equal_jax():
@@ -256,7 +263,7 @@ def _prompt(vocab, s, batch=2):
 def _handoff(cache, pre, put):
     """The prefill's keys and values into slots [0, clen) of ``cache``."""
     for g in pre:
-        for x in ("k", "v"):
+        for x in pre[g]:
             put(cache[g], x, pre[g][x])
 
 
@@ -306,7 +313,7 @@ def _port_serve(tc, toks, device="cpu"):
 def test_prefill_and_decode_equal_jax(arch, s):
     # mixtral: S a multiple of its window of 16, S below it, and S = 20,
     # where the reference's handoff leaves slots out of ring order (the
-    # port reproduces it)
+    # port reproduces it); deepseek's MLA cases are in test_torch_mla.py
     jc, tc = _cfgs(arch)
     toks = _prompt(tc.vocab, s)
     j_logits, j_pre, j_steps, j_cache = _jax_serve(jc, toks)
@@ -314,7 +321,8 @@ def test_prefill_and_decode_equal_jax(arch, s):
     assert t_logits.dtype == torch.float32
     _close(t_logits, j_logits)
     for g in j_pre:
-        for x in ("k", "v"):
+        assert set(t_pre[g]) == set(j_pre[g])
+        for x in j_pre[g]:
             assert tuple(t_pre[g][x].shape) == j_pre[g][x].shape
             _close(t_pre[g][x], j_pre[g][x])
             _close(t_cache[g][x], j_cache[g][x])
@@ -336,7 +344,8 @@ def _hold_bf16_logits(got: torch.Tensor, want, what):
                                   want.argmax(-1)[decided], err_msg=what)
 
 
-@pytest.mark.parametrize("arch,s", [(a, s) for a in ARCHS for s in (24, 37)])
+@pytest.mark.parametrize("arch,s", [(a, s) for a in GQA_ARCHS
+                                    for s in (24, 37)])
 def test_bf16_serving_equals_jax(arch, s):
     # each package serves its own prefill and cache; every decode step
     # gets the token the JAX package chose, so one near-tie cannot send

@@ -182,9 +182,17 @@ def test_repeat_kv_matches_jax():
 
 
 def test_chunked_attention_rejects_wide_value_heads():
-    q = torch.zeros((1, 4, 2, 8))
-    with pytest.raises(ValueError, match="value head dim"):
-        t_attn.chunked_attention(q, q, torch.zeros((1, 4, 2, 16)))
+    # no longer rejected (MLA, ROADMAP item 7b): a value head dim other
+    # than the query's takes the plain path, equal to the JAX package's
+    r = np.random.default_rng(1)
+    q = r.normal(size=(1, 4, 2, 8)).astype(np.float32)
+    v = r.normal(size=(1, 4, 2, 16)).astype(np.float32)
+    got = t_attn.chunked_attention(_t(q), _t(q), _t(v))
+    want = j_attn.chunked_attention(jnp.asarray(q), jnp.asarray(q),
+                                    jnp.asarray(v))
+    assert got.shape == (1, 4, 2, 16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
 
 
 # ------------------------------------------------------------ models --

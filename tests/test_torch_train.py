@@ -59,6 +59,7 @@ from repro_torch.kernels.impact_scan import kernel as is_kernel
 from repro_torch.kernels.topk import kernel as tk_kernel
 from repro_torch.launch import train as t_train
 from repro_torch.models import attention as t_attn
+from repro_torch.models import layers as t_layers
 from repro_torch.models.recsys import bst as t_bst
 from repro_torch.models.recsys import dien as t_dien
 from repro_torch.models.recsys import embedding as t_emb
@@ -175,7 +176,7 @@ def test_configs_copy_the_jax_numbers(monkeypatch):
     assert t_cfgbase.get("mind").model_config().dtype == "bfloat16" == \
         j_cfgbase.get("mind").model_config().dtype
     with pytest.raises(KeyError, match="not ported"):
-        t_cfgbase.get("deepseek-v3-671b")
+        t_cfgbase.get("graphsage-reddit")     # ROADMAP item 7e
 
 
 def test_mind_bfloat16_init_equals_jax():
@@ -444,13 +445,21 @@ def test_cli_prints_the_jax_lines_and_restarts_bit_exactly(
 
 def test_cli_defaults_to_cuda_and_leaves_the_lm_archs_to_item_7(
         monkeypatch, tmp_path):
-    with pytest.raises(SystemExit, match="LM training .* ROADMAP item 7c"):
-        t_train.main(["--arch", "qwen3-4b", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="LM training .* ROADMAP item 7c"):
-        t_train.main([])                    # the JAX CLI's default arch
+    # the LM archs train (ROADMAP item 7c, done): on the CPU when asked
+    lines = _cli(t_train.main, ["--arch", "qwen3-4b", "--device", "cpu",
+                                "--steps", "2", "--seq-len", "32",
+                                "--ckpt-dir", str(tmp_path / "lm")])
+    assert lines[0] == "arch=qwen3-4b steps=2 restarts=0 stragglers=0"
+    assert lines[1].startswith("loss: first=")
+    assert lines[-1].startswith("report: ")
     with pytest.raises(SystemExit, match="GNN .* ROADMAP item 7e"):
         t_train.main(["--arch", "graphsage-reddit", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # by default on the card: without one the LM archs raise
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_train.main(["--arch", "qwen3-4b", "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_train.main(["--ckpt-dir", str(tmp_path)])  # the default arch
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         t_train.main(["--arch", "bst", "--ckpt-dir", str(tmp_path)])
     for init in (t_wd.init_wide_deep, t_dien.init_dien, t_mind.init_mind):
@@ -546,7 +555,7 @@ def test_gather_rows_backward_is_the_plain_gradient_and_repeats(
     rows, flat = (w * 1.5).reshape(-1, 3), ids.reshape(-1)
     a, b = (t_emb.scatter_rows(rows, flat, 50) for _ in range(2))
     assert torch.equal(a, b)
-    monkeypatch.setattr(t_emb, "SCATTER_CHUNK", 4)   # runs in chunks
+    monkeypatch.setattr(t_layers, "SCATTER_CHUNK", 4)   # runs in chunks
     rows = rows.double()
     np.testing.assert_allclose(
         t_emb.scatter_rows(rows, flat, 50).numpy(),
