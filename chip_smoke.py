@@ -235,6 +235,35 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      equal and logits within 2e-5; last one step at batch 8 and one
      at decode_32k under the profiler: CUDA activities, device-busy ms
      and idle share.
+  15. (after phase 13, before phase 5) GraphSAGE on the card.
+     ``minibatch_lg`` at full width: the Reddit-scale graph from
+     ``make_graph`` (232 965 nodes, 114 615 892 edges, d 602, 41
+     classes, seed 0; host seconds), its CSR built on the card (card
+     seconds; ``indptr`` against the host's ``bincount`` and a few
+     nodes' neighbour lists against the edge list), then
+     ``GNN_STEPS`` AdamW steps (lr 1e-3, weight decay 0, as the
+     reference bundle's step) of 1024 seeds at fanout (15, 10):
+     sampler, feature gather and step ms (medians of steps 2 on),
+     seeds/s, model TFLOP/s by the bundle's ``model_flops``, gathered
+     GB/s, peak memory and one profiled iteration's idle share.  Every
+     loss finite; one step's loss and gradients on the card against the
+     same step on the CPU fed the same blocks (``GNN_LOSS_RTOL``,
+     ``GNN_GRAD_RTOL``), and bit-equal gradients from two runs of it.
+     ``full_graph_sm`` (2708 nodes, d 1433) and ``molecule`` (128 graphs
+     of 30 nodes) at their real sizes: ``GNN_SMALL_STEPS`` steps on the
+     card and on the CPU from the same parameters, losses within
+     ``GNN_SMALL_RTOL``.  Last the driver, ``python -m
+     repro_torch.examples.gnn_sage``, as a subprocess: exit 0 and its
+     six accuracy lines.
+  16. (after phase 15) the sync sanitizer on the card:
+     ``analysis.sanitizers.no_syncs`` armed around one ρ and one k
+     batch through the engine's stages (phase 2's servers, batch 2,
+     ranked lists equal to phase 2's), one continuous-scheduler chunk
+     step with its slots filled, and one tinyllama-1.1b ``decode_step``
+     at full width (phase 13's parameters and cache).  One ``phase 16:``
+     line per scope gives its syncs by frame, each ``vetted``,
+     ``allowed`` (a fault ROADMAP section 4 lists, ``SYNC_FAULTS``) or
+     ``unvetted``; an unvetted sync fails the phase.
   14. (last, after phase 5 and the profile, so that its numbers are
      its subprocesses' own) LM training on the card.
      ``python -m repro_torch.launch.train --arch tinyllama-1.1b --full
@@ -3419,7 +3448,7 @@ def lm_long_cache_step(params, cfg, dev):
     return row, step
 
 
-def lm_path(dev) -> dict:
+def lm_path(dev) -> tuple:
     """Phase 13: tinyllama-1.1b served at full width (``model_config()``,
     bf16, seeded random weights): LM_PREFILLS prefills of LM_BATCH
     prompts of LM_PROMPT tokens (one warm-up, then timed), the last
@@ -3431,7 +3460,9 @@ def lm_path(dev) -> dict:
     smoke configs card against CPU, and last the profiler over one step
     at each shape.
     Returns the launches of the counted window, with the flash launches
-    by route under ``flash_routes`` (all ``general_tc``)."""
+    by route under ``flash_routes`` (all ``general_tc``), and the one
+    decode step at batch 8 as a call (phase 16 arms the sync sanitizer
+    around it; it holds the parameters and cache until dropped)."""
     import torch
     from repro_torch.configs import base as cfgbase
     from repro_torch.configs import lm_common
@@ -3560,9 +3591,9 @@ def lm_path(dev) -> dict:
     log("phase 13: one decode step under the profiler " + json.dumps(
         {f"batch {b}": _step_profile(step, wall_ms),
          "decode_32k": _step_profile(long_step, long_row["step_ms"])}))
-    del params, cache, long_step
+    del long_step
     torch.cuda.empty_cache()
-    return dict(launches, flash_routes=flash_routes)
+    return dict(launches, flash_routes=flash_routes), step
 
 
 # ------------------------------------------------------------ phase 14 --
@@ -3749,6 +3780,324 @@ def lm_train_path(dev, train_row: dict) -> dict:
         flash_backward_ms_per_step=full["flash_backward_ms_per_step"])
 
 
+# ------------------------------------------------------------ phase 15 --
+
+#: phase 15: GraphSAGE's minibatch_lg at full width, GNN_STEPS steps
+GNN_SHAPE, GNN_STEPS, GNN_LR = "minibatch_lg", 20, 1e-3
+#: card against CPU, one step: float32 products and the fixed-order sums
+#: add in another order on the two devices (tests/test_torch_gnn.py's
+#: tolerances against the JAX package)
+GNN_LOSS_RTOL, GNN_GRAD_RTOL, GNN_GRAD_ATOL = 1e-5, 1e-4, 1e-6
+#: full_graph_sm and molecule: steps on the card and the CPU, and the
+#: losses' tolerance after them (one step's differences, through Adam)
+GNN_SMALL_STEPS, GNN_SMALL_RTOL = 5, 1e-4
+#: nodes whose neighbour lists are held against the edge list
+GNN_CSR_PROBES = 8
+
+
+def _gnn_grads(loss_fn, params):
+    """(loss, gradients in leaf order) of ``loss_fn(params)``."""
+    from repro_torch.launch.train import value_and_grad
+    from repro_torch.tree import leaves
+    loss, grads = value_and_grad(loss_fn, params)
+    return loss, leaves(grads)
+
+
+def _gnn_to(batch, dev):
+    return {"feats": [f.to(dev) for f in batch["feats"]],
+            "blocks": [{k: (v.to(dev) if hasattr(v, "to") else v)
+                        for k, v in b.items()} for b in batch["blocks"]],
+            "labels": batch["labels"].to(dev)}
+
+
+def _gnn_card_vs_cpu(params, cfg, batch, dev) -> dict:
+    """One step's loss and gradients on the card against the CPU fed the
+    same blocks, and two runs of it on the card bit-equal."""
+    import torch
+    from repro_torch.examples.gnn_sage import blocks_loss
+    from repro_torch.tree import map_tree
+    loss_c, g_c = _gnn_grads(lambda p: blocks_loss(p, cfg, batch), params)
+    loss_r, g_r = _gnn_grads(lambda p: blocks_loss(p, cfg, batch), params)
+    if not (torch.equal(loss_c, loss_r)
+            and all(torch.equal(a, b) for a, b in zip(g_c, g_r))):
+        raise AssertionError("phase 15: two runs of one step gave other "
+                             "gradient bits")
+    cpu = torch.device("cpu")
+    p_cpu = map_tree(lambda t: t.to(cpu), params)
+    b_cpu = _gnn_to(batch, cpu)
+    loss_h, g_h = _gnn_grads(lambda p: blocks_loss(p, cfg, b_cpu), p_cpu)
+    loss_err = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
+    grad_err = 0.0
+    for a, b in zip(g_c, g_h):
+        a = a.cpu()
+        if not torch.allclose(a, b, rtol=GNN_GRAD_RTOL, atol=GNN_GRAD_ATOL):
+            raise AssertionError(
+                f"phase 15: card gradients differ from the CPU's by "
+                f"{float((a - b).abs().max())} (rtol {GNN_GRAD_RTOL}, atol "
+                f"{GNN_GRAD_ATOL})")
+        grad_err = max(grad_err, float((a - b).abs().max()))
+    if loss_err > GNN_LOSS_RTOL:
+        raise AssertionError(f"phase 15: card loss {float(loss_c)} against "
+                             f"the CPU's {float(loss_h)}")
+    return dict(loss_rel_err=loss_err, grad_max_abs_err=grad_err,
+                repeat_bit_equal=True)
+
+
+def gnn_minibatch(dev) -> dict:
+    """``minibatch_lg`` at full width on the card (phase 15)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.data import graph_data
+    from repro_torch.examples.gnn_sage import blocks_loss
+    from repro_torch.launch.train import make_step
+    from repro_torch.models import gnn, sampler
+    from repro_torch.optim import adamw
+
+    mod = cfgbase.get("graphsage-reddit")
+    sh, cfg = mod.SHAPES[GNN_SHAPE], mod.model_config(GNN_SHAPE)
+    n, bn, fanout = sh["n_nodes"], sh["batch_nodes"], sh["fanout"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    g = graph_data.make_graph(graph_data.GraphConfig(
+        n_nodes=n, n_edges=sh["n_edges"], d_feat=sh["d_feat"],
+        n_classes=sh["n_classes"], seed=0))
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    indptr, indices = sampler.csr_from_edges(g["edges"], n, device=dev)
+    feats = torch.from_numpy(g["feats"]).to(dev)
+    labels = torch.from_numpy(g["labels"]).to(dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    csr_peak = torch.cuda.max_memory_allocated(dev)
+    # the CSR against the edge list: every node's offset, and a few
+    # nodes' neighbours in edge order (a stable sort's one answer)
+    src, dst = g.pop("edges")
+    want_ptr = np.concatenate([[0], np.cumsum(np.bincount(dst,
+                                                          minlength=n))])
+    if not np.array_equal(indptr.cpu().numpy(), want_ptr):
+        raise AssertionError("phase 15: the card's indptr differs from the "
+                             "host's bincount")
+    probe = np.random.default_rng(1).choice(n, GNN_CSR_PROBES, replace=False)
+    for v in probe:
+        got = indices[int(want_ptr[v]):int(want_ptr[v + 1])].cpu().numpy()
+        if not np.array_equal(got, src[dst == v]):
+            raise AssertionError(f"phase 15: node {v}'s neighbours differ")
+    del src, dst, g
+    log(f"phase 15: {GNN_SHAPE}: {n} nodes, {indices.numel()} edges, d "
+        f"{sh['d_feat']}; graph {host_s:.3f} s on the host, CSR and "
+        f"features {card_s:.3f} s to and on the card")
+
+    params = gnn.init_sage(cfg, seed=0, device=dev)
+    opt = adamw.init_opt_state(params)
+    step_fn = make_step(blocks_loss, cfg,
+                        adamw.AdamWConfig(lr=GNN_LR, weight_decay=0.0))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    rng = np.random.default_rng(0)
+
+    def sample():
+        seeds = torch.from_numpy(rng.choice(n, bn, replace=False)
+                                 .astype(np.int32)).to(dev)
+        fr, bl = sampler.sample_blocks(gen, indptr, indices, seeds, fanout)
+        return fr, bl, seeds
+
+    def gather(fr, bl, seeds):
+        return {"feats": [feats[f.long()] for f in fr], "blocks": bl,
+                "labels": labels[seeds.long()]}
+
+    losses, sample_ms, gather_ms, step_ms = [], [], [], []
+    for _ in range(GNN_STEPS):
+        drawn, ms = _fenced(sample)
+        sample_ms.append(ms)
+        batch, ms = _fenced(lambda: gather(*drawn))
+        gather_ms.append(ms)
+        (params, opt, m), ms = _fenced(
+            lambda: step_fn(params, opt, batch))
+        step_ms.append(ms)
+        losses.append(float(m["loss"]))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"phase 15: losses not finite: {losses}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    s_ms, g_ms, t_ms = (statistics.median(x[1:]) for x in
+                        (sample_ms, gather_ms, step_ms))
+    flops = mod.model_flops(GNN_SHAPE)
+    g_bytes = sum(f.numel() * f.element_size() for f in batch["feats"])
+    row = dict(
+        shape=GNN_SHAPE, batch=bn, fanout=list(fanout),
+        frontiers=[f.numel() for f in drawn[0]], steps=GNN_STEPS,
+        graph_host_s=host_s, graph_card_s=card_s, sampler_ms=s_ms,
+        gather_ms=g_ms, step_ms=t_ms, seeds_per_s=bn / ((s_ms + g_ms + t_ms)
+                                                        / 1e3),
+        model_flops=flops, model_tflops_per_s=flops / t_ms / 1e9,
+        gathered_bytes=g_bytes, gathered_gb_per_s=g_bytes / g_ms / 1e6,
+        peak_bytes=peak, csr_build_peak_bytes=csr_peak,
+        loss_first=losses[0], loss_last=losses[-1])
+    row.update(_gnn_card_vs_cpu(params, cfg, batch, dev))
+
+    def iteration():
+        nonlocal params, opt
+        b = gather(*sample())
+        params, opt, _ = step_fn(params, opt, b)
+
+    row["profile"] = _step_profile(iteration, s_ms + g_ms + t_ms)
+    log("phase 15: minibatch " + json.dumps(row))
+    del params, opt, batch, drawn, feats, labels, indptr, indices
+    torch.cuda.empty_cache()
+    return row
+
+
+def _gnn_small(dev, shape: str) -> dict:
+    """``full_graph_sm`` or ``molecule`` at its real size:
+    GNN_SMALL_STEPS steps on the card and on the CPU from the same
+    parameters."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.data import graph_data
+    from repro_torch.launch.train import make_step
+    from repro_torch.models import gnn
+    from repro_torch.optim import adamw
+
+    mod = cfgbase.get("graphsage-reddit")
+    sh, cfg = mod.SHAPES[shape], mod.model_config(shape)
+    if sh["kind"] == "train_full":
+        g = graph_data.make_graph(graph_data.GraphConfig(
+            n_nodes=sh["n_nodes"], n_edges=sh["n_edges"],
+            d_feat=sh["d_feat"], n_classes=sh["n_classes"], seed=0))
+        data = {k: torch.from_numpy(g[k]) for k in
+                ("feats", "edges", "labels", "train_mask")}
+
+        def loss_fn(p, c, d):
+            return gnn.sage_loss_full(p, c, d["feats"], d["edges"],
+                                      d["labels"], d["train_mask"])
+    else:
+        b = sh["batch"]
+        mb = graph_data.molecule_batch(b, sh["n_nodes"], sh["n_edges"],
+                                       sh["d_feat"], seed=0)
+        data = {k: torch.from_numpy(v) for k, v in mb.items()}
+
+        def loss_fn(p, c, d):
+            return gnn.sage_loss_molecule(p, c, d["feats"], d["edges"],
+                                          d["graph_id"], d["y"], b)
+    def run(d):
+        params = gnn.init_sage(cfg, seed=0, device=d)
+        opt = adamw.init_opt_state(params)
+        step_fn = make_step(loss_fn, cfg,
+                            adamw.AdamWConfig(lr=GNN_LR, weight_decay=0.0))
+        batch = {k: v.to(d) for k, v in data.items()}
+        losses, ms = [], []
+        for _ in range(GNN_SMALL_STEPS):
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, batch)
+            losses.append(float(m["loss"]))     # the step's one read-out
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return losses, ms
+
+    (lc, ms_c), (lh, _) = run(dev), run(torch.device("cpu"))
+    err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    if not all(np.isfinite(lc)) or err > GNN_SMALL_RTOL:
+        raise AssertionError(f"phase 15: {shape} card losses {lc} against "
+                             f"the CPU's {lh}")
+    return dict(shape=shape, steps=GNN_SMALL_STEPS, losses=lc,
+                loss_rel_err_vs_cpu=err, step_ms_2_on=ms_c[1:])
+
+
+def gnn_driver() -> None:
+    """The reference example's driver on the card, as a subprocess."""
+    cmd = [sys.executable, "-m", "repro_torch.examples.gnn_sage"]
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                          timeout=600, env=env)
+    lines = proc.stdout.splitlines()
+    acc = [ln for ln in lines if re.fullmatch(
+        r"step +\d+  sampled-loss \d+\.\d{3}  full-graph acc \d\.\d{3}", ln)]
+    if proc.returncode != 0 or len(acc) != 6 or not lines[-1].startswith(
+            "done"):
+        raise AssertionError(f"phase 15: gnn_sage exit {proc.returncode}: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    for ln in lines:
+        log("phase 15: gnn_sage | " + ln)
+    log(f"phase 15: python -m repro_torch.examples.gnn_sage exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def gnn_path(dev) -> dict:
+    """Phase 15: GraphSAGE on the card."""
+    row = gnn_minibatch(dev)
+    for shape in ("full_graph_sm", "molecule"):
+        log("phase 15: card against CPU " + json.dumps(_gnn_small(dev, shape)))
+    gnn_driver()
+    return row
+
+
+# ------------------------------------------------------------ phase 16 --
+
+#: syncs in phase 16's scopes that ROADMAP section 4 lists as open
+#: faults: (file in the package, scope)
+SYNC_FAULTS: tuple[tuple[str, str], ...] = ()
+
+
+def _no_syncs_scope(name: str, fn):
+    """``fn()`` under ``no_syncs``; logs the scope's syncs by frame."""
+    import torch
+    from repro_torch.analysis.sanitizers import no_syncs
+    torch.cuda.synchronize()
+    with no_syncs(allowed=SYNC_FAULTS) as rec:
+        out = fn()
+    torch.cuda.synchronize()
+    log(f"phase 16: {name}: " + json.dumps(dict(
+        syncs=len(rec.syncs), by_frame=rec.by_frame())))
+    return out
+
+
+def sync_path(servers, batches, served, decode_step) -> None:
+    """Phase 16: the sync sanitizer around the engine's stages (one ρ and
+    one k batch), one continuous chunk step and one full-width decode
+    step."""
+    import numpy as np
+    import torch
+    from repro_torch.obs import Observability
+    from repro_torch.serving.admission import AdmissionConfig
+    from repro_torch.serving.service import (ContinuousBackend,
+                                             RetrievalService, WarmupPolicy)
+
+    qt = batches[1]
+    for knob in ("rho", "k"):
+        server = servers[knob][0]
+        widths = server.params_of(server.predict_classes(qt))
+        _, depths = server.predict_depths(qt)
+        ranked, _ = _no_syncs_scope(
+            f"engine {knob} batch", lambda: server.engine.serve(
+                qt, widths, depth_vec=depths))
+        if not np.array_equal(ranked, served[knob][1]["ranked"]):
+            raise AssertionError(f"phase 16: {knob} ranked differs from "
+                                 "phase 2's")
+
+    server = servers["rho"][0]
+    backend = ContinuousBackend(server, query_len=qt.shape[1], slots=SLOTS,
+                                grain=GRAIN, chunk_p=CHUNK_P)
+    svc = RetrievalService(
+        backend, AdmissionConfig(max_batch=BATCH, pad_multiple=GRAIN),
+        WarmupPolicy(census_path=None), obs=Observability.create())
+    svc.warmup_now([BATCH])
+    futs = svc.submit_many(list(qt), deadline_ms=1e6)
+    sched = backend.scheduler
+    while not sched.table.active():
+        sched.tick()
+    _no_syncs_scope(f"continuous chunk step ({len(sched.table.active())} "
+                    "active slots)", lambda: sched._chunk_step(
+                        time.perf_counter()))
+    while not all(f.done() for f in futs):
+        sched.tick()
+    svc.stop()
+    _no_syncs_scope("tinyllama-1.1b decode_step", decode_step)
+    torch.cuda.empty_cache()
+
+
 def _busy_us(events) -> float:
     """Length of the union of the events' [start, end] intervals (us)."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -3897,8 +4246,16 @@ def main() -> int:
     fa_row["train"] = train_path(dev, fcfg.bst)
     log(f"phase 12: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    lm_launches = lm_path(dev)
+    lm_launches, decode_step = lm_path(dev)
     log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gnn_path(dev)
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sync_path(servers, batches, served, decode_step)
+    del decode_step
+    torch.cuda.empty_cache()
+    log(f"phase 16: {time.perf_counter() - t0:.1f} s")
     # the kernel at tinyllama's prefill shape, with the launches of phase
     # 13's counted window
     fa_row["lm"] = dict({k: lm_rows[0][k] for k in (

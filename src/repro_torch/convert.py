@@ -15,7 +15,7 @@ from repro_torch.tree import leaves, map_tree
 __all__ = ["index_from_numpy", "cascade_from_numpy", "mlp_from_numpy",
            "tower_from_numpy", "bst_from_numpy", "wide_deep_from_numpy",
            "dien_from_numpy", "mind_from_numpy", "adamw_state_from_numpy",
-           "lm_from_numpy"]
+           "lm_from_numpy", "sage_from_numpy"]
 
 _FOREST_TABLES = {"feature": np.int32, "thresh": np.float32,
                   "left": np.int32, "right": np.int32, "leaf": np.float32}
@@ -188,6 +188,19 @@ def lm_from_numpy(params: dict, *, device=None) -> dict:
         return torch.from_numpy(a).to(dev)
 
     return map_tree(leaf, params)
+
+
+def sage_from_numpy(params: dict, *, device=None) -> dict:
+    """The port's GraphSAGE parameters (``models.gnn``) from the JAX
+    package's ``init_sage`` tree: float32 leaves, bit for bit, each a
+    copy (AdamW updates the port's parameters in place, and on the CPU
+    a tensor from ``torch.from_numpy`` shares the caller's array)."""
+    _check_keys(params, ("layers", "head", "graph_head"), "GraphSAGE params")
+    for lp in params["layers"]:
+        _check_keys(lp, ("w_self", "w_neigh", "b"), "a GraphSAGE layer")
+    dev = resolve_device(device)
+    return map_tree(lambda a: torch.from_numpy(np.array(a, np.float32))
+                    .to(dev), params)
 
 
 def _as_f32(tree):

@@ -1,3 +1,3 @@
 """Synthetic data of the port (numpy copies of the JAX package's
-generators: the recsys logs and the LM token stream; the graph pipeline
-waits for ROADMAP item 7e)."""
+generators: the recsys logs, the LM token stream and the GraphSAGE
+graphs)."""

@@ -38,8 +38,10 @@ its recompute) with their routes.  An LM run also reports tokens a
 step, and tokens/s and model TFLOP/s at the median step time of steps 2
 on; on a card, the device ms of each step's flash backwards
 (``ops.FlashAttention.backward`` between two CUDA events a call) and
-their median over steps 2 on.  The GNN (graphsage-reddit) exits naming ROADMAP item 7e, as the
-JAX CLI exits for it; ``--multi-pod`` is taken and unused.
+their median over steps 2 on.  The GNN (graphsage-reddit) is not
+trained here, as the JAX CLI does not train it: the CLI exits naming its
+driver, ``python -m repro_torch.examples.gnn_sage``.  ``--multi-pod`` is
+taken and unused.
 """
 
 from __future__ import annotations
@@ -66,11 +68,12 @@ from repro_torch.models import transformer as T
 from repro_torch.optim import adamw, schedules
 from repro_torch.tree import leaves, unflatten
 
-__all__ = ["FAMILIES", "NOT_PORTED", "make_step", "recsys_setup",
+__all__ = ["FAMILIES", "GNN_DRIVER", "value_and_grad", "make_step",
+           "recsys_setup",
            "lm_setup", "main"]
 
-#: arch -> why the CLI does not train it
-NOT_PORTED = {"graphsage-reddit": "the GNN waits for ROADMAP item 7e"}
+#: the GNN's training driver, which the CLI names for it
+GNN_DRIVER = "python -m repro_torch.examples.gnn_sage"
 
 #: arch -> (init, loss, batch generator)
 FAMILIES = {
@@ -82,25 +85,35 @@ FAMILIES = {
 }
 
 
+def value_and_grad(loss_fn, params):
+    """``jax.value_and_grad(loss_fn)(params)`` by autograd: the detached
+    loss and a tree of gradients shaped as ``params``.  A leaf the loss
+    does not use (the GNN's ``graph_head`` in a node loss) gets zeros,
+    as JAX's gradient gives it."""
+    flat = leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    try:
+        loss = loss_fn(params)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True,
+                                    materialize_grads=True)
+    finally:
+        for p in flat:
+            p.requires_grad_(False)
+    return loss.detach(), unflatten(params, list(grads))
+
+
 def make_step(loss_fn, cfg, adam: adamw.AdamWConfig):
     """The reference's ``step_fn``: ``(params, opt, batch, lr_scale=1)
     -> (params, opt, metrics)``, the loss's value and gradients by
     autograd, then ``adamw_update`` (which updates ``params`` and
     ``opt`` in place)."""
     def step(params, opt, batch, lr_scale=1.0):
-        flat = leaves(params)
-        for p in flat:
-            p.requires_grad_(True)
-        try:
-            loss = loss_fn(params, cfg, batch)
-            grads = torch.autograd.grad(loss, flat)
-        finally:
-            for p in flat:
-                p.requires_grad_(False)
-        grads = unflatten(params, list(grads))
+        loss, grads = value_and_grad(lambda p: loss_fn(p, cfg, batch),
+                                     params)
         params, opt, m = adamw.adamw_update(adam, params, grads, opt,
                                             lr_scale)
-        return params, opt, {"loss": loss.detach(), **m}
+        return params, opt, {"loss": loss, **m}
 
     return step
 
@@ -190,8 +203,8 @@ def main(argv=None) -> None:
                     help="torch device; 'cuda' raises without a card")
     args = ap.parse_args(argv)
 
-    if args.arch in NOT_PORTED:
-        raise SystemExit(f"{args.arch}: {NOT_PORTED[args.arch]}")
+    if args.arch in cfgbase.GNN_ARCHS:
+        raise SystemExit(f"use {GNN_DRIVER} for {args.arch}")
     lm = args.arch in cfgbase.LM_ARCHS
     if not lm and args.arch not in FAMILIES:
         raise SystemExit(f"unknown arch {args.arch!r}; the port trains "

@@ -264,7 +264,7 @@ class ServingEngine:
 
     def _to_device(self, rows: np.ndarray, fill: int) -> torch.Tensor:
         padded = bucketing.pad_rows(rows, self.batch_multiple, fill=fill)
-        return torch.from_numpy(padded.astype(np.int32)).to(self.device)
+        return _h2d(padded.astype(np.int32), self.device)
 
     def _fence(self) -> None:
         fence(self.device)

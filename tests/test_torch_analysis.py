@@ -1,0 +1,294 @@
+"""The port's invariant analyzer (``src/repro_torch/analysis``): each pass
+flags the calls it should on seeded sources and spares exempt scopes,
+the committed port baseline keeps ``src/repro_torch`` green with a note
+on every entry, the baseline is a ratchet, the JAX package's analyzer
+still finds nothing in the port, and the runtime sanitizers behave on
+the CPU (``no_syncs`` needs a card: its card cases are in
+``tests/test_torch_gpu.py``)."""
+
+import json
+import os
+import textwrap
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from repro.analysis import analyze_paths as j_analyze_paths
+from repro.analysis.__main__ import main as j_main
+from repro_torch import analysis
+from repro_torch.analysis import findings as F
+from repro_torch.analysis import sanitizers as S
+from repro_torch.analysis.__main__ import main as analysis_main
+from repro_torch.serving.admission import AdmissionConfig, AdmissionQueue
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ENGINE = "src/repro_torch/serving/engine.py"
+
+
+def _hostsync(src, path=ENGINE):
+    return [(f.invariant, f.scope, f.code) for f in analysis.analyze_source(
+        textwrap.dedent(src), path, passes={"hostsync"})]
+
+
+# ------------------------------------------------------------ hostsync --
+
+FLAGGED = [
+    ("torch.cuda.synchronize()", "hostsync/blocking-sync"),
+    ("stream.synchronize()", "hostsync/blocking-sync"),
+    ("fence(self.device)", "hostsync/blocking-sync"),
+    ("x.item()", "hostsync/device-to-host"),
+    ("x.tolist()", "hostsync/device-to-host"),
+    ("x.cpu()", "hostsync/device-to-host"),
+    ("x.numpy()", "hostsync/device-to-host"),
+    ("torch.tensor(theta, device=x.device)", "hostsync/host-to-device"),
+    ("torch.as_tensor(v, device='cuda')", "hostsync/host-to-device"),
+    ("torch.from_numpy(a).to(self.device)", "hostsync/host-to-device"),
+    ("torch.from_numpy(a).cuda()", "hostsync/host-to-device"),
+    ("torch.from_numpy(a).pin_memory().to(dev)", "hostsync/host-to-device"),
+    ("torch.tensor([1, 2]).long().to(dev, torch.int32)",
+     "hostsync/host-to-device"),
+]
+
+
+@pytest.mark.parametrize("call,invariant", FLAGGED)
+def test_hostsync_flags_each_sync_in_a_hot_scope(call, invariant):
+    src = f"""
+        class ServingEngine:
+            def serve(self, x, a, v, theta, stream, dev):
+                return {call}
+    """
+    assert _hostsync(src) == [(invariant, "ServingEngine.serve", call)]
+
+
+SPARED = [
+    "torch.from_numpy(a).pin_memory().to(dev, non_blocking=True)",
+    "torch.from_numpy(a).to(torch.float32)",
+    "torch.tensor(v, dtype=torch.int32)",
+    "torch.as_tensor(v, device='cpu')",
+    "torch.full((4,), 1.0, device=dev)",
+    "x.to(dev)",
+    "self.item",
+]
+
+
+@pytest.mark.parametrize("expr", SPARED)
+def test_hostsync_spares_calls_that_do_not_wait(expr):
+    src = f"""
+        class ServingEngine:
+            def serve(self, x, a, v, dev):
+                return {expr}
+    """
+    assert _hostsync(src) == []
+
+
+def test_hostsync_tracks_host_names_and_folds_cpu_numpy():
+    src = """
+        def _stage(a, dev, ranked):
+            t = torch.from_numpy(a)
+            u = t.long()
+            ok = t.pin_memory().to(dev, non_blocking=True)
+            return u.to(dev), ranked.cpu().numpy()
+    """
+    assert _hostsync(src) == [
+        ("hostsync/host-to-device", "_stage", "u.to(dev)"),
+        ("hostsync/device-to-host", "_stage", "ranked.cpu().numpy()")]
+
+
+@pytest.mark.parametrize("path,scope,hot", [
+    (ENGINE, "__init__", False),
+    (ENGINE, "warmup", False),
+    (ENGINE, "_timed", True),
+    ("src/repro_torch/serving/service.py", "_run_batch", True),
+    ("src/repro_torch/serving/service.py", "submit", False),
+    ("src/repro_torch/serving/sched/scheduler.py", "_chunk_step", True),
+    ("src/repro_torch/serving/sched/scheduler.py", "_refill_step", False),
+    ("src/repro_torch/kernels/topk/ops.py", "anything", True),
+    ("src/repro_torch/obs/trace.py", "record", True),
+    ("src/repro_torch/obs/export.py", "write", False),
+    ("src/repro_torch/models/transformer.py", "decode_step", True),
+    ("src/repro_torch/models/transformer.py", "prefill", False),
+    ("src/repro_torch/models/attention.py", "decode_attention", True),
+    ("src/repro_torch/models/layers.py", "rope", True),
+    ("src/repro_torch/models/layers.py", "chunked_softmax_xent", False),
+    ("src/repro_torch/core/cascade.py", "predict", False),
+])
+def test_hostsync_hot_scopes_and_exemptions(path, scope, hot):
+    src = f"""
+        def {scope}(x):
+            return x.item()
+    """
+    assert bool(_hostsync(src, path)) is hot
+
+
+def test_hostsync_reports_the_last_line_of_a_multiline_call():
+    tree = __import__("ast").parse(textwrap.dedent("""
+        def decode_step(x):
+            return (x
+                    .sum()
+                    .item())
+    """))
+    ((finding, end),) = analysis.hostsync.scan(
+        tree, "src/repro_torch/models/transformer.py")
+    assert (finding.line, end) == (3, 5)
+
+
+# --------------------------------------------------------------- locks --
+
+SEED_LOCKS = textwrap.dedent("""
+    import threading
+
+    class MetricsRegistry:
+        def __init__(self):
+            self._lock = threading.Lock()
+            self._metrics = {}
+
+        def get(self, name):
+            return self._metrics[name]
+
+        def put(self, name, m):
+            with self._lock:
+                self._metrics[name] = m
+
+        def counters(self):
+            return dict(self._metrics)
+""")
+
+
+def test_locks_pass_flags_unguarded_reads_and_spares_exemptions():
+    found = analysis.analyze_source(SEED_LOCKS, "m.py", passes={"locks"})
+    assert [(f.invariant, f.scope, f.code) for f in found] == [
+        ("locks/unguarded", "MetricsRegistry.get", "self._metrics (read)")]
+
+
+def test_locks_registry_is_the_references():
+    from repro.analysis.locks import LOCK_REGISTRY as J_REGISTRY
+    assert S.LOCK_REGISTRY == tuple(
+        S.LOCK_REGISTRY[0].__class__(**vars(s)) for s in J_REGISTRY)
+
+
+# ------------------------------------------------------------ baseline --
+
+def test_committed_port_baseline_keeps_the_port_green(monkeypatch, capsys):
+    monkeypatch.chdir(REPO_ROOT)
+    assert analysis_main(["src/repro_torch", "--strict-stale"]) == 0
+    assert "0 new" in capsys.readouterr().out
+    with open(analysis.DEFAULT_BASELINE) as f:
+        entries = json.load(f)["entries"]
+    assert entries and all(e.get("note") for e in entries)
+    # the port's own analyzer files are not hot and find nothing
+    assert analysis.analyze_paths(["src/repro_torch/analysis"]) == []
+
+
+def test_baseline_ratchet_passes_old_and_fails_new(tmp_path, capsys):
+    p = tmp_path / "serving" / "engine.py"
+    p.parent.mkdir()
+    p.write_text("def serve(x):\n    return x.cpu().numpy()\n")
+    bl = tmp_path / "baseline.json"
+    assert analysis_main([str(p), "--baseline", str(bl),
+                          "--write-baseline"]) == 0
+    assert analysis_main([str(p), "--baseline", str(bl)]) == 0
+    assert analysis_main([str(p), "--no-baseline"]) == 1
+    # one more of the same expression in the same scope is new
+    p.write_text("def serve(x):\n    x.cpu().numpy()\n"
+                 "    return x.cpu().numpy()\n")
+    assert analysis_main([str(p), "--baseline", str(bl)]) == 1
+    # a note survives a rewrite; a vetted finding that went is stale
+    data = json.loads(bl.read_text())
+    data["entries"][0]["note"] = "vetted"
+    bl.write_text(json.dumps(data))
+    p.write_text("def serve(x):\n    return x\n")
+    capsys.readouterr()
+    assert analysis_main([str(p), "--baseline", str(bl)]) == 0
+    assert "1 stale" in capsys.readouterr().out
+    assert analysis_main([str(p), "--baseline", str(bl),
+                          "--strict-stale"]) == 1
+    allowed, notes = F.load_baseline(bl)
+    assert list(notes.values()) == ["vetted"] and sum(allowed.values()) == 1
+
+
+def test_the_jax_analyzer_finds_nothing_new_in_the_port(monkeypatch):
+    monkeypatch.chdir(REPO_ROOT)
+    assert j_analyze_paths(["src/repro_torch"]) == []
+    assert j_main(["src/"]) == 0
+    with open("analysis_baseline.json") as f:
+        entries = json.load(f)["entries"]
+    assert not any("repro_torch" in e["file"] for e in entries)
+
+
+def test_analyzer_modules_import_neither_torch_nor_port_code():
+    import ast
+    pkg = os.path.join(REPO_ROOT, "src", "repro_torch", "analysis")
+    for name in ("__init__.py", "__main__.py", "astutil.py", "findings.py",
+                 "hostsync.py", "locks.py"):
+        tree = ast.parse(open(os.path.join(pkg, name)).read())
+        roots = {a.name.split(".")[0] for n in ast.walk(tree)
+                 if isinstance(n, ast.Import) for a in n.names}
+        roots |= {n.module for n in ast.walk(tree)
+                  if isinstance(n, ast.ImportFrom) and n.module}
+        assert "torch" not in roots, name
+        assert all(r.startswith("repro_torch.analysis") for r in roots
+                   if r.startswith("repro_torch")), name
+
+
+# ---------------------------------------------------------- sanitizers --
+
+def test_no_syncs_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        with S.no_syncs():
+            pass
+
+
+def test_vetted_lines_cover_the_baselined_syncs():
+    lines = S.vetted_lines()
+    assert ("serving/engine.py", "ServingEngine._fence") in lines
+    (lo, hi), = lines[("serving/engine.py", "ServingEngine.serve")]
+    src = open(os.path.join(S.PORT_ROOT, "serving/engine.py")).read()
+    assert ".cpu()" in "\n".join(src.splitlines()[lo - 1:hi])
+    assert ("device.py", "fence") in S.VETTED_HELPERS
+
+
+class _TwoLocks:
+    def __init__(self):
+        self._lock = threading.Lock()
+
+
+def _run(fn):
+    t = threading.Thread(target=fn)
+    t.start()
+    t.join(timeout=10.0)
+    assert not t.is_alive()
+
+
+def test_lock_order_detects_an_inversion_and_passes_nesting():
+    a, b = _TwoLocks(), _TwoLocks()
+
+    def nest(x, y):
+        def f():
+            with x._lock:
+                with y._lock:
+                    pass
+        return f
+
+    with S.lock_order(extra=[(a, "_lock"), (b, "_lock")]) as graph:
+        _run(nest(a, b))
+        _run(nest(a, b))
+    assert graph.cycles() == []
+    with pytest.raises(S.LockOrderError, match="deadlock potential"):
+        with S.lock_order(extra=[(a, "_lock"), (b, "_lock")]):
+            _run(nest(a, b))
+            _run(nest(b, a))
+
+
+def test_lock_order_uses_the_registry_on_the_ports_queue():
+    q = AdmissionQueue(AdmissionConfig(max_batch=4, pad_multiple=4))
+    with S.lock_order(q) as graph:
+        q.submit(np.zeros(3), now=0.0)
+        q.flush(now=1.0)
+        assert q.poll(now=1.0) is not None
+    assert graph.cycles() == []
+    with pytest.raises(TypeError, match="LOCK_REGISTRY"):
+        with S.lock_order(object()):
+            pass

@@ -50,6 +50,14 @@ Tolerances, with their reasons:
     one on the card within 2e-5 (float32) or 2^-7 (bfloat16: float32
     sums in another order, rounded to bfloat16 at the end) of each
     gradient's largest magnitude.
+  * GraphSAGE at smoke size (float32): a blocks step's loss within 1e-5
+    relative and each gradient within rtol 1e-4 / atol 1e-6, card
+    against CPU fed the same blocks (tests/test_torch_gnn.py's
+    tolerances against the JAX package: products and sums in another
+    order); two runs of the step on the card bit-equal (fixed-order
+    segment sums, integer-valued degree counts).
+  * the sync sanitizer: ``no_syncs`` fails an ``.item()`` of a CUDA
+    tensor and passes an elementwise op.
 """
 
 import dataclasses
@@ -1064,3 +1072,86 @@ def test_lm_train_loss_on_card_matches_cpu(cuda_device, arch):
     assert abs(lc - lp) <= 2e-5 * abs(lp)
     for a, b in zip(gc, gp):
         assert float((a - b).abs().max()) <= 2e-5 * float(b.abs().max())
+
+
+def _sage_grads(params, cfg, batch):
+    from repro_torch.examples.gnn_sage import blocks_loss
+    from repro_torch.launch.train import value_and_grad
+    from repro_torch.tree import leaves
+    loss, grads = value_and_grad(lambda p: blocks_loss(p, cfg, batch),
+                                 params)
+    return loss, leaves(grads)
+
+
+@pytest.mark.gpu
+def test_sage_blocks_step_on_card_matches_cpu_and_repeats(cuda_device):
+    """GraphSAGE's smoke config: blocks sampled on the card, one step's
+    loss and gradients against the CPU fed the same blocks, and two runs
+    on the card bit-equal."""
+    from repro_torch.configs import graphsage_reddit
+    from repro_torch.data import graph_data
+    from repro_torch.models import gnn, sampler
+
+    cfg = graphsage_reddit.smoke_config()
+    g = graph_data.make_graph(graph_data.GraphConfig(
+        n_nodes=500, n_edges=4000, d_feat=cfg.d_in,
+        n_classes=cfg.n_classes, seed=0))
+    indptr, indices = sampler.csr_from_edges(g["edges"], 500,
+                                             device=cuda_device)
+    want_ptr, want_idx = sampler.csr_from_edges(g["edges"], 500)
+    assert np.array_equal(indptr.cpu().numpy(), want_ptr)
+    assert np.array_equal(indices.cpu().numpy(), want_idx)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    seeds = torch.arange(0, 500, 7, dtype=torch.int32, device=cuda_device)
+    fr, bl = sampler.sample_blocks(gen, indptr, indices, seeds, (6, 4))
+    feats = torch.from_numpy(g["feats"]).to(cuda_device)
+    labels = torch.from_numpy(g["labels"]).to(cuda_device)
+    batch = {"feats": [feats[f.long()] for f in fr], "blocks": bl,
+             "labels": labels[seeds.long()]}
+    cpu = torch.device("cpu")
+    batch_cpu = {"feats": [f.cpu() for f in batch["feats"]],
+                 "blocks": [{k: (v.cpu() if torch.is_tensor(v) else v)
+                             for k, v in b.items()} for b in bl],
+                 "labels": batch["labels"].cpu()}
+    params = gnn.init_sage(cfg, seed=0, device=cuda_device)
+    loss_a, g_a = _sage_grads(params, cfg, batch)
+    loss_b, g_b = _sage_grads(params, cfg, batch)
+    assert torch.equal(loss_a, loss_b)
+    assert all(torch.equal(a, b) for a, b in zip(g_a, g_b))
+    loss_h, g_h = _sage_grads(gnn.init_sage(cfg, seed=0, device=cpu), cfg,
+                              batch_cpu)
+    assert abs(float(loss_a) - float(loss_h)) <= 1e-5 * abs(float(loss_h))
+    for a, b in zip(g_a, g_h):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_no_syncs_catches_an_item_and_passes_an_elementwise_op(cuda_device):
+    from repro_torch.analysis.sanitizers import SyncError, no_syncs
+
+    x = torch.arange(1024, dtype=torch.float32, device=cuda_device)
+    with no_syncs() as rec:
+        y = x * 2 + 1
+    assert rec.syncs == [] and y.shape == x.shape
+    with pytest.raises(SyncError, match="unvetted"):
+        with no_syncs() as rec:
+            x.sum().item()
+    (sync,) = rec.syncs
+    assert sync.status == "unvetted" and sync.file == "<outside the port>"
+    # a sync inside the port is put at its innermost port frame: the
+    # data-dependent shapes of ``scatter_rows`` fail unless allowed
+    ids = torch.tensor([3, 1, 3, 0], device=cuda_device)
+    rows = torch.ones(4, 2, device=cuda_device)
+    with pytest.raises(SyncError, match="models/layers.py:.* scatter_rows"):
+        with no_syncs():
+            layers.scatter_rows(rows, ids, 5)
+    with no_syncs(allowed={("models/layers.py", "scatter_rows")}) as rec:
+        out = layers.scatter_rows(rows, ids, 5)
+    assert rec.syncs and {s.status for s in rec.syncs} == {"allowed"}
+    assert out[3].tolist() == [2.0, 2.0]
+    # the timing fence is vetted wherever it is called from
+    from repro_torch.device import fence
+    with no_syncs() as rec:
+        fence(cuda_device)
+    assert [s.status for s in rec.syncs] == ["vetted"]
+    assert rec.syncs[0].frame.startswith("device.py:")

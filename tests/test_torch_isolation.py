@@ -50,7 +50,13 @@ def test_port_imports_neither_jax_nor_repro():
             "launch/mesh.py", "configs/paper_retrieval.py",
             "configs/deepseek_v3_671b.py", "examples/serve_retrieval.py",
             "examples/recsys_funnel.py", "examples/train_lm.py",
-            "launch/train.py", "models/transformer.py"} <= scanned
+            "launch/train.py", "models/transformer.py",
+            "data/graph_data.py", "models/sampler.py", "models/gnn.py",
+            "configs/graphsage_reddit.py", "examples/gnn_sage.py",
+            "analysis/__init__.py", "analysis/__main__.py",
+            "analysis/astutil.py", "analysis/findings.py",
+            "analysis/hostsync.py", "analysis/locks.py",
+            "analysis/sanitizers.py"} <= scanned
     bad = {(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN}
     assert not bad, sorted(bad)
@@ -99,3 +105,26 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         transformer.init_params(mla)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         transformer.init_cache(mla, 2, 8)
+
+
+def test_gnn_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from repro_torch import convert
+    from repro_torch.configs import graphsage_reddit
+    from repro_torch.examples import gnn_sage
+    from repro_torch.models import gnn
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = graphsage_reddit.smoke_config()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        gnn_sage.main([])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        gnn.init_sage(cfg)
+    numpy_params = gnn.init_sage(cfg, abstract=True)
+    numpy_params["layers"] = [
+        {k: np.zeros(v.shape, np.float32) for k, v in lp.items()}
+        for lp in numpy_params["layers"]]
+    for k in ("head", "graph_head"):
+        numpy_params[k] = np.zeros(numpy_params[k].shape, np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert.sage_from_numpy(numpy_params)
+    assert gnn.init_sage(cfg, device="cpu")["head"].device.type == "cpu"

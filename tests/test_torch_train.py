@@ -175,8 +175,17 @@ def test_configs_copy_the_jax_numbers(monkeypatch):
     monkeypatch.setenv("REPRO_RETRIEVAL_BF16", "1")
     assert t_cfgbase.get("mind").model_config().dtype == "bfloat16" == \
         j_cfgbase.get("mind").model_config().dtype
+    # the GNN (ROADMAP item 7e, done)
+    j_mod, t_mod = (m.get("graphsage-reddit") for m in (j_cfgbase, t_cfgbase))
+    assert t_mod.ARCH == j_mod.ARCH and t_mod.SHAPES == j_mod.SHAPES
+    assert t_mod.SKIPS == j_mod.SKIPS
+    for shape in j_mod.SHAPES:
+        assert dataclasses.asdict(t_mod.model_config(shape)) == \
+            dataclasses.asdict(j_mod.model_config(shape)), shape
+    assert dataclasses.asdict(t_mod.smoke_config()) == \
+        dataclasses.asdict(j_mod.smoke_config())
     with pytest.raises(KeyError, match="not ported"):
-        t_cfgbase.get("graphsage-reddit")     # ROADMAP item 7e
+        t_cfgbase.get("no-such-arch")
 
 
 def test_mind_bfloat16_init_equals_jax():
@@ -452,7 +461,9 @@ def test_cli_defaults_to_cuda_and_leaves_the_lm_archs_to_item_7(
     assert lines[0] == "arch=qwen3-4b steps=2 restarts=0 stragglers=0"
     assert lines[1].startswith("loss: first=")
     assert lines[-1].startswith("report: ")
-    with pytest.raises(SystemExit, match="GNN .* ROADMAP item 7e"):
+    # the GNN trains through its driver, as the JAX CLI says
+    with pytest.raises(SystemExit, match="use python -m "
+                       "repro_torch.examples.gnn_sage for graphsage-reddit"):
         t_train.main(["--arch", "graphsage-reddit", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     # by default on the card: without one the LM archs raise
