@@ -285,6 +285,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      example's command: 200 steps, preempted at 90) must exit 0 after
      one restart.  Last a profiler canary: three known launches must
      show three CUDA activities (``profiler_canary``).
+  17. the distribution layer and the dry run (ROADMAP item 7d).
+     (a) right after phase 1's timings, ``python -m
+     repro_torch.launch.dryrun --all-cells --mesh both --jobs 4``
+     starts in a session of its own on the host's CPU (no card
+     visible; its log in ``build/phase17_dryrun/log.txt``), and is
+     collected after phase 14: 80 records, 72 ``ok`` and 8 ``skipped``,
+     none ``error``, no kernel launched in any trace; one ``phase 17:
+     dryrun`` line a cell (peak GiB, fits in 80 GiB, dominant roofline
+     term, collective GB a device, ops run replicated, trace s).  After
+     phase 16, on the card: (b) the dry run's peak estimate over fake
+     CUDA tensors against ``torch.cuda.max_memory_allocated()`` (peak
+     stats reset before the step, both above what was allocated before
+     its arguments) for tinyllama-1.1b's training step at 8 x 4096, its
+     decode step at batch 64 on decode_32k's cache, and BST's training
+     step at batch 65 536, within ``MEM_RTOL``; (c) ``moe_ffn_shard_map``
+     on mixtral's smoke MoE over a 2 x 2 mesh laid on the card against
+     the local path, forward and gradients within 1e-5; (d)
+     ``compressed_allreduce`` over 4 positions on the card, bit-equal
+     to the CPU; (e) a BST checkpoint restored onto a 2 x 2 mesh on the
+     card by ``restore_elastic``, the shards reassembled equal to the
+     saved leaves bit for bit; (f) ogb_products' one-card estimate, and
+     one full-batch step only if it is under 90% of the card's memory.
   9. one JSON line with every kernel's launches (phases 2 and 3),
      service launches (the inline and FIFO runs of phase 4), continuous
      launches (phase 7's inline runs), online launches (phase 8's shadow
@@ -315,7 +337,9 @@ printing any result.
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
+import math
 import os
 import re
 import statistics
@@ -4152,6 +4176,435 @@ def profile(targets, trace_dir: str) -> None:
                 [k[:80], us / 1e3 / len(steady)] for k, us in top]}))
 
 
+# ------------------------------------------------------------ phase 17 --
+
+#: phase 17 (a): the dry run of every (arch x shape) cell on both
+#: production meshes, in worker processes on the host's CPU beside the
+#: card's phases (it needs no card)
+DRYRUN_JOBS = 4
+DRYRUN_DIR = os.path.join(HERE, "build", "phase17_dryrun")
+DRYRUN_CELLS, DRYRUN_SKIPS = 72, 8
+#: (b): the estimate must be within this share of the measured peak
+MEM_RTOL = 0.10
+#: (b): tinyllama-1.1b's training step (phase 14's batch), its decode
+#: step on decode_32k's cache, BST's training step (phase 12's batch)
+MEM_LM_TRAIN = (8, 4096)
+MEM_LM_DECODE = (64, 32768)
+MEM_BST_BATCH = 65536
+#: (c): mixtral's smoke MoE over a 2 x 2 mesh laid on the card; the
+#: capacity factor is raised so that no token drops on either side (the
+#: shard_map path fills each position's own capacity), as the
+#: reference's test does
+MOE_TOKENS, MOE_CAPACITY, MOE_TOL = 64, 8.0, 1e-5
+#: (f): ogb_products runs a step only if its estimate is under this
+#: share of the card's memory
+OGB_SHARE = 0.9
+
+
+def dryrun_start():
+    """Start phase 17 (a): ``python -m repro_torch.launch.dryrun
+    --all-cells --mesh both`` with no card visible."""
+    import shutil
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--all-cells",
+           "--mesh", "both", "--jobs", str(DRYRUN_JOBS), "--out", DRYRUN_DIR]
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    log("phase 17: " + " ".join(cmd[1:]))
+    os.makedirs(DRYRUN_DIR)
+    out = open(os.path.join(DRYRUN_DIR, "log.txt"), "w")
+    # a session of its own: its workers are stopped with it, on any exit
+    proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=out,
+                            stderr=subprocess.STDOUT, start_new_session=True)
+    atexit.register(_stop_group, proc)
+    return proc, time.perf_counter(), out
+
+
+def _stop_group(proc) -> None:
+    import signal
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+
+
+def dryrun_finish(started) -> list[dict]:
+    """Phase 17 (a)'s records: 80, none ``error``, no kernel launched in
+    any trace (each record holds the launch counters' moves over it);
+    one line a cell."""
+    proc, t0, out = started
+    try:
+        proc.wait(timeout=900)
+    finally:
+        _stop_group(proc)
+        out.close()
+    if proc.returncode != 0:
+        with open(out.name) as f:
+            raise AssertionError(f"phase 17: dry run exit {proc.returncode}: "
+                                 f"{f.read()[-3000:]}")
+    recs = [json.load(open(os.path.join(DRYRUN_DIR, f)))
+            for f in sorted(os.listdir(DRYRUN_DIR)) if f.endswith(".json")]
+    status = [r["status"] for r in recs]
+    bad = [r for r in recs if r["status"] == "error"]
+    if bad:
+        raise AssertionError("phase 17: dry-run errors: " + "; ".join(
+            f"{r['arch']} {r['shape']} {r['mesh']}: {r['error'][:200]}"
+            for r in bad))
+    if (len(recs), status.count("ok"), status.count("skipped")) != (
+            2 * 40, DRYRUN_CELLS, DRYRUN_SKIPS):
+        raise AssertionError(f"phase 17: {len(recs)} records, "
+                             f"{status.count('ok')} ok")
+    for r in recs:
+        if r["status"] != "ok":
+            continue
+        if any(r["kernel_launches"].values()):
+            raise AssertionError(f"phase 17: {r['arch']} {r['shape']} "
+                                 f"launched {r['kernel_launches']}")
+        m = r["memory"]
+        log("phase 17: dryrun " + json.dumps(dict(
+            cell=f"{r['arch']} {r['shape']} {r['mesh']}",
+            peak_gib=m["peak_estimate_bytes"] / 2 ** 30,
+            fits_80gib=m["fits_hbm"],
+            dominant=r["roofline"].get("dominant", "multi-pod: none"),
+            collective_gb=r["collective_bytes_per_device"] / 1e9,
+            replicated_ops=sum(r["replicated_ops"].values()),
+            trace_s=r["mem_probe_s"])))
+    log(f"phase 17: dry run {len(recs)} records, {status.count('ok')} ok, "
+        f"{status.count('skipped')} skipped, in "
+        f"{time.perf_counter() - t0:.1f} s (beside the card's phases)")
+    return recs
+
+
+def _random_like(fake, dev):
+    """Real tensors of ``fake``'s shapes and dtypes on ``dev``, drawn on
+    the card (memory is what is measured; the values only need to be
+    finite)."""
+    import torch
+    from repro_torch.tree import leaves, unflatten
+    gen = torch.Generator(device=dev).manual_seed(17)
+    out = []
+    for t in leaves(fake):
+        x = torch.empty(t.shape, dtype=t.dtype, device=dev)
+        if x.is_floating_point():
+            x.normal_(0.0, 0.02, generator=gen)
+        else:
+            x.zero_()
+        out.append(x)
+    return unflatten(fake, out)
+
+
+def mem_check(name: str, fn, make_fake, make_real, dev,
+              donate=(0, 1)) -> dict:
+    """Phase 17 (b): the dry run's peak estimate of ``fn`` on fake CUDA
+    tensors against ``torch.cuda.max_memory_allocated()`` over one real
+    call, both above what was allocated before the call's arguments."""
+    import torch
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    with cfgbase.fake_mode():
+        est = dryrun.trace(fn, make_fake, donate_argnums=donate)
+    t_est = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    args = make_real()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    del out, args
+    torch.cuda.empty_cache()
+    e = est["memory"]["peak_estimate_bytes"]
+    row = dict(step=name, estimate_bytes=e, measured_bytes=peak,
+               estimate_over_measured=e / peak,
+               estimate_args_bytes=est["memory"]["argument_bytes"],
+               allocated_before=base, estimate_s=t_est)
+    log("phase 17: memory " + json.dumps(row))
+    if abs(e / peak - 1) > MEM_RTOL:
+        raise AssertionError(f"phase 17: {name}: estimate {e} against "
+                             f"measured {peak}")
+    return row
+
+
+def mem_checks(dev, lm_cfg, bst_cfg, lm_train=MEM_LM_TRAIN,
+               lm_decode=MEM_LM_DECODE, bst_batch=MEM_BST_BATCH) -> list:
+    """Phase 17 (b) for the three one-card steps."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.data import recsys_data
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    from repro_torch.models.recsys import bst as BS
+    from repro_torch.optim import adamw
+    rows = []
+
+    def lm_fake():
+        return cfgbase.abstract_tree(T.init_params(lm_cfg, abstract=True),
+                                     dev)
+
+    fake_params = lm_fake()
+    b, s = lm_train
+    step = train.make_step(train._lm_loss, lm_cfg, adamw.AdamWConfig())
+
+    def lm_batch(make):
+        return {k: make((b, s)) for k in ("tokens", "targets", "mask")}
+
+    def fake_train():
+        p = lm_fake()
+        return p, adamw.init_opt_state(p), lm_batch(
+            lambda sh: torch.empty(sh, dtype=torch.int32, device=dev))
+
+    def real_train():
+        p = _random_like(fake_params, dev)
+        return p, adamw.init_opt_state(p), lm_batch(
+            lambda sh: torch.randint(0, lm_cfg.vocab, sh, device=dev,
+                                     dtype=torch.int32))
+
+    rows.append(mem_check(f"{lm_cfg.name} train step {b} x {s}", step,
+                          fake_train, real_train, dev))
+    b, s = lm_decode
+
+    def decode_args(params, make):
+        cache = T.init_cache(lm_cfg, b, s, device=dev)
+        return (params, cache, make((b,)), torch.full(
+            (b,), s - 1, dtype=torch.int32, device=dev))
+
+    def fake_decode():
+        return decode_args(lm_fake(), lambda sh: torch.empty(
+            sh, dtype=torch.int32, device=dev))
+
+    def real_decode():
+        return decode_args(_random_like(fake_params, dev),
+                           lambda sh: torch.randint(
+                               0, lm_cfg.vocab, sh, device=dev,
+                               dtype=torch.int32))
+
+    rows.append(mem_check(
+        f"{lm_cfg.name} decode step, batch {b}, cache {s}",
+        lambda p, c, t, q: T.decode_step(p, lm_cfg, c, t, q), fake_decode,
+        real_decode, dev, donate=(1,)))
+    bstep = train.make_step(BS.bst_loss, bst_cfg,
+                            adamw.AdamWConfig(lr=1e-3, weight_decay=1e-5))
+    host = recsys_data.bst_batch(bst_cfg, bst_batch, 0)
+
+    def fake_bst():
+        p = cfgbase.abstract_tree(BS.init_bst(bst_cfg, abstract=True), dev)
+        mode = cfgbase.fake_mode()
+        return p, adamw.init_opt_state(p), {
+            k: mode.from_tensor(torch.from_numpy(np.asarray(v))).to(dev)
+            for k, v in host.items()}
+
+    def real_bst():
+        p = BS.init_bst(bst_cfg, seed=0, device=dev)
+        return p, adamw.init_opt_state(p), {
+            k: torch.from_numpy(np.asarray(v)).to(dev)
+            for k, v in host.items()}
+
+    rows.append(mem_check(f"bst train step {bst_batch}", bstep, fake_bst,
+                          real_bst, dev))
+    return rows
+
+
+def moe_shard_map_check(dev, moe_cfg, d_model: int) -> dict:
+    """Phase 17 (c): ``moe_ffn_shard_map`` over a 2 x 2 mesh laid on
+    ``dev`` against the local path, forward and gradients."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.distrib.sharding import DeviceMesh
+    from repro_torch.models import moe as M
+    cfg = dataclasses.replace(moe_cfg, capacity_factor=MOE_CAPACITY)
+    rng = np.random.default_rng(17)
+    p = M.init_moe_params(rng, cfg, d_model, 1, torch.float32, dev)
+    params = {k: v[0].detach().clone().requires_grad_(True)
+              for k, v in p.items()}
+    x = torch.from_numpy(rng.normal(size=(MOE_TOKENS, d_model))
+                         .astype(np.float32)).to(dev).requires_grad_(True)
+    mesh = DeviceMesh([dev] * 4, (2, 2), ("data", "model"))
+    y_sm, _ = M.moe_ffn_shard_map(params, x, cfg, mesh)
+    y_loc, _ = M.moe_ffn(params, x, dataclasses.replace(cfg,
+                                                        dispatch="gspmd"))
+    keys = [*params, "x"]
+    g_sm = torch.autograd.grad(y_sm.sum(), [*params.values(), x])
+    g_loc = torch.autograd.grad(y_loc.sum(), [*params.values(), x])
+    errs = {"y": float((y_sm - y_loc).detach().abs().max())}
+    errs.update({k: float((a - b).abs().max())
+                 for k, a, b in zip(keys, g_sm, g_loc)})
+    row = dict(check="moe_ffn_shard_map 2x2 on the card vs local",
+               tokens=MOE_TOKENS, experts=cfg.n_experts,
+               max_abs_err=errs, tol=MOE_TOL)
+    log("phase 17: " + json.dumps(row))
+    if max(errs.values()) > MOE_TOL:
+        raise AssertionError(f"phase 17: shard_map MoE differs: {errs}")
+    return row
+
+
+def compression_check(dev) -> dict:
+    """Phase 17 (d): ``compressed_allreduce`` over 4 positions on the
+    card, bit-equal to the same call over 4 CPU positions (two rounds
+    of error feedback, a bfloat16 leaf among them)."""
+    import torch
+    from repro_torch.distrib.sharding import DeviceMesh
+    from repro_torch.optim import compression
+    gen = torch.Generator().manual_seed(17)
+    g = {"w": torch.randn(4, 4096, generator=gen),
+         "b": torch.randn(4, 64, 33, generator=gen).to(torch.bfloat16)}
+    res = []
+    for where in ("cpu", dev):
+        mesh = DeviceMesh([where] * 4, (4,), ("data",))
+        gl = {k: v.to(where) for k, v in g.items()}
+        e = {k: torch.zeros_like(v) for k, v in gl.items()}
+        outs = []
+        for _ in range(2):
+            mean, e = compression.compressed_allreduce(mesh, gl, e, "data")
+            outs += [mean[k].cpu() for k in sorted(mean)]
+            outs += [e[k].cpu() for k in sorted(e)]
+        res.append(outs)
+    equal = all(torch.equal(a, b) for a, b in zip(*res))
+    row = dict(check="compressed_allreduce 4 positions card vs CPU",
+               bit_equal=equal)
+    log("phase 17: " + json.dumps(row))
+    if not equal:
+        raise AssertionError("phase 17: compressed_allreduce on the card "
+                             "differs from the CPU")
+    return row
+
+
+def _assemble(shards, spec, mesh, shape):
+    """The leaf from its per-position shards, each placed at the block
+    its position's coordinates give (ceil-divided, first axis major)."""
+    import math
+    import numpy as np
+    import torch
+    full = torch.empty(shape, dtype=shards[0].dtype)
+    names = mesh.axis_names
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    for c, blk in zip(np.ndindex(*mesh.devices.shape), shards):
+        idx = []
+        for d, e in enumerate(parts):
+            axes = () if e is None else (e if isinstance(e, tuple) else (e,))
+            if not axes:
+                idx.append(slice(None))
+                continue
+            k = 0
+            for a in axes:
+                k = k * mesh.shape[a] + c[names.index(a)]
+            n = -(-shape[d] // math.prod(mesh.shape[a] for a in axes))
+            idx.append(slice(k * n, k * n + blk.shape[d]))
+        full[tuple(idx)] = blk.cpu()
+    return full
+
+
+def elastic_check(dev, bst_cfg) -> dict:
+    """Phase 17 (e): a BST checkpoint restored onto a 2 x 2 mesh laid on
+    the card (``restore_elastic`` with ``recsys_param_specs``): every
+    shard on its position's device, the shards reassembled equal to the
+    saved leaves bit for bit."""
+    import shutil
+    import torch
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.distrib import elastic
+    from repro_torch.distrib import sharding as S
+    from repro_torch.models.recsys import bst as BS
+    from repro_torch.tree import leaves
+    path = os.path.join(HERE, "build", "phase17_ckpt")
+    shutil.rmtree(path, ignore_errors=True)
+    params = BS.init_bst(bst_cfg, seed=3, device="cpu")
+    ckpt.save(path, params, step=1)
+    mesh = S.DeviceMesh([dev] * 4, (2, 2), ("data", "model"))
+    placed, _ = elastic.restore_elastic(path, params, mesh,
+                                        S.recsys_param_specs)
+    specs = S.spec_leaves(S.recsys_param_specs(params, mesh))
+    n_sharded = 0
+    for want, shards, spec in zip(leaves(params), _shard_leaves(placed),
+                                  specs):
+        if any(x.device.type != dev.type for x in shards):
+            raise AssertionError("phase 17: a restored shard is off the card")
+        got = _assemble(shards, spec, mesh, want.shape)
+        if not torch.equal(got, want):
+            raise AssertionError(f"phase 17: restored leaf {spec} differs")
+        n_sharded += any(e is not None for e in spec)
+    shutil.rmtree(path, ignore_errors=True)
+    row = dict(check="restore_elastic of a BST checkpoint onto 2x2 on the "
+                     "card", leaves=len(specs), sharded_leaves=n_sharded,
+               bit_equal=True)
+    log("phase 17: " + json.dumps(row))
+    return row
+
+
+def _shard_leaves(tree):
+    """The per-position shard lists of a placed tree, in leaf order."""
+    if isinstance(tree, dict):
+        return [s for k in sorted(tree) for s in _shard_leaves(tree[k])]
+    if isinstance(tree, list) and tree and not isinstance(tree[0],
+                                                          (dict, list)):
+        return [tree]
+    return [s for v in tree for s in _shard_leaves(v)]
+
+
+def ogb_check(dev) -> dict:
+    """Phase 17 (f): ogb_products' one-card estimate (the bundle on the
+    one-position mesh, traced on fake CUDA tensors); one full-batch step
+    only where it is under OGB_SHARE of the card's memory."""
+    import torch
+    from repro_torch.configs import graphsage_reddit as G
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_smoke_mesh
+    mesh = make_smoke_mesh()
+    bundle = G.dryrun_bundle("ogb_products", mesh)
+    est = dryrun.trace_bundle(bundle, mesh, device=dev)["memory"]
+    total = torch.cuda.get_device_properties(dev).total_memory
+    row = dict(cell="graphsage-reddit ogb_products, one card",
+               estimate_bytes=est["peak_estimate_bytes"], card_bytes=total,
+               estimate_share=est["peak_estimate_bytes"] / total)
+    if est["peak_estimate_bytes"] >= OGB_SHARE * total:
+        row["ran"] = (f"no: the estimate is {row['estimate_share']:.2f} of "
+                      f"the card's memory, not under {OGB_SHARE}")
+    else:
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        args = list(_random_like(list(bundle.args), dev))
+        n = args[2].shape[0]
+        args[3] = torch.randint(0, n, args[3].shape, device=dev,
+                                dtype=torch.int32)
+        args[4] = torch.randint(0, 47, args[4].shape, device=dev,
+                                dtype=torch.int32)
+        args[5] = torch.ones_like(args[5], dtype=torch.bool)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, _, m = bundle.fn(*args)
+        torch.cuda.synchronize()
+        row.update(ran="yes", measured_bytes=torch.cuda.max_memory_allocated(
+            dev) - base, loss=float(m["loss"]))
+        row["estimate_over_measured"] = (est["peak_estimate_bytes"]
+                                         / row["measured_bytes"])
+        del args, m
+        torch.cuda.empty_cache()
+        if not math.isfinite(row["loss"]):
+            raise AssertionError("phase 17: ogb_products loss not finite")
+    log("phase 17: " + json.dumps(row))
+    return row
+
+
+def distrib_path(dev) -> dict:
+    """Phase 17 (b)-(f) on the card."""
+    import torch
+    from repro_torch.configs import bst as bst_configs
+    from repro_torch.configs import mixtral_8x22b, tinyllama_1_1b
+    torch.cuda.empty_cache()
+    out = {"memory": mem_checks(dev, tinyllama_1_1b.model_config(),
+                                bst_configs.model_config())}
+    smoke = mixtral_8x22b.smoke_config()
+    out["moe"] = moe_shard_map_check(dev, smoke.moe, smoke.d_model)
+    out["compression"] = compression_check(dev)
+    out["elastic"] = elastic_check(dev, bst_configs.model_config())
+    out["ogb"] = ogb_check(dev)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -4211,6 +4664,8 @@ def main() -> int:
     lm_train_row = check_flash_train_lm(dev)
     log(f"phase 1: kernels hold against their plain versions "
         f"({time.perf_counter() - t0:.1f} s)")
+    # after phase 1's timings, which its CPU work would disturb
+    dryrun_proc = dryrun_start()
     torch.cuda.empty_cache()
 
     sys_, servers, batches, meds = build_servers()
@@ -4256,6 +4711,9 @@ def main() -> int:
     del decode_step
     torch.cuda.empty_cache()
     log(f"phase 16: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    distrib_path(dev)
+    log(f"phase 17: the card's checks {time.perf_counter() - t0:.1f} s")
     # the kernel at tinyllama's prefill shape, with the launches of phase
     # 13's counted window
     fa_row["lm"] = dict({k: lm_rows[0][k] for k in (
@@ -4284,6 +4742,7 @@ def main() -> int:
     log("phase 14: profiler canary after its processes: "
         + json.dumps(profiler_canary(dev)))
     log(f"phase 14: {time.perf_counter() - t0:.1f} s")
+    dryrun_finish(dryrun_proc)
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["service_launches"] = service_launches[row["name"]]

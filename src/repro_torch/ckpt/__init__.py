@@ -1,2 +1,2 @@
 """Checkpoints in the JAX package's on-disk format and the resilient
-training driver (elastic restore waits for ROADMAP item 7)."""
+training driver (the elastic restore onto any mesh is ``distrib.elastic``)."""

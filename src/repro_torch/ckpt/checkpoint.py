@@ -13,7 +13,8 @@ numpy has no bfloat16, so a bfloat16 tensor (the LM's parameters) is
 written as its raw bits, a uint16 array, and read back into a bfloat16
 tensor bit for bit (the JAX package writes ``ml_dtypes`` arrays there,
 so such a leaf does not cross between the packages).
-The mesh-elastic restore (``shardings``) waits for ROADMAP item 7.
+``restore(..., shardings=)`` is the mesh-elastic restore
+(``distrib.elastic``): each leaf comes back as its per-position shards.
 
 ``save`` copies one leaf at a time to the host, so its host peak is the
 largest leaf; ``AsyncCheckpointer.save`` copies the whole tree to the
@@ -100,9 +101,14 @@ def latest_step(path: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(path: str, like: Any, step: int | None = None) -> tuple[Any, dict]:
+def restore(path: str, like: Any, step: int | None = None,
+            shardings: Any = None) -> tuple[Any, dict]:
     """Load into the structure of ``like``: each leaf a tensor on the
-    device of ``like``'s tensor there, or a numpy array."""
+    device of ``like``'s tensor there, or a numpy array.  With
+    ``shardings`` (a tree of ``distrib.sharding.NamedSharding``, possibly
+    of another mesh than the one that wrote the checkpoint: the elastic
+    restore) each leaf is the list of its per-position shards instead,
+    each on its position's device."""
     if step is None:
         step = latest_step(path)
         if step is None:
@@ -112,19 +118,30 @@ def restore(path: str, like: Any, step: int | None = None) -> tuple[Any, dict]:
         manifest = json.load(f)
     by_name = {rec["name"]: rec for rec in manifest["leaves"]}
     names, flat = _names_and_leaves(like)
+    shard_flat = ([None] * len(flat) if shardings is None
+                  else _sharding_leaves(shardings))
     out = []
-    for name, leaf in zip(names, flat):
+    for name, leaf, sh in zip(names, flat, shard_flat, strict=True):
         arr = np.load(os.path.join(d, by_name[name]["file"]))
-        if isinstance(leaf, torch.Tensor):
+        if isinstance(leaf, torch.Tensor) or sh is not None:
             arr = np.asarray(arr, order="C")
-            if leaf.dtype == torch.bfloat16:
+            if getattr(leaf, "dtype", None) == torch.bfloat16:
                 arr = torch.from_numpy(arr.view(np.int16)).view(
                     torch.bfloat16)
             else:
                 arr = torch.from_numpy(arr)
-            arr = arr.to(leaf.device)
+            arr = sh.shard(arr) if sh is not None else arr.to(leaf.device)
         out.append(arr)
     return unflatten(like, out), manifest["extra"]
+
+
+def _sharding_leaves(tree) -> list:
+    """The shardings of a tree in leaf order (a sharding is a leaf)."""
+    if isinstance(tree, dict):
+        return [s for k in sorted(tree) for s in _sharding_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [s for v in tree for s in _sharding_leaves(v)]
+    return [tree]
 
 
 class AsyncCheckpointer:

@@ -14,8 +14,9 @@ telemetry.
 A step-time EWMA watchdog flags steps slower than ``straggler_factor``
 times the running mean.  ``DriverResult.ckpt_writes`` records the step,
 bytes, seconds and kind ("async", "preempt" or "final") of every
-checkpoint written.  The elastic restore onto another mesh
-(``shardings``) waits for ROADMAP item 7.
+checkpoint written.  The elastic restore onto another mesh is
+``distrib.elastic.restore_elastic`` (``checkpoint.restore(...,
+shardings=)``).
 """
 
 from __future__ import annotations

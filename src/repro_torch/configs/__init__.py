@@ -1,2 +1,3 @@
-"""Model configurations of the port: plain copies of the JAX package's
-numbers (no dry-run bundles)."""
+"""Model configurations of the port: copies of the JAX package's numbers,
+and each arch's ``dryrun_bundle`` (``launch/dryrun.py`` sizes them for a
+many-card H100 deployment)."""

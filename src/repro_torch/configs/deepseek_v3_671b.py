@@ -1,13 +1,16 @@
 """deepseek-v3-671b — MLA + 256-expert MoE (1 shared, top-8) + MTP
-[arXiv:2412.19437].  A copy of the JAX package's config; its
-``dryrun_bundle`` waits for ROADMAP item 7d.  The full config does not
-fit one card (671 B parameters): the port runs its smoke config."""
+[arXiv:2412.19437].  A copy of the JAX package's config.  The full
+config does not fit one card (671 B parameters): the port runs its
+smoke config, and ``dryrun_bundle`` sizes the full one on the
+production meshes (``launch.dryrun``)."""
 
 from repro_torch.configs import lm_common
+from repro_torch.configs.base import Bundle
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 
-__all__ = ["ARCH", "SHAPES", "SKIPS", "model_config", "smoke_config"]
+__all__ = ["ARCH", "SHAPES", "SKIPS", "model_config", "smoke_config",
+           "dryrun_bundle"]
 
 ARCH = "deepseek-v3-671b"
 SHAPES = dict(lm_common.LM_SHAPES)
@@ -37,3 +40,7 @@ def smoke_config() -> T.LMConfig:
         moe=M.MoEConfig(n_experts=8, top_k=2, d_ff_expert=48, n_shared=1,
                         first_dense_layers=1),
         mtp=True, dtype="float32", block_q=32, loss_block=32)
+
+
+def dryrun_bundle(shape: str, mesh, mode: str = "cost") -> Bundle:
+    return lm_common.bundle(model_config(), shape, mesh, mode=mode)

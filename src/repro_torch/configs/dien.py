@@ -1,14 +1,20 @@
 """dien — GRU+AUGRU interest evolution, embed 18, seq 100
-[arXiv:1809.03672]; the JAX package's ``configs/dien.py`` without its
-dry-run bundle."""
+[arXiv:1809.03672]; the JAX package's ``configs/dien.py``."""
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
+import torch
+
 from repro_torch.configs import recsys_common as RC
+from repro_torch.configs.base import Bundle, abstract_tree
 from repro_torch.models.recsys import dien as DN
 
 ARCH = "dien"
 SHAPES = dict(RC.RECSYS_SHAPES)
+SKIPS: dict[str, str] = {}
 
 
 def model_config() -> DN.DIENConfig:
@@ -34,3 +40,29 @@ def _model_flops(cfg, b, kind):
         d_in = h
     fwd = b * (g1 + g2 + mlp)
     return (3.0 if kind == "train" else 1.0) * fwd
+
+
+def _batch_abs(cfg, b):
+    t = cfg.seq_len
+    i32 = torch.int32
+    return {
+        "hist_items": torch.empty((b, t), dtype=i32),
+        "hist_cats": torch.empty((b, t), dtype=i32),
+        "target_item": torch.empty((b,), dtype=i32),
+        "target_cat": torch.empty((b,), dtype=i32),
+        "profile": torch.empty((b, cfg.n_profile), dtype=torch.float32),
+        "label": torch.empty((b,), dtype=i32),
+    }
+
+
+def dryrun_bundle(shape: str, mesh, mode: str = "cost") -> Bundle:
+    cfg = dataclasses.replace(model_config(), unroll=(mode == "cost"))
+    if shape == "retrieval_cand":
+        return RC.retrieval_bundle(arch=ARCH, mesh=mesh)
+    params_abs = abstract_tree(DN.init_dien(cfg, abstract=True))
+    return RC.ranking_bundle(
+        arch=ARCH, shape_name=shape, mesh=mesh, params_abs=params_abs,
+        loss_fn=lambda p, b: DN.dien_loss(p, cfg, b),
+        logits_fn=lambda p, b: DN.dien_logits(p, cfg, b),
+        batch_abs_fn=functools.partial(_batch_abs, cfg),
+        model_flops_fn=functools.partial(_model_flops, cfg))

@@ -2,10 +2,12 @@
 [arXiv:2401.04088]."""
 
 from repro_torch.configs import lm_common
+from repro_torch.configs.base import Bundle
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 
-__all__ = ["ARCH", "SHAPES", "SKIPS", "model_config", "smoke_config"]
+__all__ = ["ARCH", "SHAPES", "SKIPS", "model_config", "smoke_config",
+           "dryrun_bundle"]
 
 ARCH = "mixtral-8x22b"
 SHAPES = dict(lm_common.LM_SHAPES)
@@ -27,3 +29,7 @@ def smoke_config() -> T.LMConfig:
         n_kv_heads=2, head_dim=8, d_ff=128, vocab=512, window=16,
         moe=M.MoEConfig(n_experts=4, top_k=2, d_ff_expert=64),
         dtype="float32", block_q=32, loss_block=32)
+
+
+def dryrun_bundle(shape: str, mesh, mode: str = "cost") -> Bundle:
+    return lm_common.bundle(model_config(), shape, mesh, mode=mode)

@@ -1,14 +1,19 @@
 """wide-deep — 40 sparse fields, embed 32, MLP 1024-512-256
-[arXiv:1606.07792]; the JAX package's ``configs/wide_deep.py`` without
-its dry-run bundle."""
+[arXiv:1606.07792]; the JAX package's ``configs/wide_deep.py``."""
 
 from __future__ import annotations
 
+import functools
+
+import torch
+
 from repro_torch.configs import recsys_common as RC
+from repro_torch.configs.base import Bundle, abstract_tree
 from repro_torch.models.recsys import wide_deep as WD
 
 ARCH = "wide-deep"
 SHAPES = dict(RC.RECSYS_SHAPES)
+SKIPS: dict[str, str] = {}
 
 
 def model_config() -> WD.WideDeepConfig:
@@ -31,3 +36,26 @@ def _model_flops(cfg, b, kind):
         d_in = h
     fwd = b * (mlp + 2 * d_in)
     return (3.0 if kind == "train" else 1.0) * fwd
+
+
+def _batch_abs(cfg, b):
+    return {
+        "sparse_ids": torch.empty((b, cfg.n_sparse), dtype=torch.int32),
+        "cross_ids": torch.empty((b, cfg.n_cross), dtype=torch.int32),
+        "dense": torch.empty((b, cfg.n_dense), dtype=torch.float32),
+        "label": torch.empty((b,), dtype=torch.int32),
+    }
+
+
+def dryrun_bundle(shape: str, mesh, mode: str = "cost") -> Bundle:
+    del mode  # no scans in this arch: one probe serves both
+    cfg = model_config()
+    if shape == "retrieval_cand":
+        return RC.retrieval_bundle(arch=ARCH, mesh=mesh)
+    params_abs = abstract_tree(WD.init_wide_deep(cfg, abstract=True))
+    return RC.ranking_bundle(
+        arch=ARCH, shape_name=shape, mesh=mesh, params_abs=params_abs,
+        loss_fn=lambda p, b: WD.wide_deep_loss(p, cfg, b),
+        logits_fn=lambda p, b: WD.wide_deep_logits(p, cfg, b),
+        batch_abs_fn=functools.partial(_batch_abs, cfg),
+        model_flops_fn=functools.partial(_model_flops, cfg))

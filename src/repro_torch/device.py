@@ -6,7 +6,8 @@ import contextlib
 
 import torch
 
-__all__ = ["resolve_device", "fence", "device_scope"]
+__all__ = ["resolve_device", "fence", "device_scope", "is_fake",
+           "is_dtensor"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -37,3 +38,21 @@ def device_scope(device: torch.device):
     if device.type == "cuda":
         return torch.cuda.device(device)
     return contextlib.nullcontext()
+
+
+def is_dtensor(t) -> bool:
+    """A ``torch.distributed.tensor.DTensor`` (the dry run's arguments)."""
+    return type(t) is not torch.Tensor and hasattr(t, "_local_tensor")
+
+
+def is_fake(t) -> bool:
+    """A tensor with no data to compute on: a ``FakeTensor``, a meta
+    tensor, or a DTensor whose local shard is one (the dry run traces
+    on them).  A plain tensor answers without an import."""
+    if type(t) is torch.Tensor or type(t) is torch.nn.Parameter:
+        return t.is_meta
+    local = getattr(t, "_local_tensor", None)
+    if local is not None:
+        return is_fake(local)
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor) or t.is_meta

@@ -2,13 +2,15 @@
 JAX package's ``distrib/collectives.py``).
 
 The JAX package runs them inside ``shard_map`` (``all_gather``,
-``pmax``, ``pmin``).  Here one process drives every shard, and a
-collective is a function over the list of per-shard tensors, in shard
-order, that returns one result on each shard's device: ``all_gather``
-copies every shard's tensor to each device and concatenates them in
-shard order, ``pmax`` and ``pmin`` stack and reduce.  All three are
-exact, so the sharded engine's arithmetic is the unsharded one's.
-Shards that share a device share one result tensor.
+``pmax``, ``pmin``, ``psum``, ``pmean``, ``all_to_all``).  Here one
+process drives every shard, and a collective is a function over the
+list of per-shard tensors, in shard order, that returns one result on
+each shard's device: ``all_gather`` copies every shard's tensor to each
+device and concatenates them in shard order, ``pmax``, ``pmin``,
+``psum`` and ``pmean`` stack and reduce, ``all_to_all`` exchanges
+equal chunks (the MoE's expert dispatch).  The gather and the max and
+min are exact, so the sharded engine's arithmetic is the unsharded
+one's.  Shards that share a device share one reduced tensor.
 
 ``sharded_topk`` is the distributed form of the k knob: candidates are
 split over the shards in equal doc ranges, each shard extracts its local
@@ -37,7 +39,7 @@ from repro_torch.device import device_scope
 
 __all__ = ["sharded_topk", "merge_local_topk", "gather_local_topk",
            "merge_gathered_topk", "require_axis", "all_gather", "pmax",
-           "pmin", "per_device"]
+           "pmin", "pmean", "psum", "all_to_all", "per_device"]
 
 
 def require_axis(mesh, axis: str, what: str = "sharded_topk") -> int:
@@ -80,6 +82,31 @@ def pmin(xs) -> list[torch.Tensor]:
     devs = [x.device for x in xs]
     return per_device(devs, lambda i: torch.stack(
         [x.to(devs[i]) for x in xs]).amin(dim=0))
+
+
+def psum(xs) -> list[torch.Tensor]:
+    """The sum over the shards (in shard order), on each shard's device."""
+    devs = [x.device for x in xs]
+    return per_device(devs, lambda i: torch.stack(
+        [x.to(devs[i]) for x in xs]).sum(dim=0).to(xs[0].dtype))
+
+
+def pmean(xs) -> list[torch.Tensor]:
+    """The mean over the shards, on each shard's device."""
+    devs = [x.device for x in xs]
+    return per_device(devs, lambda i: torch.stack(
+        [x.to(devs[i]) for x in xs]).mean(dim=0))
+
+
+def all_to_all(xs, split_dim: int, concat_dim: int) -> list[torch.Tensor]:
+    """The tiled all-to-all of ``jax.lax.all_to_all``: each of the n
+    shards splits its tensor into n equal chunks along ``split_dim``;
+    shard j receives the j-th chunk of every shard, concatenated in
+    shard order along ``concat_dim``, on its own device."""
+    n = len(xs)
+    chunks = [torch.chunk(x, n, dim=split_dim) for x in xs]
+    return [torch.cat([chunks[m][j].to(xs[j].device) for m in range(n)],
+                      dim=concat_dim) for j in range(n)]
 
 
 def gather_local_topk(vs, gis):

@@ -41,6 +41,15 @@ counts launches.  Neither has a backward: an input that requires grad
 under grad mode raises (``_build.check_no_grad``); training goes through
 ``ops.flash_attention``, whose ``torch.autograd.Function`` launches the
 same kernel forward.
+
+On a fake or meta tensor (``device.is_fake``: the dry run's) both
+return an empty output of the kernel's shape and dtype through the op
+``repro_torch::flash_attention_shape``, whose FLOP formula is
+registered with ``torch.utils.flop_counter``: the plain version's two
+products, 4 * B * Hq * S * S * hd, masked tiles included.  That branch
+launches nothing, runs no plain version and moves no counter; a real
+CPU tensor still runs the plain version and a real CUDA tensor still
+launches the kernel.
 """
 
 from __future__ import annotations
@@ -50,11 +59,13 @@ import struct
 
 import torch
 
+from repro_torch.device import is_fake
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      attention_ref_bshd)
 
 __all__ = ["HEAD_DIMS", "ROUTES", "flash_attention_bshd",
+           "flash_attention_shard", "flash_flops",
            "flash_attention_fwd", "flash_attention_fwd_plain", "last_route",
            "n_launches", "route_launches"]
 
@@ -107,6 +118,46 @@ def _check_bshd(q, k, v, window):
     return qsh, ksh
 
 
+def flash_flops(q_shape, k_shape) -> int:
+    """FLOPs of one call: q (B, S, Hq, hd) or (BH, S, hd) against keys of
+    k's sequence length, the plain version's QK^T and PV products."""
+    if len(q_shape) == 3:
+        (bh, s, hd), hq = q_shape, 1
+    else:
+        bh, s, hq, hd = q_shape
+    return 4 * bh * hq * s * k_shape[1] * hd
+
+
+def _shape_op():
+    """The op a fake call goes through: q's shape, contiguous, in q's
+    dtype (a shape function: it builds and launches nothing)."""
+    from torch.utils.flop_counter import register_flop_formula
+
+    @torch.library.custom_op("repro_torch::flash_attention_shape",
+                             mutates_args=())
+    def shape_op(q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> torch.Tensor:
+        raise RuntimeError("flash_attention_shape runs on fake tensors only")
+
+    @shape_op.register_fake
+    def _(q, k, v):
+        return q.new_empty(q.shape)
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention_shape)
+    def _(q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs):
+        return flash_flops(q_shape, k_shape)
+
+    return shape_op
+
+
+_SHAPE_OP = _shape_op()
+
+
+def _fake_out(q, k, v):
+    """The output a launch would write, for a fake or meta q."""
+    return _SHAPE_OP(q, k, v)
+
+
 def _on_card(q, k, v, hd: int):
     """q, k, v checked for the kernel, each with a head dim of stride 1
     (a copy only where it has another), and their strides."""
@@ -154,6 +205,8 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, S, Hq, hd) in q's dtype, read through the operands' strides."""
     (b, s, hq, hd), ksh = _check_bshd(q, k, v, window)
     _build.check_no_grad("flash_attention", q, k, v)
+    if is_fake(q):
+        return _fake_out(q, k, v)
     if not q.is_cuda and q.device.type == "cpu":
         return attention_ref_bshd(q, k, v, causal=causal, window=window)
     q, k, v, qs, ks, vs = _on_card(q, k, v, hd)
@@ -164,6 +217,17 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   vs[0], vs[1], vs[2], s * hq * hd, hq * hd,
                                   hd),
                    b, s, hq, hq // ksh[2], hd, causal, window)
+
+
+def flash_attention_shard(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          window: int | None = None) -> torch.Tensor:
+    """``flash_attention_bshd``, or on the dry run's fake tensors one
+    sequence shard of q (B, Sq, Hq, hd) against whole keys (B, Sk, Hkv,
+    hd): the output's shape, launching nothing."""
+    if is_fake(q) and q.shape[1] != k.shape[1]:
+        return _fake_out(q, k, v)
+    return flash_attention_bshd(q, k, v, causal=causal, window=window)
 
 
 def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -181,6 +245,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with one head."""
     _check(q, k, v, window)
     _build.check_no_grad("flash_attention", q, k, v)
+    if is_fake(q):
+        return _fake_out(q, k, v)
     if not q.is_cuda and q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
     bh, s, hd = q.shape

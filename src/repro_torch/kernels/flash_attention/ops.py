@@ -21,12 +21,17 @@ plain version the tests and the card's check hold the blocked one
 against.  The TPU kernel has no backward either: the JAX package
 differentiates its jnp ``chunked_attention``, whose query blocks are
 checkpointed, so the probabilities are recomputed by block there too.
+
+On DTensors (the dry run's) ``flash_attention`` runs the same route on
+each device's shards (``_sharded``): sequence-parallel queries against
+whole keys, as the reference lays its attention over a mesh.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.device import is_dtensor
 from repro_torch.kernels.flash_attention import kernel as _kernel_mod
 from repro_torch.kernels.flash_attention.ref import (NEG_INF,
                                                      attention_ref_bshd)
@@ -118,7 +123,7 @@ def block_mask(q0: int, q1: int, k0: int, k1: int, causal: bool,
 
 def flash_attention_bwd_blocked(q, k, v, o, do, *, causal: bool = True,
                                 window: int | None = None,
-                                block_q: int = 512):
+                                block_q: int = 512, q_offset: int = 0):
     """``flash_attention_bwd``'s gradients, recomputed one block of
     ``block_q`` query rows at a time.  Block i reads only the keys
     ``block_key_range`` gives it, and holds float32 scores of (B, Hkv,
@@ -127,8 +132,14 @@ def flash_attention_bwd_blocked(q, k, v, o, do, *, causal: bool = True,
     The arithmetic is ``flash_attention_bwd``'s (P with the forward's
     -1e30 masks and scale, ``dV = P^T dO``, ``dS = P * (dO V^T -
     rowsum(dO * O))``, dQ and dK scaled); only the order of the sums
-    differs.  Returns dq, dk, dv in the layouts and dtypes of q, k, v."""
+    differs.  Returns dq, dk, dv in the layouts and dtypes of q, k, v.
+
+    ``q_offset`` places q's rows at positions ``q_offset ..`` of the
+    keys' sequence (one sequence shard of q against every key, the dry
+    run's sequence-parallel attention); dk and dv are then this shard's
+    part of the sums."""
     b, s, hq, hd = q.shape
+    sk = k.shape[1]
     hkv = k.shape[2]
     g = hq // hkv
     scale = hd ** -0.5
@@ -145,19 +156,21 @@ def flash_attention_bwd_blocked(q, k, v, o, do, *, causal: bool = True,
     # one block (BST's S 21): its dK and dV are the gradients; a zero
     # fill and an add there cost 0.5 of 12.6 ms on an H100 (phase 12 of
     # chip_smoke.py)
-    one_block = bq == s
+    one_block = bq == s and sk == s and q_offset == 0
     if not one_block:
-        dk = torch.zeros((b, hkv, s, hd), dtype=f32, device=q.device)
+        dk = torch.zeros((b, hkv, sk, hd), dtype=f32, device=q.device)
         dv = torch.zeros_like(dk)
     for q0 in range(0, s, bq):
         q1 = min(q0 + bq, s)
         n = q1 - q0
-        k0, k1 = block_key_range(q0, q1, s, causal, window)
+        k0, k1 = block_key_range(q0 + q_offset, q1 + q_offset, sk, causal,
+                                 window)
         qb = qg[:, :, :, q0:q1].reshape(b, hkv, g * n, hd)
         dob = dog[:, :, :, q0:q1].reshape(b, hkv, g * n, hd)
         kb, vb = kf[:, :, k0:k1], vf[:, :, k0:k1]
         logits = torch.matmul(qb, kb.transpose(-1, -2)).mul_(scale)
-        ok = block_mask(q0, q1, k0, k1, causal, window, q.device)
+        ok = block_mask(q0 + q_offset, q1 + q_offset, k0, k1, causal,
+                        window, q.device)
         if ok is not None:
             logits.view(b, hkv, g, n, k1 - k0).masked_fill_(~ok, NEG_INF)
         p = torch.softmax(logits, dim=-1)
@@ -192,11 +205,12 @@ class FlashAttention(torch.autograd.Function):
     backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, block_q):
-        o = _kernel_mod.flash_attention_bshd(q, k, v, causal=causal,
-                                             window=window)
+    def forward(ctx, q, k, v, causal, window, block_q, q_offset=0):
+        o = _kernel_mod.flash_attention_shard(q, k, v, causal=causal,
+                                              window=window)
         ctx.save_for_backward(q, k, v, o)
         ctx.causal, ctx.window, ctx.block_q = causal, window, block_q
+        ctx.q_offset = q_offset
         return o
 
     @staticmethod
@@ -208,12 +222,77 @@ class FlashAttention(torch.autograd.Function):
             start.record()
         dq, dk, dv = flash_attention_bwd_blocked(
             q, k, v, o, do, causal=ctx.causal, window=ctx.window,
-            block_q=ctx.block_q)
+            block_q=ctx.block_q, q_offset=ctx.q_offset)
         if events is not None:
             end = torch.cuda.Event(enable_timing=True)
             end.record()
             events.append((start, end))
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
+
+
+def _layout(q, k, mesh):
+    """q's placements for the sharded attention: a batch shard stays; on
+    every other mesh dim the heads split where both head counts divide
+    (MLA's 128 over 16), else the query rows where the sequence divides
+    (the reference's sequence-parallel attention, GQA's 4 or 8 key/value
+    heads over 16), else the dim is whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    out, used = [], set()
+    for i, p in enumerate(q.placements):
+        n = mesh.size(i)
+        if p == Shard(0):
+            out.append(p)
+        elif (2 not in used and q.shape[2] % n == 0
+              and k.shape[2] % n == 0):
+            out.append(Shard(2))
+            used.add(2)
+        elif 1 not in used and q.shape[1] % n == 0 and q.shape[1] >= n:
+            out.append(Shard(1))
+            used.add(1)
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
+def _sharded(q, k, v, causal, window, block_q, local=None):
+    """DTensor q (B, S, Hq, hd), k, v (the dry run's): the kernel on each
+    device's shards (``local(q, k, v, q_offset)``, where given, runs
+    instead of the kernel: the plain path of ``models.attention``).  q
+    is laid out by ``_layout``; k and v take q's placements with the
+    whole sequence.  A device's q rows are one sequence shard: the
+    backward recomputes them as the last shard (``q_offset``), the one
+    that reaches every key, and its dK and dV are partial sums over the
+    sequence shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = q.device_mesh
+    q_pl = _layout(q, k, mesh)
+    kv_pl = tuple(Replicate() if p == Shard(1) else p for p in q_pl)
+    kv_grad = tuple(Partial() if p == Shard(1) else p for p in q_pl)
+    n_seq = 1
+    for i, p in enumerate(q_pl):
+        if p == Shard(1):
+            n_seq *= mesh.size(i)
+    q = q.redistribute(mesh, q_pl)
+    ql = q.to_local()
+    kl = k.redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad)
+    vl = v.redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad)
+    offset = (n_seq - 1) * ql.shape[1]
+    if local is not None:
+        # laid out as the kernel's output is (the plain path's comes
+        # permuted; the model's next reshape would copy it all the same)
+        ol = local(ql, kl, vl, offset).contiguous()
+    elif torch.is_grad_enabled() and (ql.requires_grad or kl.requires_grad
+                                      or vl.requires_grad):
+        ol = FlashAttention.apply(ql, kl, vl, causal, window, block_q,
+                                  offset)
+    else:
+        ol = _kernel_mod.flash_attention_shard(ql, kl, vl, causal=causal,
+                                               window=window)
+    b, s, h = q.shape[:3]
+    d = v.shape[3]
+    return type(q).from_local(ol, mesh, q_pl, run_check=False,
+                              shape=(b, s, h, d), stride=(s * h * d, h * d,
+                                                          d, 1))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -227,6 +306,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tensor and its plain version on a CPU tensor, through
     ``FlashAttention`` where a gradient is needed (``block_q``: the
     query rows its backward recomputes at a time)."""
+    if use_kernel and is_dtensor(q):
+        return _sharded(q, k, v, causal, window, block_q)
     if use_kernel:                   # checks the shapes itself
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):

@@ -1,2 +1,3 @@
-"""Command-line drivers of the port: ``python -m repro_torch.launch.serve``
-and ``python -m repro_torch.launch.train``."""
+"""Command-line drivers of the port: ``python -m repro_torch.launch.serve``,
+``python -m repro_torch.launch.train`` and ``python -m
+repro_torch.launch.dryrun``."""

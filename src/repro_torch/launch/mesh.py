@@ -1,5 +1,14 @@
-"""Serving meshes over the host's devices (the port of the JAX package's
-``launch/mesh.py``, its serving half).
+"""Meshes (the port of the JAX package's ``launch/mesh.py``).
+
+``make_production_mesh`` is the dry run's: (data=16, model=16), 256
+H100s, or (pod=2, data=16, model=16), 512, with the reference's shapes
+and axis names, laid over ``"meta"`` positions (nothing is placed on
+them; ``launch.dryrun`` turns the mesh into a ``torch.distributed``
+device mesh on a fake process group).  The 'pod' axis carries only
+data parallelism and the gradient reduction: the sharding rules never
+put tensor or expert parallelism on it.  ``make_smoke_mesh`` is the
+one-position mesh with the production axis names.  ``HW`` holds the
+card's datasheet figures the dry run's roofline divides by.
 
 ``make_serving_mesh`` lays the ``pod x data x model`` positions over the
 visible devices of one type, and raises when there are too few.
@@ -18,7 +27,30 @@ from repro_torch.device import resolve_device
 from repro_torch.distrib.sharding import DeviceMesh
 
 __all__ = ["make_serving_mesh", "force_host_device_count",
-           "visible_positions"]
+           "visible_positions", "make_production_mesh", "make_smoke_mesh",
+           "HW"]
+
+#: One NVIDIA H100 SXM5 80GB at its 700 W limit, from NVIDIA's H100
+#: datasheet: dense bf16 tensor-core peak, HBM3 bandwidth, memory.  A
+#: 16-wide 'model' axis spans two 8-card nodes, so the one link constant
+#: is a card's inter-node bandwidth: one NDR InfiniBand port, 400 Gb/s.
+HW = {
+    "peak_flops_bf16": 989.4e12,   # FLOP/s
+    "hbm_bw": 3.35e12,             # B/s
+    "ib_bw": 50e9,                 # B/s per card, inter-node
+    "hbm_bytes": 80 * 2 ** 30,
+}
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return DeviceMesh(["meta"] * (512 if multi_pod else 256), shape, axes)
+
+
+def make_smoke_mesh() -> DeviceMesh:
+    """One position with the production axis names (the CPU tests)."""
+    return DeviceMesh(["meta"], (1, 1), ("data", "model"))
 
 #: mesh positions forced by ``force_host_device_count`` (0: not forced)
 _forced = 0

@@ -24,9 +24,13 @@ newest checkpoint after each simulated preemption (``--preempt-at``).
 A checkpoint left in ``--ckpt-dir`` by an earlier run is restored
 first, as in the reference.  Float32 products run in full float32
 (``layers.full_fp32_matmul``): TF32 would part the card from the CPU.
-One device holds the parameters (the reference's ``lm_param_specs``
-mesh placement waits for ROADMAP item 7d); ``--full`` is the arch's
-``model_config()`` (deepseek-v3-671b's does not fit one card).
+One device holds the parameters: the CLI trains on one card, and the
+mesh placement of the reference's ``lm_param_specs`` is what the dry
+run (``launch/dryrun.py``) sizes for many cards, which this process
+does not drive; ``--full`` is the arch's ``model_config()``
+(deepseek-v3-671b's does not fit one card).  The reference's docstring
+promises int8 gradient compression, which its CLI has no flag for; the
+port keeps ``optim/compression.py`` as a library and adds none.
 
 It prints the JAX CLI's two lines, then a ``ckpt:`` line for every
 checkpoint written (bytes, seconds) and one ``report:`` JSON line: the

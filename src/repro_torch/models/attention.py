@@ -39,7 +39,9 @@ under autograd each block is checkpointed, as the reference's are.  In
 a layer checkpointed under ``remat="full"`` this costs a third run of
 each block, and it is kept: the layer's recompute runs the path under
 grad, and without the block checkpoints would save every block's
-float32 P, (B, H, S, S) / 2 in all.
+float32 P, (B, H, S, S) / 2 in all.  On the dry run's DTensors both
+paths run on each device's sequence shard of q against whole keys
+(``ops._sharded``).
 
 ``decode_attention`` is one query token against a KV cache.  The JAX
 package writes it in jnp (no Pallas kernel), so the port writes it in
@@ -58,6 +60,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.device import is_dtensor
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import NEG_INF
 
@@ -84,10 +87,13 @@ def _attend_block(qb, kb, vb, ok, scale):
 
 
 def _plain_blocked(q, k, v, *, causal: bool, window: int | None,
-                   block_q: int) -> torch.Tensor:
-    """Grouped attention of q (B, S, Hq, hd), k (B, S, Hkv, hd) and v
-    (B, S, Hkv, hd_v) by query blocks: (B, S, Hq, hd_v)."""
+                   block_q: int, q_offset: int = 0) -> torch.Tensor:
+    """Grouped attention of q (B, S, Hq, hd), k (B, Sk, Hkv, hd) and v
+    (B, Sk, Hkv, hd_v) by query blocks: (B, S, Hq, hd_v).  q's rows sit
+    at positions ``q_offset ..`` of the keys' sequence (Sk = S and 0
+    but in the dry run's sequence-parallel shards)."""
     b, s, hq, hd = q.shape
+    sk = k.shape[1]
     hkv, hd_v = k.shape[2], v.shape[-1]
     g = hq // hkv
     bq = min(block_q, s)
@@ -98,8 +104,10 @@ def _plain_blocked(q, k, v, *, causal: bool, window: int | None,
     outs = []
     for q0 in range(0, s, bq):
         q1 = min(q0 + bq, s)
-        k0, k1 = fa_ops.block_key_range(q0, q1, s, causal, window)
-        ok = fa_ops.block_mask(q0, q1, k0, k1, causal, window, q.device)
+        k0, k1 = fa_ops.block_key_range(q0 + q_offset, q1 + q_offset, sk,
+                                        causal, window)
+        ok = fa_ops.block_mask(q0 + q_offset, q1 + q_offset, k0, k1, causal,
+                               window, q.device)
         args = (qT[:, :, :, q0:q1], kT[:, :, k0:k1], vT[:, :, k0:k1], ok,
                 scale)
         outs.append(checkpoint(_attend_block, *args, use_reentrant=False)
@@ -120,6 +128,12 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window is not None:
         causal = True
     if v.shape[-1] != q.shape[-1]:
+        if is_dtensor(q):
+            return fa_ops._sharded(
+                q, k, v, causal, window, block_q,
+                local=lambda ql, kl, vl, off: _plain_blocked(
+                    ql, kl, vl, causal=causal, window=window,
+                    block_q=block_q, q_offset=off))
         return _plain_blocked(q, k, v, causal=causal, window=window,
                               block_q=block_q)
     return fa_ops.flash_attention(q, k, v, causal=causal, window=window,

@@ -9,7 +9,9 @@ that counts parameters without making them.  Initialisers return numpy
 arrays drawn from a caller's ``np.random.Generator``; ``to_device`` turns
 a parameter tree of them into tensors.  ``chunked_softmax_xent`` is the
 LM's training loss: (block, V) float32 logits at a time, recomputed in
-backward as the reference's ``jax.checkpoint(one)`` recomputes them.
+backward as the reference's ``jax.checkpoint(one)`` recomputes them
+(on the dry run's DTensors it runs vocabulary-parallel on each
+device's rows, ``_sharded_xent``).
 
 ``gather_rows`` is the row gather of the token embedding and of every
 recsys table (``jnp.take`` and table indexing in the JAX package), with
@@ -30,12 +32,15 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.device import is_dtensor, is_fake
+
 __all__ = ["layer_norm", "rms_norm", "rope", "dense", "swiglu",
            "init_linear", "init_norm", "draw_linear", "full_fp32_matmul",
            "check_full_fp32_matmul", "to_device", "torch_dtype",
            "chunked_softmax_xent", "gather_rows", "scatter_rows",
+           "scatter_rows_static",
            "SCATTER_CHUNK",
-           "FakeArray", "AbstractRNG", "rng_or_abstract"]
+           "FakeArray", "AbstractRNG", "rng_or_abstract", "abstract_leaves"]
 
 #: model dtypes the port runs.  A bfloat16 parameter is drawn in float32
 #: and rounded by torch, as ``ml_dtypes`` rounds the JAX package's draw
@@ -72,6 +77,16 @@ class AbstractRNG:
 
 def rng_or_abstract(seed: int, abstract: bool):
     return AbstractRNG() if abstract else np.random.default_rng(seed)
+
+
+def abstract_leaves(tree, dtype):
+    """A tree of arrays and FakeArrays as FakeArrays of ``dtype`` (what
+    ``to_device`` would cast it to), for an abstract init."""
+    if isinstance(tree, dict):
+        return {k: abstract_leaves(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [abstract_leaves(v, dtype) for v in tree]
+    return FakeArray(tree.shape, dtype)
 
 
 def rms_norm(w: torch.Tensor, x: torch.Tensor,
@@ -132,6 +147,66 @@ def _xent_block(hb, lm_head, tb, mb):
     return torch.sum((lse - gold) * mb)
 
 
+def _count_all_reduce(t: torch.Tensor, mesh, dims) -> None:
+    """Issue (and drop) an all-reduce of ``t`` over mesh dims ``dims``:
+    the sharded loss's exchanges of per-row statistics, which the dry
+    run counts; on fake tensors their values carry nothing."""
+    from torch.distributed._functional_collectives import all_reduce
+    for d in dims:
+        all_reduce(t.detach(), "sum", (mesh, d))
+
+
+def _xent_block_local(hb, w, tb, mb, mesh, vocab_dims):
+    """``_xent_block`` on one device's rows and vocabulary shard (the
+    dry run's fake tensors): the row max, the row sum of exponentials
+    and the target's logit are the vocabulary-parallel partial results,
+    each all-reduced over the vocabulary's mesh dims."""
+    logits = (hb @ w).to(torch.float32)                     # (block, V_l)
+    m = logits.amax(dim=-1)
+    s = torch.exp(logits - m[:, None]).sum(dim=-1)
+    tl = tb.clamp(min=0, max=logits.shape[1] - 1)
+    gold = torch.gather(logits, 1, tl[:, None])[:, 0]
+    for t in (m, s, gold):
+        _count_all_reduce(t, mesh, vocab_dims)
+    return torch.sum((m + torch.log(s) - gold) * mb)
+
+
+def _sharded_xent(hidden, lm_head, targets, mask, block):
+    """``chunked_softmax_xent`` over DTensors (the dry run's): each device
+    takes its own rows of ``hidden`` and a vocabulary-parallel shard of
+    the ``lm_head`` (gathered over the data axes, as FSDP does), runs
+    the blocks over its rows, and the per-device sums are a partial sum
+    over the mesh."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = hidden.device_mesh
+    vocab = [i for i, p in enumerate(lm_head.placements) if p == Shard(1)]
+    w_pl = [Shard(1) if i in vocab else Replicate()
+            for i in range(mesh.ndim)]
+    w_grad = [Shard(1) if i in vocab else Partial()
+              for i in range(mesh.ndim)]
+    w = lm_head.redistribute(mesh, w_pl).to_local(grad_placements=w_grad)
+    # rows as the hidden state holds them, each row whole
+    row_pl = [Replicate() if p.is_partial() or p == Shard(1) else p
+              for p in hidden.placements]
+    hl = hidden.redistribute(mesh, row_pl).to_local()
+    rows = hl.shape[0]
+    tl = targets.redistribute(mesh, row_pl).to_local().long()
+    ml = mask.redistribute(mesh, row_pl).to_local()
+    nblk = max(rows // block, 1)
+    bl = rows // nblk
+    grad = torch.is_grad_enabled()
+    total = torch.zeros((), dtype=torch.float32, device=hl.device)
+    for i in range(nblk):
+        sl = slice(i * bl, (i + 1) * bl)
+        args = (hl[sl], w, tl[sl], ml[sl], mesh, vocab)
+        total = total + (checkpoint(_xent_block_local, *args,
+                                    use_reentrant=False)
+                         if grad else _xent_block_local(*args))
+    loss = DTensor.from_local(total, mesh, [Partial()] * mesh.ndim,
+                              run_check=False, shape=(), stride=())
+    return loss / torch.clamp(mask.sum(), min=1.0)
+
+
 def chunked_softmax_xent(hidden: torch.Tensor, lm_head: torch.Tensor,
                          targets: torch.Tensor, mask: torch.Tensor,
                          block: int = 1024) -> torch.Tensor:
@@ -146,6 +221,8 @@ def chunked_softmax_xent(hidden: torch.Tensor, lm_head: torch.Tensor,
     nblk = t // block
     if nblk * block != t:
         raise ValueError(f"T={t} not divisible by block={block}")
+    if is_dtensor(hidden):
+        return _sharded_xent(hidden, lm_head, targets, mask, block)
     targets = targets.long()
     grad = torch.is_grad_enabled()
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -168,24 +245,55 @@ def scatter_rows(rows: torch.Tensor, ids: torch.Tensor,
     """The (n_rows, D) sum of ``rows`` (N, D) into rows ``ids`` (N,), in
     an order fixed by the ids alone: a stable sort, an in-order sum of
     each chunk of up to ``SCATTER_CHUNK`` rows of one id, an in-order sum
-    of each id's chunk sums, and one write to each distinct row."""
+    of each id's chunk sums, and one write to each distinct row.
+
+    On fake tensors (the dry run's memory estimate) the run lengths have
+    no values: every chunk is taken for a distinct id (``nonzero`` and
+    ``unique_consecutive`` at their largest outputs), so the buffers are
+    allocated at their upper bounds; DTensors take
+    ``scatter_rows_static``."""
+    if is_dtensor(rows) or is_dtensor(ids):
+        return scatter_rows_static(rows, ids, n_rows)
     out = rows.new_zeros((n_rows, rows.shape[1]))
     n = ids.numel()
     if n == 0:
         return out
+    bound = is_fake(rows) or is_fake(ids)
     sorted_ids, order = torch.sort(ids, stable=True)
     pos = torch.arange(n, device=ids.device)
     first = torch.ones(n, dtype=torch.bool, device=ids.device)
     first[1:] = sorted_ids[1:] != sorted_ids[:-1]
     run_start = torch.cummax(torch.where(first, pos, 0), dim=0).values
     chunk_start = first | ((pos - run_start) % SCATTER_CHUNK == 0)
-    starts = torch.nonzero(chunk_start).flatten()
+    starts = (torch.nonzero(chunk_start) if not bound
+              else pos.new_empty((n, 1))).flatten()
     lengths = torch.diff(starts, append=starts.new_full((1,), n))
     sums = torch.segment_reduce(rows[order], "sum", lengths=lengths, axis=0)
-    uniq, counts = torch.unique_consecutive(sorted_ids[starts],
-                                            return_counts=True)
+    if bound:
+        uniq = sorted_ids[starts]
+        counts = torch.empty_like(starts)
+    else:
+        uniq, counts = torch.unique_consecutive(sorted_ids[starts],
+                                                return_counts=True)
     out[uniq] = torch.segment_reduce(sums, "sum", lengths=counts, axis=0)
     return out
+
+
+def scatter_rows_static(rows: torch.Tensor, ids: torch.Tensor, n_rows: int,
+                        out: torch.Tensor | None = None) -> torch.Tensor:
+    """``scatter_rows``'s sum with static shapes: one ``index_add_`` into
+    the (n_rows, D) zeros, the reference's ``segment_sum``.  The dry run
+    traces it on DTensors, which have no strategy for ``scatter_rows``'
+    sort, ``cummax`` and ``segment_reduce``; on real tensors it gives
+    ``scatter_rows``' sums (in another order of the adds where a run is
+    longer than ``SCATTER_CHUNK``)."""
+    if out is None:
+        out = rows.new_zeros((n_rows, rows.shape[1]))
+    if is_dtensor(rows):
+        # DTensor's in-place index_add_ re-places ``out`` without
+        # resharding its local tensor; the out-of-place op is sound
+        return torch.index_add(out, 0, ids, rows)
+    return out.index_add_(0, ids, rows)
 
 
 class _GatherRows(torch.autograd.Function):

@@ -11,22 +11,42 @@ and the Switch load-balancing aux loss are kept.  ``jax.lax.top_k``
 takes the lower expert id on ties, and so does the first k of a stable
 descending ``torch.sort`` (``torch.topk``'s tie order is unspecified).
 
-``moe_ffn_shard_map`` (explicit all-to-all dispatch over a mesh) waits
-for the distributed part of ROADMAP item 7.  With no mesh the reference
-runs the local path whatever ``dispatch`` says, and so does the port.
+``moe_ffn_shard_map`` is the reference's explicit dispatch over a mesh
+(``dispatch="shard_map"`` with the hints' ``"mesh"``): per position,
+local routing and capacity dispatch (``_local_dispatch``), an all-to-all
+sending each expert's rows to the position that holds it, the local
+experts, the reverse all-to-all and the local combine (``_combine``).
+One process drives every position, as ``distrib.collectives`` does: a
+tensor is split into its per-position blocks, each moved to its
+position's device, and the all-to-alls are copies between the lists.
+Where the token count does not divide over the mesh (decode), or
+without a mesh, the local path runs whatever ``dispatch`` says, as in
+the reference.
+
+On DTensors (the dry run's) ``moe_ffn`` runs ``_moe_sharded``: each
+device's own program over its tokens and its block of the experts, the
+layout the shard_map dispatch gives (experts over the mesh dims that
+shard the expert weights' expert dim, the expert width over the dims
+that shard it, tokens over the rest), with the all-to-alls and the
+reduction of a split expert width issued as collectives the dry run
+counts.  ``REPRO_MOE_SHARDMAP`` has no separate trace there.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import is_dtensor
+from repro_torch.distrib import collectives as C
+from repro_torch.distrib import hints as H
 from repro_torch.models import layers as L
 
-__all__ = ["MoEConfig", "moe_ffn", "init_moe_params"]
+__all__ = ["MoEConfig", "moe_ffn", "init_moe_params", "moe_ffn_shard_map"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,8 +58,8 @@ class MoEConfig:
     capacity_factor: float = 1.25
     first_dense_layers: int = 0  # deepseek: first 3 layers are dense FFN
     aux_loss_weight: float = 0.01
-    #: "gspmd" or "shard_map" in the reference; one device runs the
-    #: local dispatch for both
+    #: "gspmd": the single-program dispatch; "shard_map": the explicit
+    #: per-position dispatch over the hints' mesh (``moe_ffn_shard_map``)
     dispatch: str = "gspmd"
 
 
@@ -72,26 +92,32 @@ def _capacity(n_tokens: int, cfg: MoEConfig) -> int:
     return max(8, -(-c // 8) * 8)  # round up to a multiple of 8
 
 
-def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig):
-    """x: (T, D) -> (y: (T, D), aux_loss: float32 scalar)."""
-    t, d = x.shape
+def _route(router: torch.Tensor, x: torch.Tensor, cfg: MoEConfig):
+    """Router + top-k + Switch aux loss (shared by both dispatch paths):
+    (gates (T, K), expert ids (T, K), aux)."""
+    t = x.shape[0]
     e, k = cfg.n_experts, cfg.top_k
-    cap = _capacity(t, cfg)
-    dev = x.device
-
-    logits = x.to(torch.float32) @ params["router"]           # (T, E)
+    logits = x.to(torch.float32) @ router                    # (T, E)
     probs = torch.softmax(logits, dim=-1)
     srt = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, eidx = srt.values[:, :k], srt.indices[:, :k]       # (T, K)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
-
     # Switch aux loss: E * sum_e f_e * p_e, f_e from the routed counts
     me = probs.mean(dim=0)
-    counts = torch.zeros((e,), dtype=torch.float32, device=dev).index_add_(
+    counts = torch.zeros((e,), dtype=torch.float32,
+                         device=x.device).index_add_(
         0, eidx.reshape(-1), torch.ones((t * k,), dtype=torch.float32,
-                                        device=dev))
+                                        device=x.device))
     aux = cfg.aux_loss_weight * e * torch.sum(me * (counts / t))
+    return gates, eidx, aux
 
+
+def _local_dispatch(x: torch.Tensor, eidx: torch.Tensor, e: int, cap: int):
+    """Sort-based capacity dispatch of local tokens x (T, D): (buf (E,
+    cap, D), flat expert ids, safe ranks, keep)."""
+    t, d = x.shape
+    k = eidx.shape[-1]
+    dev = x.device
     # rank of each (token, slot) within its expert, via a stable sort
     flat_e = eidx.reshape(-1)                                 # (T*K,)
     sidx = torch.sort(flat_e, stable=True).indices
@@ -102,7 +128,6 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig):
     rank[sidx] = rank_sorted
     keep = rank < cap
     safe_rank = torch.where(keep, rank, 0)
-
     # dispatch into the (E, C, D) buffer.  The kept (expert, rank) pairs
     # are unique, and a dropped token adds an exact zero to its expert's
     # slot 0, so the accumulating scatter gives the reference's values in
@@ -115,18 +140,185 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig):
                                                           device=dev))
     buf = torch.zeros((e, cap, d), dtype=x.dtype, device=dev)
     buf.index_put_((flat_e, safe_rank), x_rep, accumulate=True)
+    return buf, flat_e, safe_rank, keep
 
-    # batched per-expert SwiGLU
-    h = F.silu(torch.bmm(buf, params["w_gate"])) \
-        * torch.bmm(buf, params["w_up"])
-    y_buf = torch.bmm(h, params["w_down"])
 
-    # combine
+def _experts(buf, w_gate, w_up, w_down):
+    """Batched per-expert SwiGLU of buf (E, C, D)."""
+    h = F.silu(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)
+    return torch.bmm(h, w_down)
+
+
+def _combine(y_buf, flat_e, safe_rank, keep, gates, t: int, k: int, d: int):
     y_tok = y_buf[flat_e, safe_rank]                          # (T*K, D)
     y_tok = y_tok * (gates.reshape(-1, 1) * keep[:, None]).to(y_tok.dtype)
-    y = y_tok.reshape(t, k, d).sum(dim=1)
+    return y_tok.reshape(t, k, d).sum(dim=1)
 
+
+def _shared(params: dict, x: torch.Tensor, y: torch.Tensor, cfg: MoEConfig):
     if cfg.n_shared:
         y = y + L.swiglu(params["shared_gate"], params["shared_up"],
                          params["shared_down"], x)
-    return y, aux
+    return y
+
+
+def _ep_axes(mesh) -> tuple[str, ...]:
+    return tuple(a for a in ("model", "data") if a in mesh.axis_names)
+
+
+def moe_ffn_shard_map(params: dict, x: torch.Tensor, cfg: MoEConfig, mesh):
+    """The explicit-collective MoE over ``mesh`` (a ``DeviceMesh``).
+
+    Tokens split over every position in mesh order; the experts over the
+    expert-parallel axes (``model`` then ``data``, as the reference's
+    ``P(("model", "data"))``), so member m of an expert group (its
+    index over those axes, ``model`` major) holds experts [m E/n_ep,
+    (m+1) E/n_ep).  Per position: local routing and dispatch into (E,
+    cap, D), an all-to-all to (E/n_ep, n_ep cap, D) on each member, the
+    resident experts, the reverse all-to-all, the local combine.  The
+    aux loss is the mean over positions.  Returns (y (T, D), aux) on
+    x's device; differentiable by autograd."""
+    t, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    names = mesh.axis_names
+    ep = _ep_axes(mesh)
+    n_ep = math.prod(mesh.shape[a] for a in ep)
+    if e % n_ep:
+        raise ValueError(f"{e} experts do not divide over {n_ep} positions")
+    n_dev = mesh.devices.size
+    t_loc = t // n_dev
+    e_loc = e // n_ep
+    cap = _capacity(t_loc, cfg)
+    coords = list(np.ndindex(*mesh.devices.shape))
+    member = {c: int(np.ravel_multi_index(
+        [c[names.index(a)] for a in ep], [mesh.shape[a] for a in ep]))
+        for c in coords}
+    groups: dict[tuple, list] = {}
+    for c in coords:
+        key = tuple(c[i] for i, a in enumerate(names) if a not in ep)
+        groups.setdefault(key, [None] * n_ep)[member[c]] = c
+    dev = {c: mesh.devices[c] for c in coords}
+    local = {}
+    for i, c in enumerate(coords):
+        xl = x[i * t_loc:(i + 1) * t_loc].to(dev[c])
+        gates, eidx, aux = _route(params["router"].to(dev[c]), xl, cfg)
+        buf, flat_e, rank, keep = _local_dispatch(xl, eidx, e, cap)
+        local[c] = (buf, flat_e, rank, keep, gates, aux)
+    back = {}
+    for members in groups.values():
+        # scatter expert rows to their owners: (E, cap, D) on each member
+        # -> (E/n_ep, n_ep cap, D)
+        got = C.all_to_all([local[m][0] for m in members], 0, 1)
+        ys = []
+        for j, (c, buf) in enumerate(zip(members, got)):
+            blk = slice(j * e_loc, (j + 1) * e_loc)
+            ys.append(_experts(buf, params["w_gate"][blk].to(dev[c]),
+                               params["w_up"][blk].to(dev[c]),
+                               params["w_down"][blk].to(dev[c])))
+        # return the rows to their sources (the inverse all-to-all)
+        back.update(zip(members, C.all_to_all(ys, 1, 0)))
+    outs = []
+    for c in coords:
+        _, flat_e, rank, keep, gates, _ = local[c]
+        outs.append(_combine(back[c], flat_e, rank, keep, gates, t_loc, k,
+                             d).to(x.device))
+    aux = C.pmean([local[c][5] for c in coords])[0].to(x.device)
+    return _shared(params, x, torch.cat(outs, dim=0), cfg), aux
+
+
+def _moe_sharded(params: dict, x, cfg: MoEConfig):
+    """``moe_ffn`` on DTensors (the dry run's): one device's program
+    (see the module docstring).  Expert-parallel mesh dims are those
+    that shard the experts of ``w_gate`` (E, D, F), tensor-parallel ones
+    those that shard its F; every other shard of the expert weights is
+    gathered (FSDP).  Tokens are gathered over the tensor-parallel dims
+    and split over every other dim, each token whole.  The all-to-alls and the reduction of a
+    split F are issued as collectives on the local tensors (values
+    carry nothing on fake tensors), the exchanged buffers are local
+    reshapes of the same size."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = x.device_mesh
+    nd = mesh.ndim
+    wg = params["w_gate"]
+    ep = [i for i, p in enumerate(wg.placements) if p == Shard(0)]
+    tp = [i for i, p in enumerate(wg.placements) if p == Shard(2)]
+
+    def local_w(w, f_dim):
+        pl = [Shard(0) if i in ep else Shard(f_dim) if i in tp
+              else Replicate() for i in range(nd)]
+        grad = [p if i in ep + tp else Partial() for i, p in enumerate(pl)]
+        return w.redistribute(mesh, pl).to_local(grad_placements=grad)
+
+    w_gate, w_up = local_w(wg, 2), local_w(params["w_up"], 2)
+    w_down = local_w(params["w_down"], 1)
+    router = params["router"]
+    if is_dtensor(router):
+        router = router.redistribute(
+            mesh, [Replicate()] * nd).to_local(
+            grad_placements=[Partial()] * nd)
+    # each token whole; every token of a tensor-parallel group on each
+    # of its devices; the tokens split over every other mesh dim (each
+    # expert-parallel device routes tokens of its own, as the shard_map
+    # dispatch's token spec over all axes)
+    x_pl = [Replicate() if i in tp
+            else Shard(0) if p.is_partial() or p == Shard(1) or p.is_replicate()
+            else p for i, p in enumerate(x.placements)]
+    x_grad = [Partial() if i in tp else p for i, p in enumerate(x_pl)]
+    xg = x.redistribute(mesh, x_pl)
+    xl = xg.to_local(grad_placements=x_grad)
+    t, d = xl.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cap = _capacity(t, cfg)
+    gates, eidx, aux = _route(router, xl, cfg)
+    buf, flat_e, rank, keep = _local_dispatch(xl, eidx, e, cap)
+    n_ep = math.prod(mesh.size(i) for i in ep)
+    e_loc = e // n_ep
+
+    def exchange(t_, dims):
+        for i in dims:
+            funcol.all_to_all_single(t_.detach().reshape(-1), None, None,
+                                     (mesh, i))
+
+    if ep:
+        exchange(buf, ep)
+        buf = buf.reshape(n_ep, e_loc, cap, d).transpose(0, 1).reshape(
+            e_loc, n_ep * cap, d)
+    y = _experts(buf, w_gate, w_up, w_down)
+    for i in tp:
+        funcol.all_reduce(y.detach(), "sum", (mesh, i))
+    if ep:
+        exchange(y, ep)
+        y = y.reshape(e_loc, n_ep, cap, d).transpose(0, 1).reshape(
+            e, cap, d)
+    out = _combine(y, flat_e, rank, keep, gates, t, k, d)
+    # back to the tokens' own layout (the rows return to their sources)
+    out = DTensor.from_local(out, mesh, x_pl, run_check=False,
+                             shape=xg.shape, stride=xg.stride()).redistribute(
+        mesh, [Replicate() if p.is_partial() else p for p in x.placements])
+    aux = DTensor.from_local(aux, mesh, [Partial("avg")] * nd,
+                             run_check=False, shape=(), stride=())
+    return _shared(params, x, out, cfg), aux
+
+
+def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig):
+    """x: (T, D) -> (y: (T, D), aux_loss: float32 scalar)."""
+    if is_dtensor(x):
+        return _moe_sharded(params, x, cfg)
+    if cfg.dispatch == "shard_map":
+        mesh = H.get("mesh")
+        if mesh is not None:
+            n_dev = mesh.devices.size
+            n_ep = math.prod(mesh.shape[a] for a in _ep_axes(mesh))
+            if (x.shape[0] % n_dev == 0 and x.shape[0] >= n_dev
+                    and cfg.n_experts % n_ep == 0):
+                return moe_ffn_shard_map(params, x, cfg, mesh)
+            # else: too few tokens (decode) or indivisible: the local path
+    t, d = x.shape
+    cap = _capacity(t, cfg)
+    gates, eidx, aux = _route(params["router"], x, cfg)
+    buf, flat_e, safe_rank, keep = _local_dispatch(x, eidx, cfg.n_experts,
+                                                   cap)
+    y_buf = _experts(buf, params["w_gate"], params["w_up"], params["w_down"])
+    y = _combine(y_buf, flat_e, safe_rank, keep, gates, t, cfg.top_k, d)
+    return _shared(params, x, y, cfg), aux

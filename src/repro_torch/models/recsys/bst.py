@@ -55,11 +55,10 @@ class BSTConfig:
         return self.embed_dim // self.n_heads
 
 
-def _draw_bst(cfg: BSTConfig, seed: int) -> dict:
+def _draw_bst(cfg: BSTConfig, rng) -> dict:
     """The parameter tree as float32 numpy arrays, drawn in the JAX
     package's order: each block's six products, the MLP, then the item
     table, the positional table and the head."""
-    rng = np.random.default_rng(seed)
     d = cfg.embed_dim
     blocks = []
     for _ in range(cfg.n_blocks):
@@ -90,11 +89,15 @@ def _draw_bst(cfg: BSTConfig, seed: int) -> dict:
     }
 
 
-def init_bst(cfg: BSTConfig, seed: int = 0, *, device=None) -> dict:
+def init_bst(cfg: BSTConfig, seed: int = 0, *, device=None,
+             abstract: bool = False) -> dict:
     """Seeded parameters on ``device`` (default ``"cuda"``), equal to the
-    JAX package's ``init_bst`` for the same seed."""
-    return L.to_device(_draw_bst(cfg, seed), resolve_device(device),
-                       cfg.tdtype)
+    JAX package's ``init_bst`` for the same seed; with ``abstract``,
+    FakeArrays (nothing drawn or placed)."""
+    tree = _draw_bst(cfg, L.rng_or_abstract(seed, abstract))
+    if abstract:
+        return L.abstract_leaves(tree, cfg.tdtype)
+    return L.to_device(tree, resolve_device(device), cfg.tdtype)
 
 
 def bst_logits(params: dict, cfg: BSTConfig, batch: dict, *,

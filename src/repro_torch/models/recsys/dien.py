@@ -27,7 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.device import resolve_device
+from repro_torch.device import is_dtensor, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.recsys.embedding import gather_rows
 from repro_torch.models.recsys.wide_deep import bce
@@ -67,12 +67,13 @@ def _gru_params(rng, d_in, d_h):
     }
 
 
-def init_dien(cfg: DIENConfig, seed: int = 0, *, device=None) -> dict:
+def init_dien(cfg: DIENConfig, seed: int = 0, *, device=None,
+              abstract: bool = False) -> dict:
     """Seeded parameters on ``device`` (default ``"cuda"``), equal to the
     JAX package's ``init_dien``: the MLP first, then the tables, the two
-    GRUs, the attention and auxiliary maps and the head."""
-    dev = resolve_device(device)
-    rng = np.random.default_rng(seed)
+    GRUs, the attention and auxiliary maps and the head; with
+    ``abstract``, FakeArrays (nothing drawn or placed)."""
+    rng = L.rng_or_abstract(seed, abstract)
     d_b = cfg.d_behavior
     d_in = cfg.gru_dim + d_b + cfg.n_profile
     mlp = []
@@ -80,7 +81,7 @@ def init_dien(cfg: DIENConfig, seed: int = 0, *, device=None) -> dict:
         mlp.append({"w": L.init_linear(rng, (d_in, h)),
                     "b": np.zeros((h,), np.float32)})
         d_in = h
-    return L.to_device({
+    tree = {
         "item_table": rng.normal(0, cfg.embed_dim ** -0.5,
                                  (cfg.item_vocab, cfg.embed_dim)
                                  ).astype(np.float32),
@@ -93,7 +94,10 @@ def init_dien(cfg: DIENConfig, seed: int = 0, *, device=None) -> dict:
         "aux_w": L.init_linear(rng, (cfg.gru_dim, d_b)),
         "mlp": mlp,
         "head": L.init_linear(rng, (d_in, 1)),
-    }, dev, cfg.tdtype)
+    }
+    if abstract:
+        return L.abstract_leaves(tree, cfg.tdtype)
+    return L.to_device(tree, resolve_device(device), cfg.tdtype)
 
 
 def _gru_cell(p, x, h, a=None):
@@ -110,6 +114,8 @@ def _gru_cell(p, x, h, a=None):
 def _gru(p, xs, mask, attn=None):
     """xs: (B, T, D); mask: (B, T); attn: (B, T) or None -> (last state
     (B, H), states (B, T, H))."""
+    if is_dtensor(xs):
+        return _gru_sharded(p, xs, mask, attn)
     b, t = xs.shape[0], xs.shape[1]
     h = torch.zeros((b, p["bz"].shape[0]), dtype=xs.dtype, device=xs.device)
     states = []
@@ -118,6 +124,31 @@ def _gru(p, xs, mask, attn=None):
         h = torch.where(mask[:, i, None], hn, h)
         states.append(h)
     return h, torch.stack(states, dim=1)
+
+
+def _gru_sharded(p, xs, mask, attn):
+    """``_gru`` on the dry run's DTensors: each device runs the recurrence
+    over its own rows of the batch (split over every mesh dim), the
+    cell's small weights whole on each; the weights' gradients are
+    partial sums over the devices."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = xs.device_mesh
+    rows = [Shard(0)] * mesh.ndim
+
+    def local(t):
+        return t.redistribute(mesh, rows).to_local()
+
+    pl = {k: w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Partial()] * mesh.ndim) if is_dtensor(w) else w
+        for k, w in p.items()}
+    h, states = _gru(pl, local(xs), local(mask),
+                     None if attn is None else local(attn))
+    b, t = xs.shape[0], xs.shape[1]
+    hd = h.shape[-1]
+    return (DTensor.from_local(h, mesh, rows, run_check=False,
+                               shape=(b, hd), stride=(hd, 1)),
+            DTensor.from_local(states, mesh, rows, run_check=False,
+                               shape=(b, t, hd), stride=(t * hd, hd, 1)))
 
 
 def _embed(params, items, cats):
@@ -153,16 +184,38 @@ def dien_logits(params: dict, cfg: DIENConfig, batch: dict,
 
     if not return_aux:
         return logit
-    # auxiliary loss: h_t should score e_{t+1} over a shuffled negative
-    proj = h1[:, :-1] @ params["aux_w"]                           # (B,T-1,2E)
+    if is_dtensor(h1):
+        return logit, _aux_sharded(params["aux_w"], h1, eb, mask)
+    return logit, _aux_loss(params["aux_w"], h1, eb, mask)
+
+
+def _aux_loss(aux_w, h1, eb, mask):
+    """The auxiliary loss: h_t should score e_{t+1} over a shuffled
+    negative (the next behaviour of the previous row)."""
+    proj = h1[:, :-1] @ aux_w                                     # (B,T-1,2E)
     nxt = eb[:, 1:]
     pos = torch.einsum("btd,btd->bt", proj, nxt).to(torch.float32)
     neg_e = torch.roll(nxt, 1, dims=0)           # cross-batch negatives
     neg = torch.einsum("btd,btd->bt", proj, neg_e).to(torch.float32)
     m = mask[:, 1:].to(torch.float32)
     aux = -(F.logsigmoid(pos) + F.logsigmoid(-neg)) * m
-    aux = torch.sum(aux) / torch.clamp(torch.sum(m), min=1.0)
-    return logit, aux
+    return torch.sum(aux) / torch.clamp(torch.sum(m), min=1.0)
+
+
+def _aux_sharded(aux_w, h1, eb, mask):
+    """``_aux_loss`` on the dry run's DTensors: each device over its own
+    rows (split over every mesh dim), the negatives rolled within them
+    (the global roll moves one row a device to its neighbour, which the
+    dry run does not count); the loss is the mean of the devices'."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = h1.device_mesh
+    rows = [Shard(0)] * mesh.ndim
+    w = aux_w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Partial()] * mesh.ndim)
+    aux = _aux_loss(w, *(t.redistribute(mesh, rows).to_local()
+                         for t in (h1, eb, mask)))
+    return DTensor.from_local(aux, mesh, [Partial("avg")] * mesh.ndim,
+                              run_check=False, shape=(), stride=())
 
 
 def dien_loss(params: dict, cfg: DIENConfig, batch: dict) -> torch.Tensor:

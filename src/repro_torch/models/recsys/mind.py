@@ -44,20 +44,24 @@ class MINDConfig:
         return L.torch_dtype(self.dtype)
 
 
-def init_mind(cfg: MINDConfig, seed: int = 0, *, device=None) -> dict:
+def init_mind(cfg: MINDConfig, seed: int = 0, *, device=None,
+              abstract: bool = False) -> dict:
     """Seeded parameters on ``device`` (default ``"cuda"``), equal to the
-    JAX package's ``init_mind`` for the same seed."""
-    dev = resolve_device(device)
-    rng = np.random.default_rng(seed)
+    JAX package's ``init_mind`` for the same seed; with ``abstract``,
+    FakeArrays (nothing drawn or placed)."""
+    rng = L.rng_or_abstract(seed, abstract)
     d = cfg.embed_dim
-    return L.to_device({
+    tree = {
         "item_table": rng.normal(0, d ** -0.5,
                                  (cfg.item_vocab, d)).astype(np.float32),
         "bilinear": L.init_linear(rng, (d, d)),
         # fixed (per-user-random in paper; shared learnable here) routing init
         "routing_init": rng.normal(0, 1.0, (cfg.seq_len, cfg.n_interests)
                                    ).astype(np.float32),
-    }, dev, cfg.tdtype)
+    }
+    if abstract:
+        return L.abstract_leaves(tree, cfg.tdtype)
+    return L.to_device(tree, resolve_device(device), cfg.tdtype)
 
 
 def _squash(v: torch.Tensor) -> torch.Tensor:

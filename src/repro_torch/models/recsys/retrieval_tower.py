@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.device import resolve_device
+from repro_torch.device import is_fake, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.recsys.embedding import gather_rows
 
@@ -40,10 +40,9 @@ class TowerConfig:
         return L.torch_dtype(self.dtype)
 
 
-def _draw_tower(cfg: TowerConfig, seed: int) -> dict:
+def _draw_tower(cfg: TowerConfig, rng) -> dict:
     """The parameter tree as float32 numpy arrays, drawn in the JAX
     package's order (MLP layers, then the item table)."""
-    rng = np.random.default_rng(seed)
     d_in = cfg.d_user_in
     mlp = []
     for h in (*cfg.hidden, cfg.embed_dim):
@@ -58,11 +57,15 @@ def _draw_tower(cfg: TowerConfig, seed: int) -> dict:
     }
 
 
-def init_tower(cfg: TowerConfig, seed: int = 0, *, device=None) -> dict:
+def init_tower(cfg: TowerConfig, seed: int = 0, *, device=None,
+               abstract: bool = False) -> dict:
     """Seeded parameters on ``device`` (default ``"cuda"``), equal to the
-    JAX package's ``init_tower`` for the same seed."""
-    return L.to_device(_draw_tower(cfg, seed), resolve_device(device),
-                       cfg.tdtype)
+    JAX package's ``init_tower`` for the same seed; with ``abstract``,
+    FakeArrays (nothing drawn or placed)."""
+    tree = _draw_tower(cfg, L.rng_or_abstract(seed, abstract))
+    if abstract:
+        return L.abstract_leaves(tree, cfg.tdtype)
+    return L.to_device(tree, resolve_device(device), cfg.tdtype)
 
 
 def user_embed(params: dict, cfg: TowerConfig,
@@ -118,7 +121,9 @@ def top_k(scores: torch.Tensor, k: int):
     is then ordered by key, ties to the lower id."""
     n = scores.shape[1]
     vals, idx = torch.topk(scores, min(k + 1, n), dim=1)
-    if 0 < k < n and bool((vals[:, k] == vals[:, k - 1]).any()):
+    # a fake tensor (the dry run's) has no values to tie: the plain order
+    if (0 < k < n and not is_fake(scores)
+            and bool((vals[:, k] == vals[:, k - 1]).any())):
         idx = _top_k_keyed(scores, k)
     else:
         idx = idx[:, :k]

@@ -48,14 +48,17 @@ class WideDeepConfig:
 
 
 def init_wide_deep(cfg: WideDeepConfig, seed: int = 0, *,
-                   device=None) -> dict:
+                   device=None, abstract: bool = False) -> dict:
     """Seeded parameters on ``device`` (default ``"cuda"``), equal to the
     JAX package's ``init_wide_deep`` for the same seed: the deep table
-    field by field, then the MLP, the head and the wide dense weights."""
-    dev = resolve_device(device)
+    field by field, then the MLP, the head and the wide dense weights;
+    with ``abstract``, FakeArrays (nothing drawn or placed)."""
     dt = cfg.tdtype
-    rng = np.random.default_rng(seed)
     shape = (cfg.vocab_per_field, cfg.embed_dim)
+    if abstract:
+        return _abstract_wide_deep(cfg, dt, shape)
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
     deep_table = torch.empty((cfg.n_sparse, *shape), dtype=dt, device=dev)
     for f in range(cfg.n_sparse):
         deep_table[f] = torch.from_numpy(
@@ -76,6 +79,25 @@ def init_wide_deep(cfg: WideDeepConfig, seed: int = 0, *,
         "bias": np.zeros((1,), np.float32),
     }, dev, dt)
     return {"deep_table": deep_table, **rest}
+
+
+def _abstract_wide_deep(cfg: WideDeepConfig, dt, shape) -> dict:
+    rng = L.AbstractRNG()
+    d_in = cfg.n_sparse * cfg.embed_dim + cfg.n_dense
+    mlp = []
+    for h in cfg.mlp:
+        mlp.append({"w": L.init_linear(rng, (d_in, h)),
+                    "b": L.FakeArray((h,), dt)})
+        d_in = h
+    return L.abstract_leaves({
+        "deep_table": L.FakeArray((cfg.n_sparse, *shape), dt),
+        "wide_table": L.FakeArray((cfg.n_sparse, cfg.vocab_per_field), dt),
+        "cross_table": L.FakeArray((cfg.n_cross, cfg.cross_vocab), dt),
+        "mlp": mlp,
+        "head": L.init_linear(rng, (d_in, 1)),
+        "wide_dense": L.init_linear(rng, (cfg.n_dense, 1)),
+        "bias": L.FakeArray((1,), dt),
+    }, dt)
 
 
 def _field_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

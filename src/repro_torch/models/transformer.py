@@ -42,8 +42,12 @@ functional copy of the whole cache on every step would not fit beside
 it on the card at the decode_32k shape (the reference's decode bundle
 donates the cache for the same reason).
 
-The reference's ``hint(...)`` calls place activations on a mesh and have
-no counterpart on one device, so they are left out.  ``block_q`` is the
+The reference's ``hint(...)`` calls are left out: on one device they
+are no-ops, and in the dry run DTensor's sharding propagation places
+the activations (pinning the reference's sequence-parallel
+``lm_activations`` there made the q/k/v reshapes unshardable over 16
+positions and tripled the trace's all-gathers; PERF.md §6).
+``block_q`` is the
 query block of flash's backward and of the plain MLA path,
 ``loss_block`` the loss's row block, ``remat`` steers training only;
 ``unroll`` (the reference's dry-run) is ignored, and so is ``remat ==
@@ -58,13 +62,14 @@ The two agree when S <= window or S % window == 0.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import resolve_device
+from repro_torch.device import is_dtensor, resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -413,7 +418,20 @@ def train_loss(params: dict, cfg: LMConfig, tokens: torch.Tensor,
     return loss + aux
 
 
-@torch.inference_mode()
+def _serving(fn):
+    """Run ``fn`` under ``torch.inference_mode()``, or under
+    ``torch.no_grad()`` where the parameters are DTensors (the dry run's;
+    inference mode does not take them)."""
+    @functools.wraps(fn)
+    def run(params, *args, **kwargs):
+        mode = (torch.no_grad() if is_dtensor(params["embed"])
+                else torch.inference_mode())
+        with mode:
+            return fn(params, *args, **kwargs)
+    return run
+
+
+@_serving
 def prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor, *,
             use_kernel: bool = True):
     """Run the backbone over a prompt (B, S), build the KV cache, and
@@ -543,7 +561,7 @@ def _decode_layers(cfg: LMConfig, stacked: dict, cache: dict, x, pos,
     return x
 
 
-@torch.inference_mode()
+@_serving
 def decode_step(params: dict, cfg: LMConfig, cache: dict,
                 token: torch.Tensor, pos: torch.Tensor):
     """One decode step.  token: (B,) int; pos: (B,) positions.

@@ -1,2 +1,3 @@
-"""Optimizer of the port: AdamW and learning-rate schedules (the JAX
-package's int8 gradient compression waits for ROADMAP item 7)."""
+"""Optimizer of the port: AdamW, learning-rate schedules and the int8
+gradient compression (``compression``: a library, as in the JAX
+package; no CLI flag uses it)."""

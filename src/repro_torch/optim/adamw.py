@@ -1,5 +1,6 @@
 """AdamW over parameter trees of tensors: a copy of the JAX package's
-``optim/adamw.py`` (its ZeRO-1 sharding hooks wait for ROADMAP item 7).
+``optim/adamw.py`` (its ZeRO-1 moment placement is
+``distrib.sharding.lm_opt_specs``).
 
 The update runs in float32 in the reference's order of operations: clip
 the gradients by their global norm, update the moments, correct their
@@ -11,7 +12,9 @@ every temporary of the JAX expression would take that again.  So the
 parameters and moments are updated in place and the gradients are
 consumed (they serve as scratch); the returned trees are the ones given.
 The bias corrections and the clip stay 0-d tensors on the device, so a
-step reads nothing back to the host.
+step reads nothing back to the host.  On DTensors (the dry run's) each
+gradient is first reduced to its parameter's placements, so the
+data-parallel reduction is part of the step.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.device import is_dtensor
 from repro_torch.tree import leaves, map_tree
 
 __all__ = ["AdamWConfig", "init_opt_state", "global_norm", "adamw_update"]
@@ -84,15 +88,21 @@ def adamw_update(cfg: AdamWConfig, params: Any, grads: Any, state: dict,
     """Returns (params, state, metrics), ``params`` and the moments
     updated in place and ``grads`` consumed; ``state["step"]`` is a new
     0-d tensor."""
-    gn = global_norm(grads)
+    flat_p = leaves(params)
+    flat_g = leaves(grads)
+    if flat_p and is_dtensor(flat_p[0]):
+        # sharded gradients come as partial sums: reduce each to its
+        # parameter's placements (the data-parallel reduce-scatter)
+        flat_g = [g.redistribute(p.device_mesh, p.placements)
+                  for g, p in zip(flat_g, flat_p, strict=True)]
+    gn = global_norm(flat_g)
     clip = torch.clamp(cfg.grad_clip / (gn + 1e-9), max=1.0)
     step = state["step"] + 1
     stepf = step.to(torch.float32)
     b1c = 1.0 - cfg.b1 ** stepf
     b2c = 1.0 - cfg.b2 ** stepf
     lr = cfg.lr * lr_scale
-    flat_p = leaves(params)
-    for p, g, m, v in zip(flat_p, leaves(grads), leaves(state["m"]),
+    for p, g, m, v in zip(flat_p, flat_g, leaves(state["m"]),
                           leaves(state["v"]), strict=True):
         _update_leaf(cfg, p, g, m, v, clip, b1c, b2c, lr)
     return params, {"m": state["m"], "v": state["v"], "step": step}, \
