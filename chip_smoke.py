@@ -264,6 +264,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      line per scope gives its syncs by frame, each ``vetted``,
      ``allowed`` (a fault ROADMAP section 4 lists, ``SYNC_FAULTS``) or
      ``unvetted``; an unvetted sync fails the phase.
+  18. (after phase 16) the engine's program cache on the card, over
+     phase 2's servers (``ServingEngine._compiled``: a CUDA graph per
+     stage and padded shape, ``serving/programs.py``).  Per knob: the
+     pad grid (8 to 128 in steps of 8) warmed with the depth variant
+     (every one of its 5 stages x 16 shapes a graph; a second warmup
+     builds 0), ``n_compiles``, the programs built and the
+     ``memory_reserved`` the warmup added; 200 mixed batches (sizes 1 to
+     128, classes from the cascade, every other one with a depth vector)
+     served through ``engine.serve`` under ``sanitizers.hot_path`` (no
+     program built, no unvetted sync), each list equal bit for bit to
+     eager calls of the same module-level stage functions, as at every
+     padded shape with and without depth; per-stage span ms, stage host
+     ms (a sleep kernel holding the card) and ``serve``'s wall ms at
+     batch 128, replayed beside eager; then phase 7's continuous path on
+     the graphs (512 requests inline), its lists equal to an eager
+     batch-once serve of the 512.  One ``phase 18: programs`` line per
+     knob.
   14. (last, after phase 5 and the profile, so that its numbers are
      its subprocesses' own) LM training on the card.
      ``python -m repro_torch.launch.train --arch tinyllama-1.1b --full
@@ -4122,6 +4139,216 @@ def sync_path(servers, batches, served, decode_step) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phase 18 --
+
+#: phase 18: mixed batches served under ``hot_path``, per knob
+PROGRAM_BATCHES = 200
+#: phase 18: the serving stages of one padded shape, the depth variant's
+#: rerank among them
+SERVE_STAGES = ("gather", "stage1", "stage2", "rerank", "rerank_dyn")
+
+
+def _grid_keys(engine) -> set:
+    """(stage, padded batch) of every serving program in the cache: the
+    gather's batch is its query rows' (its fifth argument), the other
+    stages' their first argument's."""
+    with engine._cache_lock:
+        keys = list(engine._cache)
+    out = set()
+    for key in keys:
+        name = key[0].split(":")[0]
+        if name in SERVE_STAGES:
+            shape = key[5][0] if name == "gather" else key[1][0]
+            out.add((name, shape[0]))
+    return out
+
+
+def _stage_calls(e, qt, pv, dv=None, timings=None) -> list:
+    """``engine.serve``'s four stages on the padded device tensors of one
+    batch, run eagerly: [(cache name, stage function, tensor arguments,
+    static keywords, output)], in order.  With ``timings``, each stage
+    is fenced and timed as the engine's spans time a replay
+    (``timings[<stage>_ms]``)."""
+    import torch
+    from repro_torch.device import fence
+    from repro_torch.serving import engine as eng
+    cfg = e.cfg
+    q, p = e._to_device(qt, fill=-1), e._to_device(pv, fill=1)
+    qids = torch.arange(q.shape[0], dtype=torch.int32, device=e.device)
+    kern = dict(n_docs=e.n_docs, block_p=e.block_p, block_d=e.block_d)
+    calls = []
+
+    def run(label, name, fn, args, kw):
+        if timings is not None:
+            fence(e.device)
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        if timings is not None:
+            fence(e.device)
+            timings[label] = (time.perf_counter() - t0) * 1e3
+        calls.append((name, fn, args, kw, out))
+        return out
+
+    ds, im, lo, hi, sd, s3 = run(
+        "gather_ms", "gather", eng._stage_gather,
+        (e.offsets, e.pdoc, e.pimp, e.pscore, q),
+        dict(cap=cfg.stream_cap, block_p=e.block_p, n_docs=e.n_docs))
+    if cfg.knob == "rho":
+        pool = run("stage1_ms", "stage1", eng._stage1_rho,
+                   (ds, im, lo, hi, p), dict(depth=cfg.rerank_depth, **kern))
+    else:
+        pool = run("stage1_ms", f"stage1:{e.max_k}", eng._stage1_k,
+                   (ds, im, lo, hi, p), dict(max_k=e.max_k, **kern))
+    s2 = run("stage2_ms", "stage2", eng._stage2, (sd, s3, e.doc_len, qids),
+             dict(n_docs=e.n_docs, n_terms=q.shape[1]))
+    if dv is None:
+        run("rerank_ms", "rerank", eng._stage_rerank, (s2, pool),
+            dict(depth=cfg.rerank_depth))
+    else:
+        run("rerank_ms", "rerank_dyn", eng._stage_rerank_dyn,
+            (s2, pool, e._to_device(dv, fill=1)),
+            dict(depth=cfg.rerank_depth))
+    return calls
+
+
+def _eager_ranked(e, qt, pv, dv=None, timings=None):
+    """The ranked lists of eager calls of the stage functions, as
+    ``engine.serve`` returns them (``timings``: as ``_stage_calls``)."""
+    from repro_torch.serving import engine as eng
+    r = _stage_calls(e, qt, pv, dv, timings)[-1][-1]
+    return eng._pad_ranked(r[:qt.shape[0]].cpu().numpy(),
+                           e.cfg.rerank_depth)
+
+
+def programs_path(servers, batches) -> None:
+    """Phase 18: the engine's program cache on the card over phase 2's
+    servers: the warmed pad grid, 200 mixed batches under ``hot_path``
+    held bit for bit against eager stage calls, every padded shape
+    likewise, replayed against eager times, and the continuous path on
+    the graphs against an eager batch-once serve."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis import sanitizers
+
+    terms = np.concatenate(batches)
+    rng = np.random.default_rng(18)
+    for knob in ("rho", "k"):
+        server = servers[knob][0]
+        e = server.engine
+        qlen = terms.shape[1]
+        grid = list(range(e.batch_multiple, BATCH + 1, e.batch_multiple))
+        # ---- the pad grid, the depth variant included ----
+        torch.cuda.synchronize()
+        n_before, r0 = e.n_compiles, torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        built = e.warmup(grid, qlen, with_depth=True)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        added = torch.cuda.memory_reserved() - r0
+        want = {(st, b) for st in SERVE_STAGES for b in grid}
+        if not want <= _grid_keys(e):
+            raise AssertionError(f"phase 18: {knob}: grid programs missing: "
+                                 f"{sorted(want - _grid_keys(e))}")
+        if e.warmup(grid, qlen, with_depth=True) != 0:
+            raise AssertionError(f"phase 18: {knob}: a warm grid built")
+        stats = e.program_stats()
+        if stats["graphs"] != stats["programs"]:
+            raise AssertionError(f"phase 18: {knob}: a program is not a "
+                                 f"CUDA graph: {stats}")
+        # ---- 200 mixed batches under hot_path ----
+        plan = []
+        for i in range(PROGRAM_BATCHES):
+            n = int(rng.integers(1, BATCH + 1))
+            lo = int(rng.integers(0, terms.shape[0] - n + 1))
+            qt = terms[lo:lo + n]
+            pv = server.params_of(server.predict_classes(qt))
+            dv = (rng.integers(1, RERANK_DEPTH + 1, n) if i % 2 else None)
+            plan.append((qt, pv, dv))
+        replays0 = e.program_stats()["replays"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with sanitizers.hot_path(e, allowed_syncs=SYNC_FAULTS) as rec:
+            served = [e.serve(qt, pv, depth_vec=dv)[0] for qt, pv, dv in plan]
+        mixed_s = time.perf_counter() - t0
+        if rec.new_compiles != 0:
+            raise AssertionError(f"phase 18: {knob}: {rec.new_compiles} "
+                                 "programs built on a warm grid")
+        for i, ((qt, pv, dv), got) in enumerate(zip(plan, served)):
+            if not np.array_equal(got, _eager_ranked(e, qt, pv, dv)):
+                raise AssertionError(f"phase 18: {knob}: mixed batch {i} "
+                                     "differs from the eager stages")
+        # ---- every padded shape, replayed against eager ----
+        for b in grid:
+            qt = terms[:b]
+            pv = server.params_of(server.predict_classes(qt))
+            dv = rng.integers(1, RERANK_DEPTH + 1, b)
+            for d in (None, dv):
+                if not np.array_equal(e.serve(qt, pv, depth_vec=d)[0],
+                                      _eager_ranked(e, qt, pv, d)):
+                    raise AssertionError(
+                        f"phase 18: {knob}: batch {b} depth "
+                        f"{d is not None}: replayed differs from eager")
+        # ---- replayed beside eager at BATCH ----
+        qt = batches[1]
+        pv = server.params_of(server.predict_classes(qt))
+        reps = 15
+        rep_stage, rep_wall, eag_stage, eag_wall = [], [], [], []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            _, tm = e.serve(qt, pv)
+            rep_wall.append((time.perf_counter() - t0) * 1e3)
+            rep_stage.append(tm)
+            tm = {}
+            t0 = time.perf_counter()
+            _eager_ranked(e, qt, pv, timings=tm)
+            eag_wall.append((time.perf_counter() - t0) * 1e3)
+            eag_stage.append(tm)
+        calls = _stage_calls(e, qt, pv)
+        host = {}
+        for name, fn, a, kw, _ in calls:
+            prog = e._compiled(name, fn, a, kw)
+            host[name.split(":")[0]] = dict(
+                replayed=host_ms(lambda p=prog, a=a: p(*a)),
+                eager=host_ms(lambda fn=fn, a=a, kw=kw: fn(*a, **kw)))
+        med = statistics.median
+        stage_ms = {k: dict(replayed=med(t[k] for t in rep_stage),
+                            eager=med(t[k] for t in eag_stage))
+                    for k in ("gather_ms", "stage1_ms", "stage2_ms",
+                              "rerank_ms")}
+        # ---- the continuous path on the graphs ----
+        q512 = terms
+        ref = _eager_ranked(e, q512, server.params_of(
+            server.predict_classes(q512)))
+        res, st, wall, got, _ = _continuous_run(server, q512, "inline")
+        if not np.array_equal(np.stack([r["ranked"] for r in res]), ref):
+            raise AssertionError(f"phase 18: {knob}: continuous on graphs "
+                                 "differs from an eager batch-once serve")
+        want_tk = st["n_finalize_calls"] if knob == "rho" else 0
+        if got != dict(impact_scan=st["n_chunk_calls"], topk=want_tk):
+            raise AssertionError(f"phase 18: {knob}: continuous launches "
+                                 f"{got}, chunks {st['n_chunk_calls']}")
+        stats = e.program_stats()
+        line = dict(
+            grid=[grid[0], grid[-1], e.batch_multiple],
+            n_compiles=e.n_compiles, built_by_warmup=built,
+            built_before=n_before, grid_programs=len(want),
+            expected_grid_programs=f"{len(SERVE_STAGES)} stages x "
+                                   f"{len(grid)} shapes",
+            warmup_s=warm_s, memory_reserved_added_bytes=added,
+            static_bytes=stats["static_bytes"], graphs=stats["graphs"],
+            replays=stats["replays"],
+            mixed=dict(batches=PROGRAM_BATCHES, new_compiles=0,
+                       replays=stats["replays"] - replays0,
+                       syncs=(None if rec.syncs is None
+                              else rec.syncs.by_frame()),
+                       queries_per_s=sum(len(p[0]) for p in plan) / mixed_s),
+            stage_ms=stage_ms, stage_host_ms=host,
+            serve_wall_ms=dict(replayed=med(rep_wall), eager=med(eag_wall)),
+            continuous=dict(requests=len(q512), launches=got,
+                            chunks=st["n_chunk_calls"], qps=len(res) / wall))
+        log(f"phase 18: programs {knob}: " + json.dumps(line))
+
+
 def _busy_us(events) -> float:
     """Length of the union of the events' [start, end] intervals (us)."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -4711,6 +4938,9 @@ def main() -> int:
     del decode_step
     torch.cuda.empty_cache()
     log(f"phase 16: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    programs_path(servers, batches)
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     distrib_path(dev)
     log(f"phase 17: the card's checks {time.perf_counter() - t0:.1f} s")

@@ -13,18 +13,20 @@ Passes:
   registry the runtime mode shares)
 * ``hostsync`` -- stream syncs in hot-path scopes, in torch idiom
   (``repro_torch.analysis.hostsync``)
+* ``recompile`` -- graph-capture hazards in the scopes the engine's
+  program cache captures (``repro_torch.analysis.recompile``, the
+  counterpart of the reference's pass of that name)
 
-The JAX package's ``recompile`` pass (and its ``compile_sentinel``) has
-no counterpart yet: the port traces nothing, and its counterpart is the
-graph-capture hazard pass of ROADMAP item 8.  Its ``pallas`` pass has
-none either: the port's kernels are CUDA C++, which a Python AST cannot
-read, and ``chip_smoke.py``'s phase 1 holds them against their plain
-versions.
+The JAX package's ``pallas`` pass has no counterpart: the port's kernels
+are CUDA C++, which a Python AST cannot read, and ``chip_smoke.py``'s
+phase 1 holds them against their plain versions.
 
 Runtime sanitizers (import separately -- they import torch):
 ``repro_torch.analysis.sanitizers`` -- ``no_syncs`` (torch's sync debug
 mode on the card, each sync's frame held against the vetted scopes),
-``lock_order`` (instrumented locks + deadlock-cycle detection).
+``compile_sentinel`` and ``hot_path`` (no program built in a block, and
+on the card no unvetted sync either), ``lock_order`` (instrumented
+locks + deadlock-cycle detection).
 
 Vetted exceptions live in ``src/repro_torch/analysis/baseline.json``,
 each with a note; the CLI fails only on findings not covered there.
@@ -35,7 +37,7 @@ from __future__ import annotations
 import ast
 import os
 
-from repro_torch.analysis import hostsync, locks
+from repro_torch.analysis import hostsync, locks, recompile
 from repro_torch.analysis.findings import Finding
 
 __all__ = ["ALL_PASSES", "DEFAULT_BASELINE", "analyze_paths",
@@ -44,6 +46,7 @@ __all__ = ["ALL_PASSES", "DEFAULT_BASELINE", "analyze_paths",
 ALL_PASSES = {
     locks.PASS_NAME: locks,
     hostsync.PASS_NAME: hostsync,
+    recompile.PASS_NAME: recompile,
 }
 
 #: the port's committed allowlist

@@ -23,7 +23,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis",
         description="AST invariant analyzer of the port (locks / "
-                    "hostsync)")
+                    "hostsync / recompile)")
     ap.add_argument("paths", nargs="*", default=["src/repro_torch"],
                     help="files or directories to analyze (default: "
                          "src/repro_torch)")

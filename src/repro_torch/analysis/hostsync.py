@@ -26,7 +26,9 @@ fails.  What no AST can see -- ``int(t)`` or ``bool(t)`` of a CUDA
 tensor, a data-dependent shape (``nonzero``, boolean masks,
 ``unique``) -- the runtime sanitizer ``sanitizers.no_syncs`` catches.
 
-Hot scopes: the engine outside construction and warmup, the service's
+Hot scopes: the engine outside construction and warmup, its captured
+programs (``serving/programs.py``: a build runs on the serving path
+when a shape is first served), the service's
 ``_exec_loop`` and ``_run_batch``, the scheduler's ``_chunk_step``,
 ``kernels/``, ``obs/trace.py`` and ``obs/metrics.py`` (the reference's),
 plus the LM decode path: ``decode_step`` and its decode-only helpers in
@@ -47,6 +49,7 @@ PASS_NAME = "hostsync"
 HOT_PATHS: tuple[tuple[str, tuple[str, ...] | None, tuple[str, ...]], ...] = (
     ("serving/engine.py", None,
      ("__init__", "warmup", "warmup_shape", "padded_batch")),
+    ("serving/programs.py", None, ()),
     ("serving/service.py", ("_exec_loop", "_run_batch"), ()),
     ("serving/sched/scheduler.py", ("_chunk_step",), ()),
     ("kernels/", None, ()),

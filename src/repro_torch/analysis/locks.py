@@ -1,7 +1,8 @@
 """Lock-discipline checker: guarded attributes stay under their lock.
 A copy of the JAX package's ``analysis/locks.py``: the port's serving
 classes carry the reference's names and locks, so the registry applies
-to them as it stands.
+to them as it stands, with one entry of the port's own at its end (the
+captured program's lock, ``serving/programs.py``).
 
 The serving path runs four concurrent threads (svc-admit, svc-exec,
 svc-warmup, plus the online controller), coordinated by a handful of
@@ -90,6 +91,11 @@ LOCK_REGISTRY: tuple[LockSpec, ...] = (
              # again via value() would deadlock — threading.Lock is not
              # re-entrant)
              assume_held=("counters",)),
+    # the port's own, after the reference's: a captured program's lock
+    # (its graph pool's, shared by the programs of one padded shape):
+    # one build or call at a time from the copy-in to the copy-out (a
+    # leaf but for the kernel build lock under a first launch)
+    LockSpec("GraphProgram", "_lock", ("_replays", "_pool")),
 )
 
 

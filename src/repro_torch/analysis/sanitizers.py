@@ -21,6 +21,17 @@ imported by the serving modules, and nothing in them is hooked for it.
   call sites the static pass holds.  On exit it raises ``SyncError``
   if a sync is neither vetted nor ``allowed`` (a known fault, listed in
   ROADMAP section 4).  Read ``SyncRecord.by_frame()`` for the report.
+* ``compile_sentinel(*probes, allowed=0)`` -- the reference's:
+  snapshots compile counters before the block and raises
+  ``RecompileError`` after it if more than ``allowed`` programs were
+  built.  Probes: an engine (reads ``n_compiles``, the programs its
+  shape-keyed cache built) or any zero-argument callable returning an
+  int.
+* ``hot_path(*probes, allowed=0)`` -- the serving path's invariant in
+  one guard, as the reference's (``no_transfers`` plus the sentinel):
+  ``no_syncs`` plus ``compile_sentinel``.  ``no_syncs`` is armed when a
+  probe is an engine on a CUDA device; on the CPU there is no stream to
+  wait for, and the sentinel is armed alone.
 * ``lock_order(*objects)`` -- a copy of the reference's: wraps the
   locks the static registry (``repro_torch.analysis.locks.
   LOCK_REGISTRY``) declares on the given objects with instrumented
@@ -46,8 +57,9 @@ from repro_torch.analysis import DEFAULT_BASELINE, hostsync
 from repro_torch.analysis.findings import load_baseline
 from repro_torch.analysis.locks import LOCK_REGISTRY
 
-__all__ = ["SyncError", "LockOrderError", "Sync", "SyncRecord",
-           "VETTED_HELPERS", "vetted_lines", "no_syncs", "lock_order",
+__all__ = ["SyncError", "RecompileError", "LockOrderError", "Sync",
+           "SyncRecord", "CompileRecord", "VETTED_HELPERS", "vetted_lines",
+           "no_syncs", "compile_sentinel", "hot_path", "lock_order",
            "LockOrderGraph", "InstrumentedLock"]
 
 #: the package directory: a frame under it is the port's
@@ -68,6 +80,10 @@ VETTED_HELPERS = {
 class SyncError(AssertionError):
     """A guarded block waited for the device at a frame that is neither
     vetted nor allowed."""
+
+
+class RecompileError(AssertionError):
+    """A guarded block built more programs than allowed."""
 
 
 class LockOrderError(AssertionError):
@@ -193,6 +209,68 @@ def no_syncs(*, allowed=(), baseline: str = DEFAULT_BASELINE):
         raise SyncError(f"{len(bad)} unvetted sync(s) at " + "; ".join(frames)
                         + ": keep the stage on the device, or vet the call "
                         "in the baseline with a note")
+
+
+# ----------------------------------------------------- compile sentinel --
+
+def _as_probe(p):
+    """A probe as a zero-argument callable returning an int."""
+    if hasattr(p, "n_compiles"):
+        return lambda: p.n_compiles
+    if callable(p):
+        return p
+    raise TypeError(f"compile sentinel probe {p!r} is neither an engine "
+                    "(n_compiles) nor a callable")
+
+
+class CompileRecord:
+    """Filled in when the sentinel block exits (``syncs``: the
+    ``no_syncs`` record of a ``hot_path`` on the card, else None)."""
+
+    def __init__(self):
+        self.new_compiles = None
+        self.syncs: SyncRecord | None = None
+
+
+@contextlib.contextmanager
+def compile_sentinel(*probes, allowed: int = 0):
+    """Raise ``RecompileError`` if more than ``allowed`` new programs
+    are built across the block, summed over all probes."""
+    fns = [_as_probe(p) for p in probes]
+    if not fns:
+        raise TypeError("compile_sentinel needs at least one probe")
+    start = [f() for f in fns]
+    rec = CompileRecord()
+    yield rec                      # body exceptions propagate unchecked
+    rec.new_compiles = sum(f() - s for f, s in zip(fns, start))
+    if rec.new_compiles > allowed:
+        raise RecompileError(
+            f"{rec.new_compiles} new program(s) built inside a "
+            f"compile_sentinel block (allowed {allowed}): a shape off the "
+            "pad grid, or a static keyword that varies, defeated the "
+            "program cache")
+
+
+def _on_card(probes) -> bool:
+    return any(getattr(getattr(p, "device", None), "type", None) == "cuda"
+               for p in probes)
+
+
+@contextlib.contextmanager
+def hot_path(*probes, allowed: int = 0, allowed_syncs=(),
+             baseline: str = DEFAULT_BASELINE):
+    """The serving-path invariant in one guard: no unvetted sync (on the
+    card: ``no_syncs`` with ``allowed_syncs``) and at most ``allowed``
+    new programs.  On the CPU there is no stream to sync with, and only
+    the sentinel is armed."""
+    with contextlib.ExitStack() as stack:
+        syncs = (stack.enter_context(no_syncs(allowed=allowed_syncs,
+                                              baseline=baseline))
+                 if _on_card(probes) else None)
+        rec = stack.enter_context(compile_sentinel(*probes,
+                                                   allowed=allowed))
+        rec.syncs = syncs
+        yield rec
 
 
 # --------------------------------------------------------- lock order --

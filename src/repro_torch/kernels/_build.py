@@ -15,18 +15,21 @@ Nothing here runs at import: the CPU tests import every module, so
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import re
 import shutil
 import subprocess
+import sys
 import threading
 from pathlib import Path
 
 import torch
 
-__all__ = ["KERNELS", "build_all", "check", "check_no_grad", "library",
+__all__ = ["KERNELS", "build_all", "capture_tally", "check",
+           "check_no_grad", "count_replay", "counted_in_capture", "library",
            "nvcc_path", "operand", "stream"]
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -52,6 +55,9 @@ KERNELS = {
 _lock = threading.Lock()
 #: each loaded launcher, read without the lock once it is set
 _launchers: dict[str, object] = {}
+#: ``.d``: the calling thread's launch tally while it builds a captured
+#: program (``capture_tally``), absent otherwise
+_tally = threading.local()
 
 
 def nvcc_path() -> str:
@@ -182,3 +188,45 @@ def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
             f"the {name} kernel has no backward and an input requires "
             "grad: call it under torch.no_grad(), on detached inputs, or "
             "through a differentiable route")
+
+
+# ------------------------------------------------ launches under capture --
+# A wrapper counts a launch in its module's ``n_launches``.  While a
+# thread builds a captured program (``serving/programs.py``), its
+# launches enqueue nothing on the device: they go into the build's tally
+# instead, and every replay of the program adds the tally to the
+# counters.  A counter then counts the kernels a served stage ran,
+# eagerly or replayed, and none that a build ran.
+
+def counted_in_capture(module: str, route: str | None = None) -> bool:
+    """Put one launch of the kernel of ``module`` (its wrapper module's
+    ``__name__``; ``route`` for a kernel that counts by route) into the
+    calling thread's build tally and return True; return False when the
+    thread builds no program, and the wrapper counts the launch itself."""
+    tally = getattr(_tally, "d", None)
+    if tally is None:
+        return False
+    tally[(module, route)] = tally.get((module, route), 0) + 1
+    return True
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """Within the block, the calling thread's launches go into the
+    yielded dict ``{(module, route): launches}``, not the counters."""
+    prev = getattr(_tally, "d", None)
+    _tally.d = tally = {}
+    try:
+        yield tally
+    finally:
+        _tally.d = prev
+
+
+def count_replay(tally: dict) -> None:
+    """Add a captured program's tally to the wrappers' counters: one
+    replay runs every launch its capture recorded."""
+    for (module, route), n in tally.items():
+        mod = sys.modules[module]
+        mod.n_launches += n
+        if route is not None:
+            mod.route_launches[route] = mod.route_launches.get(route, 0) + n

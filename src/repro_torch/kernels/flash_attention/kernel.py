@@ -192,9 +192,10 @@ def _launch(q, k, v, out, strides, b, s, hq, g, hd, causal, window):
         int(causal), 0 if window is None else int(window), hd ** -0.5,
         _ROUTE_OUT, _build.stream(out.device))
     _build.check(err, "flash_attention")
-    n_launches += 1
     last_route = ROUTES[_route_code.value]
-    route_launches[last_route] = route_launches.get(last_route, 0) + 1
+    if not _build.counted_in_capture(__name__, last_route):
+        n_launches += 1
+        route_launches[last_route] = route_launches.get(last_route, 0) + 1
     return out
 
 

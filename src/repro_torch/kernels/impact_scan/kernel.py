@@ -15,7 +15,8 @@ kernel's work.
 
 ``impact_scan`` launches the kernel on a CUDA tensor and runs the plain
 version (``impact_scan_plain``) on a CPU tensor; there is no fallback
-from one to the other.  ``n_launches`` counts kernel launches.
+from one to the other.  ``n_launches`` counts kernel launches (a
+captured program's at each replay: ``_build.counted_in_capture``).
 """
 
 from __future__ import annotations
@@ -144,5 +145,6 @@ def impact_scan(doc_stream: torch.Tensor, impact_stream: torch.Tensor,
                  qn, p, n_docs, bp, n_p, bd, n_d,
                  _build.stream(dev))
     _build.check(err, "impact_scan")
-    n_launches += 1
+    if not _build.counted_in_capture(__name__):
+        n_launches += 1
     return (out, stats) if with_stats else out

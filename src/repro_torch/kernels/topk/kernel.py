@@ -15,7 +15,8 @@ The global top-k is contained in the union of per-block top-kp iff
 k <= kp, and kp is limited to [1, KP_MAX].
 
 ``block_topk`` launches the kernel on a CUDA tensor and runs
-``block_topk_plain`` on a CPU tensor; ``n_launches`` counts launches.
+``block_topk_plain`` on a CPU tensor; ``n_launches`` counts launches (a
+captured program's at each replay: ``_build.counted_in_capture``).
 """
 
 from __future__ import annotations
@@ -99,5 +100,6 @@ def block_topk(scores: torch.Tensor, *, kp: int, block_n: int = 4096):
     err = launch(s.data_ptr(), vals.data_ptr(), idxs.data_ptr(), qn, n, bn,
                  n_b, kp, _build.stream(dev))
     _build.check(err, "topk")
-    n_launches += 1
+    if not _build.counted_in_capture(__name__):
+        n_launches += 1
     return vals, idxs

@@ -14,7 +14,11 @@ mesh-sharded engine (docs over 'model', request batches over 'data')
 via ``ShardedEngineBackend``; on the CPU or one card pair it with
 ``--force-host-devices`` to lay the mesh's positions over the one
 device.  Reports latency percentiles with the queue-delay vs
-service-time breakdown, mean parameter, and envelope compliance.
+service-time breakdown, mean parameter, and envelope compliance.  The
+summary line's ``compiles=`` counts the programs the engine's cache
+built, one per stage and padded shape (CUDA graphs on the card), the
+JAX driver's count on the same flags; the sharded engine runs eagerly
+and reports 0.
 
 The warmup policy persists its padded-shape census to ``--census`` on
 ``stop()`` and reloads it at construction.  The default lies under the

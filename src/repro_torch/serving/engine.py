@@ -19,35 +19,48 @@ route: the hand-written kernels on a CUDA device, their plain versions
 on the CPU.  Everything else is plain torch, where the JAX engine runs
 jnp.
 
-PyTorch runs eagerly and this engine keeps no program cache, so
-``n_compiles`` and the ``engine.compiles`` counter stay 0; capturing a
-CUDA graph per padded shape is later work.  Each stage runs inside an
-``engine.<name>`` span (``bind_obs``; the JAX engine's names) and counts
-one dispatch; its timing is the span's, fenced inside the span on the
-calling thread's current CUDA stream, so a stage of one service thread
-does not wait for another thread's work.  The ranked lists leave the
-device once, through ``.cpu().numpy()``.
+Every stage runs through a shape-keyed program cache, the port of the
+JAX engine's AOT executable cache (``_compiled``): the key is the stage's
+name and its tensor arguments' shapes and dtypes, static configuration
+goes by keyword, and the predicted parameters are tensors, so a padded
+batch shape builds each stage's program once whatever its mix of
+classes.  On a CUDA device a program is a CUDA graph captured once and
+replayed (``serving/programs.py``); on the CPU it is the stage function
+itself.  ``n_compiles`` (and the ``engine.compiles`` counter) counts the
+programs built, the JAX engine's count on the same calls, and
+``warmup``/``warmup_shape`` build the pad grid ahead of traffic.  Each
+stage runs inside an ``engine.<name>`` span (``bind_obs``; the JAX
+engine's names) and counts one dispatch; its timing is the span's,
+fenced inside the span on the calling thread's current CUDA stream, so a
+stage of one service thread does not wait for another thread's work; a
+build runs before the span, as the JAX engine compiles outside it.  The
+ranked lists leave the device once, through ``.cpu().numpy()``.
 Stage-2 noise qids are the query's batch position, as in the JAX engine.
 
 ``ShardedServingEngine`` runs the same stages over a ``DeviceMesh``:
 docs split in equal ranges over the ``model`` axis, request rows over
 the data axes, and each shard runs ``impact_scan`` and ``topk`` on its
 own doc-range partition of the streams.  One process drives every
-shard, as the JAX engine's single controller drives its mesh.
+shard, as the JAX engine's single controller drives its mesh.  Its
+stages run eagerly (``_spanned``) and its ``n_compiles`` stays 0: their
+bodies take per-shard lists and close over them, which a key of tensor
+shapes cannot hold.
 
 ``SchedPrograms`` is the continuous scheduler's execution surface over
 the same engine (``serving/sched``): four stage functions -- gather,
 refill, chunk, finalize -- whose shapes are fixed by the slot table, so
 any admit/retire churn runs the same kernels at the same shapes.  The
 chunk runs ``impact_scan`` on a (slots, chunk_p) window of the table;
-the finalize runs ``topk`` on a group of ``grain`` finished rows.
-``ShardedSchedPrograms`` is its form over the sharded engine.
+the finalize runs ``topk`` on a group of ``grain`` finished rows.  The
+four go through the engine's program cache.  ``ShardedSchedPrograms``
+is its form over the sharded engine, eager as that engine is.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 
 import numpy as np
 import torch
@@ -64,9 +77,19 @@ from repro_torch.retrieval.index import (block_doc_bounds, partition_cap,
                                          partition_postings,
                                          partition_scored_postings)
 from repro_torch.serving import bucketing
+from repro_torch.serving.programs import GraphPool, build_program
 
 __all__ = ["SchedPrograms", "SchedState", "ServingEngine",
            "ShardedSchedPrograms", "ShardedServingEngine"]
+
+
+class _PendingCompile:
+    """In-flight marker in the program cache (see ``_compiled``)."""
+
+    def __init__(self):
+        self.ready = threading.Event()
+        self.exe = None
+        self.err: BaseException | None = None
 
 
 def _pad_ranked(ranked: np.ndarray, depth: int) -> np.ndarray:
@@ -157,15 +180,25 @@ def _sched_refill(ds_b, im_b, lo_b, hi_b, sd_b, s3_b, acc, slot_idx,
                   ds, im, lo, hi, sd, s3):
     """Install a refill group's gathered rows into its slots and zero
     their accumulator rows, out of place: the old state stays whole if
-    any copy raises.  ``slot_idx`` holds only real slots (the caller
-    drops the group's padding on the host)."""
-    return (ds_b.index_copy(0, slot_idx, ds),
-            im_b.index_copy(0, slot_idx, im),
-            lo_b.index_copy(0, slot_idx, lo),
-            hi_b.index_copy(0, slot_idx, hi),
-            sd_b.index_copy(0, slot_idx, sd),
-            s3_b.index_copy(0, slot_idx, s3),
-            acc.index_fill(0, slot_idx, 0.0))
+    any copy raises.  Entries of ``slot_idx`` equal to the table's
+    capacity are the group's padding, whose rows are dropped (the JAX
+    engine's ``mode="drop"``), so a group has one shape whatever its
+    fill: each slot takes the row whose index names it, or keeps its
+    own."""
+    slots = acc.shape[0]
+    dev = acc.device
+    src = torch.full((slots + 1,), -1, dtype=torch.int64, device=dev)
+    src = src.index_put((slot_idx,), torch.arange(
+        slot_idx.shape[0], dtype=torch.int64, device=dev))[:slots]
+    hit = src >= 0
+    take = src.clamp(min=0)
+
+    def put(buf, rows):
+        keep = hit.view((-1,) + (1,) * (buf.dim() - 1))
+        return torch.where(keep, rows.index_select(0, take), buf)
+
+    return (put(ds_b, ds), put(im_b, im), put(lo_b, lo), put(hi_b, hi),
+            put(sd_b, sd), put(s3_b, s3), acc.masked_fill(hit[:, None], 0.0))
 
 
 def _sched_chunk(ds_b, im_b, lo_b, hi_b, acc, pos, end, *, chunk_p: int,
@@ -244,8 +277,16 @@ class ServingEngine:
         self.n_docs = index.n_docs
         self.max_k = int(max(cfg.cutoffs))
         self.batch_multiple = cfg.pad_multiple
-        # eager torch: no program cache, nothing is ever compiled
+        # shape-keyed program cache: key -> program (or _PendingCompile),
+        # and on a card the graph pool of each padded batch size
+        self._cache: dict = {}
+        self._pools: dict = {}
+        self._cache_lock = threading.Lock()
         self.n_compiles = 0
+        self._sides = threading.local()   # each thread's build stream
+        #: arguments a captured program reads in place (never copied)
+        self._consts = (self.offsets, self.pdoc, self.pimp, self.pscore,
+                        self.doc_len)
         # observability: spans around stage boundaries + deterministic
         # dispatch/compile counters (NULL until bind_obs)
         self.trace = obs_lib.NULL_TRACE
@@ -259,6 +300,91 @@ class ServingEngine:
         self._m_dispatch = obs.metrics.counter("engine.dispatches")
         self._m_compile = obs.metrics.counter("engine.compiles")
 
+    # ---------------------------------------------------- program cache --
+    def _compiled(self, name: str, fn, args, kwargs):
+        """Shape-keyed program cache lookup; builds on a miss.
+
+        The key is ``(name,) + ((shape, dtype) of each argument)``, as
+        in the JAX engine; every positional argument is a tensor and
+        static configuration goes by keyword (fixed for a name: a hit
+        with other keywords raises).  Thread-safe: the service's warmup
+        thread builds beside the execution thread, so a miss installs a
+        pending marker under the lock and exactly one thread builds each
+        key (others wait on its event instead of building it again or
+        counting it twice in ``n_compiles``)."""
+        if not args or not all(isinstance(a, torch.Tensor) for a in args):
+            raise TypeError(
+                f"stage {name!r}: the program cache keys on tensor "
+                "arguments only (static configuration goes by keyword), "
+                f"got {[type(a).__name__ for a in args]}")
+        key = (name,) + tuple((tuple(a.shape), a.dtype) for a in args)
+        owner = False
+        with self._cache_lock:
+            entry = self._cache.get(key)
+            if entry is None:
+                entry = self._cache[key] = _PendingCompile()
+                owner = True
+        if isinstance(entry, _PendingCompile):
+            if owner:
+                try:
+                    exe = build_program(name, fn, args, kwargs, self.device,
+                                        *self._graph_place(args),
+                                        consts=self._consts)
+                except BaseException as e:
+                    with self._cache_lock:
+                        self._cache.pop(key, None)
+                    entry.err = e
+                    entry.ready.set()
+                    raise
+                with self._cache_lock:
+                    self._cache[key] = exe
+                    self.n_compiles += 1
+                self._m_compile.inc()
+                entry.exe = exe
+                entry.ready.set()
+                return exe
+            entry.ready.wait()
+            if entry.err is not None:
+                raise entry.err
+            entry = entry.exe
+        if entry.kwargs != kwargs:
+            raise ValueError(
+                f"stage {name!r} was built with {entry.kwargs} and is "
+                f"called with {kwargs}: static keywords are part of the "
+                "stage's name")
+        return entry
+
+    def _graph_place(self, args) -> tuple:
+        """(pool, side stream) of a program built on a card: the pool of
+        its padded batch size (the leading size of its first argument
+        that is not an engine constant), and the building thread's side
+        stream; (None, None) on the CPU."""
+        if self.device.type != "cuda":
+            return None, None
+        b = next((a.shape[0] for a in args
+                  if not any(a is c for c in self._consts)), None)
+        with self._cache_lock:
+            pool = self._pools.get(b)
+            if pool is None:
+                pool = self._pools[b] = GraphPool()
+        side = getattr(self._sides, "stream", None)
+        if side is None:
+            side = self._sides.stream = torch.cuda.Stream(self.device)
+        return pool, side
+
+    def program_stats(self) -> dict:
+        """The cache: programs built, CUDA graphs among them, their
+        replays and the bytes of static inputs and outputs they hold
+        (the graph pools hold the captures' intermediates beside)."""
+        with self._cache_lock:
+            progs = [p for p in self._cache.values()
+                     if not isinstance(p, _PendingCompile)]
+        stats = [p.stats() for p in progs]
+        return {"programs": len(progs),
+                "graphs": sum(p.graph for p in progs),
+                "replays": sum(s["replays"] for s in stats),
+                "static_bytes": sum(s["static_bytes"] for s in stats)}
+
     def padded_batch(self, n: int) -> int:
         return bucketing.pad_length(n, self.batch_multiple)
 
@@ -269,9 +395,9 @@ class ServingEngine:
     def _fence(self) -> None:
         fence(self.device)
 
-    def _timed(self, timings: dict, label: str, name: str, fn, *args,
-               **kwargs):
-        """Run one stage in its ``engine.<name>`` span, the device fence
+    def _spanned(self, timings: dict, label: str, name: str, fn, *args,
+                 **kwargs):
+        """Run ``fn`` in the ``engine.<name>`` span, the device fence
         inside it; ``timings[label]`` is the span's ms."""
         self._fence()
         self._m_dispatch.inc()
@@ -281,13 +407,12 @@ class ServingEngine:
         timings[label] = sp.dur_ms
         return out
 
-    def _stage1(self, ds, im, seg_lo, seg_hi, pv, pool_width: int):
-        kern = dict(block_p=self.block_p, block_d=self.block_d)
-        if self.cfg.knob == "rho":
-            return _stage1_rho(ds, im, seg_lo, seg_hi, pv, n_docs=self.n_docs,
-                               depth=self.cfg.rerank_depth, **kern)
-        return _stage1_k(ds, im, seg_lo, seg_hi, pv, n_docs=self.n_docs,
-                         max_k=pool_width, **kern)
+    def _timed(self, timings: dict, label: str, name: str, fn, *args,
+               **kwargs):
+        """One stage through the program cache: the program is built
+        (on a miss) before the span, and the span times its run."""
+        prog = self._compiled(name, fn, args, kwargs)
+        return self._spanned(timings, label, name, prog, *args)
 
     # --------------------------------------------------------- serving --
     def serve(self, query_terms: np.ndarray, param_vec: np.ndarray,
@@ -310,13 +435,20 @@ class ServingEngine:
                             device=self.device)
         timings = {}
         width = int(pool_width or self.max_k)
-        s1_name = "stage1" if self.cfg.knob == "rho" else f"stage1:{width}"
+        kern = dict(n_docs=self.n_docs, block_p=self.block_p,
+                    block_d=self.block_d)
         ds, im, seg_lo, seg_hi, sdocs, s3 = self._timed(
             timings, "gather_ms", "gather", _stage_gather, self.offsets,
             self.pdoc, self.pimp, self.pscore, qt, cap=self.cfg.stream_cap,
             block_p=self.block_p, n_docs=self.n_docs)
-        pool = self._timed(timings, "stage1_ms", s1_name, self._stage1, ds,
-                           im, seg_lo, seg_hi, pv, width)
+        if self.cfg.knob == "rho":
+            pool = self._timed(timings, "stage1_ms", "stage1", _stage1_rho,
+                               ds, im, seg_lo, seg_hi, pv,
+                               depth=self.cfg.rerank_depth, **kern)
+        else:
+            pool = self._timed(timings, "stage1_ms", f"stage1:{width}",
+                               _stage1_k, ds, im, seg_lo, seg_hi, pv,
+                               max_k=width, **kern)
         stage2 = self._timed(timings, "stage2_ms", "stage2", _stage2, sdocs,
                              s3, self.doc_len, qids, n_docs=self.n_docs,
                              n_terms=qt.shape[1])
@@ -333,23 +465,34 @@ class ServingEngine:
 
     def warmup_shape(self, batch_size: int, query_len: int, *,
                      with_depth: bool = False) -> int:
-        """Run the pipeline once at one padded batch size (first-call
-        allocations, kernel builds).  Returns the programs compiled: 0,
-        since nothing is compiled per shape."""
+        """Build the whole pipeline's programs for one padded batch size
+        (the unit the learned warmup policy requests).  ``with_depth``
+        also builds the dynamic-depth rerank (servers with a depth knob
+        pass it, so the first depth-predicting batch finds it built).
+        Returns the programs built (0 when the shape was already
+        warm)."""
+        with self._cache_lock:
+            before = self.n_compiles
         b = self.padded_batch(int(batch_size))
         qt = np.full((b, query_len), -1, np.int32)
         pv = np.ones(b, np.int32)
         self.serve(qt, pv)
         if with_depth:
             self.serve(qt, pv, depth_vec=np.ones(b, np.int32))
-        return 0
+        with self._cache_lock:
+            return self.n_compiles - before
 
     def warmup(self, batch_sizes, query_len: int, *,
                with_depth: bool = False) -> int:
-        """``warmup_shape`` for each padded batch size; returns 0."""
+        """Build the pipeline's programs for each padded batch size in
+        ``batch_sizes`` (the configured pad grid).  Returns the number
+        of programs built."""
+        with self._cache_lock:
+            before = self.n_compiles
         for b in sorted({self.padded_batch(int(b)) for b in batch_sizes}):
             self.warmup_shape(b, query_len, with_depth=with_depth)
-        return 0
+        with self._cache_lock:
+            return self.n_compiles - before
 
     # ----------------------------------------------- continuous serving --
     @property
@@ -541,7 +684,8 @@ class ShardedServingEngine(ServingEngine):
     more raises ``RuntimeError`` naming the knob.  Outputs are the
     unsharded engine's bit for bit (the JAX package's promise).
 
-    ``serve`` runs six dispatches a batch, as the JAX engine: gather,
+    ``serve`` runs six dispatches a batch, eagerly (``_spanned``; no
+    program cache, ``n_compiles`` stays 0), as the JAX engine: gather,
     stage 1 (local, ending at each shard's survivors), the survivors'
     all-gather, stage 2, the merge, the rerank.  The all-gather runs
     inside stage 2's span (the JAX engine overlaps it with stage 2, and
@@ -663,12 +807,12 @@ class ShardedServingEngine(ServingEngine):
         sw = dict(width=self.shard_width)
         timings = {}
 
-        gathered = self._timed(
+        gathered = self._spanned(
             timings, "gather_ms", "gather", self._each, _sh_gather, qt,
             cap=cfg.stream_cap, shard_cap=self.shard_cap,
             block_p=self.block_p, slack=cfg.partition_slack, **sw)
         rows = [g[0] for g in gathered]
-        surv = self._timed(
+        surv = self._spanned(
             timings, "stage1_ms", "stage1" + suffix, self._each, _sh_stage1,
             rows, pv, knob=cfg.knob, kl=kl, block_p=self.block_p,
             block_d=self.block_d, **sw)
@@ -683,14 +827,14 @@ class ShardedServingEngine(ServingEngine):
             return ag, s2
 
         self._m_dispatch.inc()         # the all-gather's dispatch
-        ag, stage2 = self._timed(timings, "stage2_ms", "stage2",
-                                 allgather_stage2)
-        pools = self._timed(
+        ag, stage2 = self._spanned(timings, "stage2_ms", "stage2",
+                                   allgather_stage2)
+        pools = self._spanned(
             timings, "merge_ms", "merge", self._each, _sh_merge,
             [a[0] for a in ag], [a[1] for a in ag],
             [None] * self.dp_size if rho else pv,
             depth=cfg.rerank_depth if rho else width)
-        ranked = self._timed(
+        ranked = self._spanned(
             timings, "rerank_ms", "rerank" if dv is None else "rerank_dyn",
             self._each, _sh_rerank, stage2, pools,
             [None] * self.dp_size if dv is None else dv,
@@ -756,8 +900,10 @@ class SchedPrograms:
     as tensors; the host keeps the only authoritative copy, so no stage
     reads device state back mid-flight.  The device-to-host points are
     the admission-time stream lengths and the finalize result.  Each
-    stage counts one engine dispatch and runs in a ``sched.<name>`` span
-    that covers the dispatch only (no fence).
+    stage runs through the engine's program cache (a CUDA graph per
+    stage on the card, built once, as the JAX engine compiles the four
+    programs once), counts one engine dispatch and runs in a
+    ``sched.<name>`` span that covers the dispatch only (no fence).
     """
 
     #: the scheduler's branch: sharded programs advance per-slot local
@@ -805,9 +951,13 @@ class SchedPrograms:
         return engine.cfg.stream_cap
 
     def _run(self, name: str, fn, *args, **kwargs):
-        self.engine._m_dispatch.inc()
-        with self.engine.trace.span("sched." + name):
-            return fn(*args, **kwargs)
+        """One stage through the engine's program cache (built on a miss
+        before the span); the span covers the dispatch window only."""
+        e = self.engine
+        prog = e._compiled(name, fn, args, kwargs)
+        e._m_dispatch.inc()
+        with e.trace.span("sched." + name):
+            return prog(*args)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return _h2d(a, self.engine.device)
@@ -857,14 +1007,14 @@ class SchedPrograms:
                rows) -> SchedState:
         """Install gathered rows at ``slot_idx`` and zero their
         accumulator rows.  Entries equal to the table's capacity are the
-        group's padding; they trail the real ones and are sliced off on
-        the host (an out-of-range index would be an error on the CPU and
-        a device-side assert on the card)."""
-        n = self._n_real(slot_idx, state.acc.shape[0])
-        idx = self._dev(slot_idx[:n].astype(np.int64))
+        group's padding; they trail the real ones (checked here) and
+        their rows are dropped on the device, so every refill has the
+        group's shapes."""
+        self._n_real(slot_idx, state.acc.shape[0])
+        idx = self._dev(slot_idx.astype(np.int64))
         out = self._run("refill", _sched_refill, state.ds, state.im,
                         state.seg_lo, state.seg_hi, state.sdocs, state.s3,
-                        state.acc, idx, *(r[:n] for r in rows))
+                        state.acc, idx, *rows)
         return SchedState(*out)
 
     def chunk(self, state: SchedState, pos: np.ndarray,
@@ -902,10 +1052,14 @@ class SchedPrograms:
         return _pad_ranked(r.cpu().numpy(), cfg.rerank_depth)
 
     def warmup(self, slots: int, query_len: int) -> int:
-        """Run all four stages once on a scratch table (first-call
-        allocations, kernel builds): the dummy refill is all padding and
-        the dummy chunk runs at rho 0, and no live state is touched.
-        Returns the programs compiled: 0, since nothing is compiled."""
+        """Build all four programs.  Safe mid-flight: they run on a
+        scratch table, the dummy refill is all padding and the dummy
+        chunk runs at rho 0, and a program hands back copies of its
+        outputs, so no live state is touched.  Returns the programs
+        built."""
+        e = self.engine
+        with e._cache_lock:
+            before = e.n_compiles
         g = self.grain
         state = self.init_state(slots, query_len)
         rows, _, _ = self.gather(np.full((g, query_len), -1, np.int32))
@@ -914,7 +1068,8 @@ class SchedPrograms:
         state = self.chunk(state, zeros, zeros)
         self.finalize(state, np.zeros(g, np.int32), np.ones(g, np.int32),
                       np.ones(g, np.int32), np.zeros(g, np.int32))
-        return 0
+        with e._cache_lock:
+            return e.n_compiles - before
 
 
 # --------------------------------------- sharded scheduler stage bodies --
@@ -1000,6 +1155,14 @@ class ShardedSchedPrograms(SchedPrograms):
 
     sharded = True
 
+    def _eager(self, name: str, fn, *args, **kwargs):
+        """One stage run eagerly in its ``sched.<name>`` span: the
+        sharded bodies close over per-shard lists, which the program
+        cache's key of tensor shapes cannot hold."""
+        self.engine._m_dispatch.inc()
+        with self.engine.trace.span("sched." + name):
+            return fn(*args, **kwargs)
+
     def __init__(self, engine: ServingEngine, *, grain: int,
                  chunk_p: int | None = None, extra_widths=()):
         if not isinstance(engine, ShardedServingEngine):
@@ -1072,7 +1235,7 @@ class ShardedSchedPrograms(SchedPrograms):
         matrix indexed by ``lend_col``).  Raises on partition
         overflow."""
         e = self.engine
-        rows, meta = self._run(
+        rows, meta = self._eager(
             "sgather", _ssched_gather, self.shards, self._devs(qt),
             self._wvecs, cap=e.cfg.stream_cap, shard_cap=e.shard_cap,
             block_p=self.bounds_p, width=e.shard_width,
@@ -1099,7 +1262,7 @@ class ShardedSchedPrograms(SchedPrograms):
                                               tuple(x[:n] for x in r)))
             return out
 
-        cols = list(zip(*self._run("refill", refill_all)))
+        cols = list(zip(*self._eager("refill", refill_all)))
         names = ("ds", "im", "seg_lo", "seg_hi", "gpos", "sdocs", "s3",
                  "sterm", "acc")
         return SchedState(**dict(zip(names, cols)))
@@ -1123,7 +1286,7 @@ class ShardedSchedPrograms(SchedPrograms):
                         block_d=e.block_d))
             return tuple(out)
 
-        return dataclasses.replace(state, acc=self._run("chunk", chunk_all))
+        return dataclasses.replace(state, acc=self._eager("chunk", chunk_all))
 
     def finalize(self, state: SchedState, slot_idx: np.ndarray,
                  pvec: np.ndarray, dvec: np.ndarray,
@@ -1156,5 +1319,5 @@ class ShardedSchedPrograms(SchedPrograms):
             return _sh_rerank(shards, stage2, pools, self._devs(dvec),
                               depth=cfg.rerank_depth, **sw)
 
-        r = self._run("finalize", finalize_all)
+        r = self._eager("finalize", finalize_all)
         return _pad_ranked(r.cpu().numpy(), cfg.rerank_depth)

@@ -455,10 +455,10 @@ class ContinuousScheduler:
                 self.table.release(s)
 
     def warmup(self, query_len: int | None = None) -> int | None:
-        """Run the four scheduler stages once, plus the cascade at every
-        padded candidate-window width.  Returns the programs compiled
-        (0: eager torch compiles nothing), or None while the query width
-        is still unknown."""
+        """Build the four scheduler programs, and run the cascade at
+        every padded candidate-window width.  Returns the programs built
+        (the JAX scheduler's compile count), or None while the query
+        width is still unknown."""
         ql = query_len or self.query_len
         if not ql:
             return None

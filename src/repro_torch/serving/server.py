@@ -36,7 +36,7 @@ class ServerStats:
     pct_in_envelope: float | None
     stage_ms: dict | None = None        # per-stage wall-clock:
     #                                     {"mean","p99","n"} per stage
-    n_compiles: int | None = None       # engine executable-cache size
+    n_compiles: int | None = None       # engine program-cache size
     queue_ms: list | None = None        # per-request admission delay
     service_ms: list | None = None      # per-batch backend execute time
     n_deadline_met: int | None = None   # resolved requests, on time

@@ -36,8 +36,9 @@
 * **Learned warmup** (``WarmupPolicy``): instead of an explicit
   ``warmup_batch_sizes`` list, the policy watches the admission queue's
   padded-batch-size census and warms the most common shapes on a
-  background thread (eager torch compiles nothing; warming a shape pays
-  its first-call allocations and kernel builds).
+  background thread: warming a shape builds the engine's programs for it
+  (on a card, a CUDA graph per stage, captured on a side stream in the
+  warmup thread while the execution thread serves beside it).
 
 ``step()`` runs one admission+dispatch cycle inline (no threads, the
 caller's stream) -- the deterministic mode tests and synchronous callers
@@ -102,10 +103,10 @@ class Backend(Protocol):
         ...
 
     def warmup_shape(self, padded_size: int) -> int | None:
-        """Run one padded batch size once; returns the number of fresh
-        compiles (0 in eager torch), or None when the backend cannot warm
-        yet (e.g. request sizing still unknown) -- the policy will retry
-        such shapes later."""
+        """Build the programs of one padded batch size; returns the
+        number of fresh builds (0 if already warm), or None when the
+        backend cannot warm yet (e.g. request sizing still unknown) --
+        the policy will retry such shapes later."""
         ...
 
     @property
@@ -360,7 +361,7 @@ class FunnelBackend:
 
     @property
     def n_compiles(self) -> int | None:
-        return None                    # eager torch keeps no program cache
+        return None                    # the funnel runs eagerly: no cache
 
 
 # --------------------------------------------------------------- warmup --

@@ -163,9 +163,217 @@ def test_locks_pass_flags_unguarded_reads_and_spares_exemptions():
 
 
 def test_locks_registry_is_the_references():
+    """The reference's registry in its order, then the port's own entry:
+    the captured program's lock."""
     from repro.analysis.locks import LOCK_REGISTRY as J_REGISTRY
-    assert S.LOCK_REGISTRY == tuple(
+    n = len(J_REGISTRY)
+    assert S.LOCK_REGISTRY[:n] == tuple(
         S.LOCK_REGISTRY[0].__class__(**vars(s)) for s in J_REGISTRY)
+    assert [s.cls for s in S.LOCK_REGISTRY[n:]] == ["GraphProgram"]
+
+
+# ----------------------------------------------------------- recompile --
+
+#: an engine that hands ``_stage`` to its program cache; each case adds
+#: the stage (and any helper) below it
+CAPTURE_HEAD = """
+import numpy as np
+import torch
+
+
+class Engine:
+    def serve(self, timings, x, v):
+        return self._timed(timings, "s_ms", "s", _stage, x, v, depth=4)
+"""
+
+#: (rule, a source that breaks it, its clean twin)
+RECOMPILE_CASES = [
+    ("captured-branch", """
+def _stage(x, v, *, depth):
+    if v.sum() > 0:
+        return x
+    return -x
+""", """
+def _stage(x, v, *, depth):
+    if depth > 2:
+        return torch.where(v.sum() > 0, x, -x)
+    return -x
+"""),
+    ("captured-branch", """
+def _stage(x, v, *, depth):
+    return _helper(x, v.amax())
+
+
+def _helper(x, m):
+    return x if m > 0 else -x
+""", """
+def _stage(x, v, *, depth):
+    return _helper(x, depth)
+
+
+def _helper(x, m):
+    return x if m > 0 else -x
+"""),
+    ("captured-coercion", """
+def _stage(x, v, *, depth):
+    return x[:, :int(v.max())]
+""", """
+def _stage(x, v, *, depth):
+    return x[:, :int(x.shape[1] // depth)]
+"""),
+    ("captured-coercion", """
+def _stage(x, v, *, depth):
+    return x * v.sum().item()
+""", """
+def _stage(x, v, *, depth):
+    if x.device.type == "cpu":
+        return x * v.sum().item()
+    return x * v.sum()
+"""),
+    ("host-tensor", """
+def _stage(x, v, *, depth):
+    return x + torch.tensor([1.0, 2.0], device=x.device)
+""", """
+def _stage(x, v, *, depth):
+    return x + torch.arange(2, device=x.device)
+"""),
+    ("host-tensor", """
+def _stage(x, v, *, depth):
+    return x + torch.from_numpy(np.arange(2))
+""", """
+def _stage(x, v, *, depth):
+    return x + torch.full((2,), depth, device=x.device)
+"""),
+    ("data-dependent-shape", """
+def _stage(x, v, *, depth):
+    keep = v > 0
+    return x[keep]
+""", """
+def _stage(x, v, *, depth):
+    keep = v > 0
+    return torch.where(keep, x, torch.zeros_like(x))
+"""),
+    ("data-dependent-shape", """
+def _stage(x, v, *, depth):
+    return x.index_select(0, torch.nonzero(v)[:, 0])
+""", """
+def _stage(x, v, *, depth):
+    return x.index_select(0, v.topk(depth).indices)
+"""),
+    ("data-dependent-shape", """
+def _stage(x, v, *, depth):
+    return x.repeat_interleave(v, dim=0)
+""", """
+def _stage(x, v, *, depth):
+    return x.repeat_interleave(v, dim=0, output_size=depth)
+"""),
+    ("captured-cache-key", """
+def _stage(x, v, *, depth):
+    seen = {}
+    seen[v.sum()] = depth
+    return x
+""", """
+def _stage(x, v, *, depth):
+    seen = {}
+    seen[x.shape] = depth
+    return x
+"""),
+    ("captured-iteration", """
+def _stage(x, v, *, depth):
+    for row in x:
+        v = v + row
+    return v
+""", """
+def _stage(x, v, *, depth):
+    for i in range(depth):
+        v = v + x[:, i]
+    return v
+"""),
+]
+
+CLOSURE_CASES = [("""
+class Engine:
+    def serve(self, timings, x, v):
+        def stage(v):
+            return v + x
+        return self._timed(timings, "s_ms", "s", stage, v)
+""", """
+class Engine:
+    def serve(self, timings, x, v):
+        def stage(v, x):
+            return v + x
+        return self._timed(timings, "s_ms", "s", stage, v, x)
+"""), ("""
+class Engine:
+    def serve(self, timings, x):
+        return self._timed(timings, "s_ms", "s", self._stage, x)
+
+    def _stage(self, x):
+        return x + self.bias
+""", """
+class Engine:
+    def serve(self, timings, x):
+        return self._timed(timings, "s_ms", "s", _stage, x, self.bias)
+
+
+def _stage(x, bias):
+    return x + bias
+"""), ("""
+class Programs:
+    def chunk(self, state, pos):
+        return self._run("chunk", lambda: state + pos)
+""", """
+class Programs:
+    def chunk(self, state, pos):
+        return self._run("chunk", lambda s, p: s + p, state, pos)
+""")]
+
+
+def _recompile(src, path="m.py"):
+    return [(f.invariant, f.scope, f.code) for f in analysis.analyze_source(
+        textwrap.dedent(src), path, passes={"recompile"})]
+
+
+@pytest.mark.parametrize("bad", [True, False], ids=["bad", "clean"])
+@pytest.mark.parametrize("rule,bad_src,clean_src", [
+    pytest.param(rule, b, c, id=f"{rule}-{i}") for i, (rule, b, c) in
+    enumerate(RECOMPILE_CASES + [("captured-closure", b, c)
+                                 for b, c in CLOSURE_CASES])])
+def test_recompile_rule_flags_its_case_and_spares_the_clean_twin(
+        rule, bad_src, clean_src, bad):
+    """Each ``recompile/*`` rule on a small source that breaks it (only
+    that rule's findings) and on its clean twin (none)."""
+    head = "" if rule == "captured-closure" else CAPTURE_HEAD
+    found = _recompile(head + (bad_src if bad else clean_src))
+    if bad:
+        assert found and {f[0] for f in found} == {"recompile/" + rule}
+    else:
+        assert found == []
+
+
+def test_recompile_finds_the_engines_captured_scopes(monkeypatch):
+    """The stages the engine and the scheduler hand to the cache, and
+    their callees across the package, are captured; the sharded bodies
+    (run eagerly) are not.  The pass runs in the CLI and the committed
+    baseline keeps it green."""
+    from repro_torch.analysis import astutil
+    monkeypatch.chdir(REPO_ROOT)
+    with open(ENGINE) as f:
+        tree = __import__("ast").parse(f.read())
+    names = {getattr(n, "name", None) for n in
+             astutil.find_captured_scopes(tree, ENGINE)}
+    assert {"_stage_gather", "_stage1_rho", "_stage1_k", "_stage2",
+            "_stage_rerank", "_stage_rerank_dyn", "_depth_mask",
+            "_sched_gather", "_sched_refill", "_sched_chunk",
+            "_sched_finalize_rho", "_sched_finalize_k"} <= names
+    assert not names & {"_sh_gather", "_sh_stage1", "_ssched_chunk",
+                        "_compiled", "serve"}
+    jass = "src/repro_torch/retrieval/jass.py"
+    with open(jass) as f:
+        tree = __import__("ast").parse(f.read())
+    assert "gather_streams" in {getattr(n, "name", None) for n in
+                                astutil.find_captured_scopes(tree, jass)}
+    assert analysis_main(["src/repro_torch", "--select", "recompile"]) == 0
 
 
 # ------------------------------------------------------------ baseline --
@@ -221,7 +429,7 @@ def test_analyzer_modules_import_neither_torch_nor_port_code():
     import ast
     pkg = os.path.join(REPO_ROOT, "src", "repro_torch", "analysis")
     for name in ("__init__.py", "__main__.py", "astutil.py", "findings.py",
-                 "hostsync.py", "locks.py"):
+                 "hostsync.py", "locks.py", "recompile.py"):
         tree = ast.parse(open(os.path.join(pkg, name)).read())
         roots = {a.name.split(".")[0] for n in ast.walk(tree)
                  if isinstance(n, ast.Import) for a in n.names}

@@ -58,6 +58,11 @@ Tolerances, with their reasons:
     segment sums, integer-valued degree counts).
   * the sync sanitizer: ``no_syncs`` fails an ``.item()`` of a CUDA
     tensor and passes an elementwise op.
+  * the engine's program cache (CUDA graphs): replayed ranked lists
+    equal eager calls of the same stage functions bit for bit (the same
+    kernels on the same inputs); a live scheduler state is bit-unchanged
+    by a warmup mid-flight; a replay counts the launches an eager run
+    does.
 """
 
 import dataclasses
@@ -1155,3 +1160,130 @@ def test_no_syncs_catches_an_item_and_passes_an_elementwise_op(cuda_device):
         fence(cuda_device)
     assert [s.status for s in rec.syncs] == ["vetted"]
     assert rec.syncs[0].frame.startswith("device.py:")
+
+
+# ------------------------------------------------------- program cache --
+
+def _eager_serve(e, qt, pv, dv=None):
+    """``engine.serve``'s four stages called eagerly -- the module-level
+    functions the cache captured -- on the same padded device tensors."""
+    from repro_torch.serving import engine as t_engine
+    cfg = e.cfg
+    q, p = e._to_device(qt, fill=-1), e._to_device(pv, fill=1)
+    qids = torch.arange(q.shape[0], dtype=torch.int32, device=e.device)
+    kern = dict(n_docs=e.n_docs, block_p=e.block_p, block_d=e.block_d)
+    ds, im, lo, hi, sd, s3 = t_engine._stage_gather(
+        e.offsets, e.pdoc, e.pimp, e.pscore, q, cap=cfg.stream_cap,
+        block_p=e.block_p, n_docs=e.n_docs)
+    if cfg.knob == "rho":
+        pool = t_engine._stage1_rho(ds, im, lo, hi, p,
+                                    depth=cfg.rerank_depth, **kern)
+    else:
+        pool = t_engine._stage1_k(ds, im, lo, hi, p, max_k=e.max_k, **kern)
+    s2 = t_engine._stage2(sd, s3, e.doc_len, qids, n_docs=e.n_docs,
+                          n_terms=q.shape[1])
+    if dv is None:
+        r = t_engine._stage_rerank(s2, pool, depth=cfg.rerank_depth)
+    else:
+        r = t_engine._stage_rerank_dyn(s2, pool, e._to_device(dv, fill=1),
+                                       depth=cfg.rerank_depth)
+    return t_engine._pad_ranked(r[:qt.shape[0]].cpu().numpy(),
+                                cfg.rerank_depth)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("knob", ["rho", "k"])
+def test_replayed_programs_equal_the_eager_stages_on_card(cuda_device,
+                                                          knob):
+    """Every program of the warmed grid is a CUDA graph, and replayed
+    lists equal eager calls of the same stage functions bit for bit,
+    with and without a depth vector; a shape replayed on other rows
+    takes the new rows (the static inputs are refreshed)."""
+    server, qt = _card_server(cuda_device, knob)
+    e = server.engine
+    grid = [8, 16, 24, 32, 40]
+    built = e.warmup(grid, qt.shape[1], with_depth=True)
+    stats = e.program_stats()
+    assert built == stats["programs"] == stats["graphs"] == 5 * len(grid)
+    assert sorted(e._pools) == grid          # one graph pool a shape
+    r0 = stats["replays"]
+    rng = np.random.default_rng(5)
+    for n in (5, 16, 37, 37, 30):
+        rows = qt[rng.permutation(qt.shape[0])[:n]]
+        pv = server.params_of(server.predict_classes(rows))
+        dv = rng.integers(1, 31, n)
+        for d in (None, dv):
+            got, _ = e.serve(rows, pv, depth_vec=d)
+            np.testing.assert_array_equal(got, _eager_serve(e, rows, pv, d))
+    assert e.n_compiles == built
+    assert e.program_stats()["replays"] - r0 == 5 * 2 * 4
+
+
+@pytest.mark.gpu
+def test_launch_counters_count_a_replay_as_an_eager_run(cuda_device):
+    server, qt = _card_server(cuda_device, "rho")
+    e = server.engine
+    pv = server.params_of(server.predict_classes(qt))
+
+    def counts(fn):
+        n0 = (is_kernel.n_launches, tk_kernel.n_launches)
+        fn()
+        return (is_kernel.n_launches - n0[0], tk_kernel.n_launches - n0[1])
+
+    # a build's own runs count nothing: a cold shape counts its replay
+    assert counts(lambda: e.serve(qt, pv)) == (1, 1)
+    assert e.program_stats()["graphs"] == 4
+    assert counts(lambda: e.serve(qt, pv)) == counts(
+        lambda: _eager_serve(e, qt, pv)) == (1, 1)
+
+
+@pytest.mark.gpu
+def test_warmup_mid_flight_leaves_live_state_unchanged_on_card(cuda_device):
+    """A scheduler stopped mid-flight on the card: a warmup replays all
+    four programs on a scratch table and leaves every live tensor as it
+    was; the run then ends with the batch-once lists."""
+    server, qt = _card_server(cuda_device, "k")
+    rows = qt[:6]
+    backend = service.ContinuousBackend(server, query_len=qt.shape[1],
+                                        slots=8, grain=4)
+    svc = service.RetrievalService(backend)
+    futs = svc.submit_many(list(rows), deadline_ms=1e6)
+    svc.flush()
+    svc.step()
+    sched = backend.scheduler
+    assert sched.table.active()
+    fields = ("ds", "im", "seg_lo", "seg_hi", "sdocs", "s3", "acc")
+    state = sched._state
+    before = [getattr(state, f).clone() for f in fields]
+    for _ in range(2):
+        sched.prog.warmup(8, qt.shape[1])
+    torch.cuda.synchronize()
+    for f, b in zip(fields, before):
+        assert torch.equal(getattr(state, f), b), f
+    while svc.outstanding:
+        assert svc.step()
+    ref, _ = server.engine.serve(
+        rows, server.params_of(server.predict_classes(rows)))
+    np.testing.assert_array_equal(np.stack([f.result()["ranked"]
+                                            for f in futs]), ref)
+    assert server.engine.program_stats()["graphs"] == \
+        server.engine.n_compiles
+
+
+def _syncing_stage(x):
+    return x * float(x.sum())
+
+
+@pytest.mark.gpu
+def test_a_stage_that_cannot_be_captured_raises(cuda_device):
+    """No fallback: a stage that syncs inside its capture raises, the
+    cache keeps no entry for it, and the card serves on."""
+    server, qt = _card_server(cuda_device, "rho")
+    e = server.engine
+    x = e.doc_len[:8].to(torch.float32)
+    with pytest.raises(RuntimeError):
+        e._compiled("syncing", _syncing_stage, (x,), {})
+    assert e.n_compiles == 0 and e.program_stats()["programs"] == 0
+    pv = server.params_of(server.predict_classes(qt))
+    np.testing.assert_array_equal(e.serve(qt, pv)[0],
+                                  _eager_serve(e, qt, pv))

@@ -75,7 +75,8 @@ def test_serve_batch_matches_jax(carried, knob, start):
     np.testing.assert_array_equal(b["ranked"], a["ranked"])
     assert b["ranked"].shape == (N, 30)
     assert set(b["timings"]) == set(a["timings"])
-    assert b["n_compiles"] == 0
+    # one program per stage and padded shape, the JAX engine's count
+    assert b["n_compiles"] == a["n_compiles"] > 0
     # the per-bucket oracle agrees with the batch-once path
     ref = ts.serve_batch_reference(qt)
     np.testing.assert_array_equal(ref["ranked"], b["ranked"])
