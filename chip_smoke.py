@@ -73,7 +73,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      queries and labels) serves the same batches through
      ``RetrievalServer``: well-formed lists, classes equal to the same
      nodes' ``predict_sequential``, and ``serve_fixed`` at each served
-     class's cutoff equal to that class's served lists.
+     class's cutoff equal to that class's served lists; the replayed
+     predict graphs' classes equal to eager calls of the same stage
+     function (the margins' largest gap printed beside).
   3. the recsys funnel at full width (BST ``model_config``, two towers
      over 1 M candidates, pool 1000): label 1024 synthetic requests on
      the card in batches of 128 (gold and per-cutoff runs, MED_RBP,
@@ -139,7 +141,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      every 256 labels, forests of phase 6's size), until it has
      retrained and swapped.  The swapped server's ``serve_batch`` must
      equal a fresh server booted with the trainer's last cascade and the
-     store's thresholds, bit for bit; the first shadow batch's MED table
+     store's thresholds, bit for bit; the loop's swaps and serves build
+     no predict program (``built("predict:rho")`` the same after the
+     warmup and after the loop); the first shadow batch's MED table
      must match the same rows labelled on a CPU server within 1e-5 /
      1e-6, its envelope labels equal except in rows with a cell within
      that tolerance of tau (counted and printed).  The ``phase 8:`` line gives the
@@ -281,6 +285,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      the graphs (512 requests inline), its lists equal to an eager
      batch-once serve of the 512.  One ``phase 18: programs`` line per
      knob.
+  19. (after phase 18) the server's predict programs on the card
+     (``RetrievalServer.predict_programs``: features + cascade + first
+     firing node, and the margin, each a CUDA graph a knob and padded
+     shape, the node tables copied in).  Per knob, a fresh
+     server on phase 2's cascade: the predict and margin grid (8 to 128
+     in steps of 8, 32 graphs) warmed, with the programs built, each
+     build's seconds, the warmup's seconds and the ``memory_reserved``
+     it added, a second warmup building 0; 200 mixed predicts (sizes 1
+     to 128) under ``sanitizers.hot_path`` on the predict cache (no
+     program built, no unvetted sync), each equal bit for bit to an
+     eager call of the same stage function, as are classes and margins
+     at every padded shape; at batch 128 the predict's host ms (a sleep
+     kernel holding the card), CUDA-event ms and wall ms (queries in,
+     classes out), replayed beside eager.  One ``phase 19: predict
+     programs`` line per knob, then one line of the predict numbers the
+     serving phases printed (phase 2's ``predict_ms`` and ``total_ms``,
+     phase 4's ``predict_ms`` p50/p99, phase 7's q/s over
+     ``serve_batch``'s, phase 8's predict builds around its swaps).
   14. (last, after phase 5 and the profile, so that its numbers are
      its subprocesses' own) LM training on the card.
      ``python -m repro_torch.launch.train --arch tinyllama-1.1b --full
@@ -1525,7 +1547,7 @@ def build_servers():
     return sys_, servers, batches, meds
 
 
-def main_path(sys_, servers, batches):
+def main_path(sys_, servers, batches, seen):
     import numpy as np
     from repro_torch.kernels.impact_scan import kernel as is_kernel
     from repro_torch.kernels.topk import kernel as tk_kernel
@@ -1580,6 +1602,8 @@ def main_path(sys_, servers, batches):
             cpu_positions_differing=n_diff,
             cpu_stage_ms={k: v for k, v in want["timings"].items()})
         log(f"phase 2: {knob}: " + json.dumps(report[knob]))
+        seen[f"phase 2 {knob}"] = {
+            k: stages[k] for k in ("predict_ms", "total_ms")}
     return launches, report, served
 
 
@@ -1642,10 +1666,26 @@ def mlp_path(sys_, batches, meds) -> dict:
                         f"phase 2: mlp {knob}: serve_fixed({param}) "
                         f"differs from the served lists of class {c}")
                 n_fixed += 1
+        # the replayed predict and margin graphs against eager calls of
+        # the same stage functions: the captured products may take
+        # another cuBLAS algorithm, so the gap is measured, not assumed
+        n_cls_diff, margin_diff = 0, 0.0
+        for qt, o in zip(batches, served):
+            eager = _eager_predict(server, qt, knob, pipeline._stage_predict)
+            n_cls_diff += int((eager != o["classes"]).sum())
+            margin_diff = max(margin_diff, float(np.abs(
+                server.predict_margin(qt) - _eager_predict(
+                    server, qt, knob, pipeline._stage_margin)).max()))
+        if n_cls_diff:
+            raise AssertionError(
+                f"phase 2: mlp {knob}: {n_cls_diff} replayed classes differ "
+                f"from the eager stage (margins by up to {margin_diff})")
         steady = served[1:]
         stages = {k: statistics.mean(o["timings"][k] for o in steady)
                   for k in steady[0]["timings"]}
         out[knob] = dict(
+            replayed_vs_eager=dict(classes_differing=n_cls_diff,
+                                   margin_max_abs_diff=margin_diff),
             kind=casc.kind, train_s=train_s,
             classes=np.bincount(classes, minlength=len(cuts) + 1).tolist(),
             stage_ms=stages, qps=BATCH / (stages["total_ms"] / 1e3),
@@ -1984,7 +2024,7 @@ def _direct(serve, batches) -> dict:
 
 
 def service_path(sys_, servers, batches, served, funnel, fbatches,
-                 fserved):
+                 fserved, seen):
     """Phase 4: the service layer on the card over phase 2's servers and
     batches and phase 3's funnel and batches.  Inline and FIFO-threaded
     results must equal ``serve_batch`` / ``Funnel.serve`` bit for bit;
@@ -2042,6 +2082,9 @@ def service_path(sys_, servers, batches, served, funnel, fbatches,
         line["inline_qps_over_direct"] = (line["inline"]["qps"]
                                           / line["direct"]["qps"])
         log(f"phase 4: service {knob}: " + json.dumps(line))
+        seen[f"phase 4 {knob}"] = {
+            mode: line[mode]["predict_ms_p50_p99"]
+            for mode in ("inline", "fifo", "threaded")}
 
     backend = FunnelBackend(funnel, pad_multiple=8)
     payloads = [list(zip(uf, hist)) for uf, hist in fbatches]
@@ -2242,7 +2285,7 @@ def _arm_summary(results, stats, wall, obs) -> dict:
                                "tick.finalize")))
 
 
-def continuous_path(servers, batches) -> dict:
+def continuous_path(servers, batches, seen) -> dict:
     """Phase 7: the continuous scheduler on the card over phase 2's
     servers and 512 requests, per knob.  The inline run's lists must
     equal one ``engine.serve`` of the 512 rows bit for bit (arrival index
@@ -2301,6 +2344,8 @@ def continuous_path(servers, batches) -> dict:
             batch_once_qps=direct["qps"],
             qps_over_batch_once=dyn["qps"] / direct["qps"])
         log(f"phase 7: continuous {knob}: " + json.dumps(line))
+        seen[f"phase 7 {knob}"] = {
+            "qps_over_batch_once": line["qps_over_batch_once"]}
     return launches
 
 
@@ -2315,7 +2360,7 @@ ONLINE_RETRAIN_EVERY = 2 * BATCH
 MED_RTOL, MED_ATOL = 1e-5, 1e-6
 
 
-def online_path(sys_, servers) -> dict:
+def online_path(sys_, servers, seen) -> dict:
     """Phase 8: the online loop at paperish on ρ.  A fresh server with
     phase 2's cascade serves ``shifted_queries`` through a service with a
     telemetry ring, ``OnlineController.step()`` after each chunk, until
@@ -2351,6 +2396,11 @@ def online_path(sys_, servers) -> dict:
         WarmupPolicy(census_path=None), telemetry=TelemetryBuffer(),
         obs=obs)
     svc.warmup_now([BATCH])
+    # the loop's swaps copy new tables into the warmed predict program:
+    # predict keys only (the shadow sampler's margins are its own)
+    n_predict0 = server.predict_programs.built("predict:rho")
+    if n_predict0 < 1:
+        raise AssertionError("online: warmup built no predict program")
     ctl = OnlineController(svc, server, OnlineConfig(
         tau=TAU, shadow_sample=BATCH, trainer=TrainerConfig(
             min_labels=ONLINE_RETRAIN_EVERY,
@@ -2392,6 +2442,17 @@ def online_path(sys_, servers) -> dict:
                 and np.array_equal(a["classes"], b["classes"])):
             raise AssertionError(f"online: the swapped server differs from "
                                  f"a fresh boot ({name} rows)")
+    n_predict = server.predict_programs.built("predict:rho")
+    if n_predict != n_predict0:
+        raise AssertionError(
+            f"online: the loop's {st['n_swaps']} swaps and serves built "
+            f"{n_predict - n_predict0} predict programs")
+    seen["phase 8 rho"] = dict(
+        predict_programs_after_warmup=n_predict0,
+        predict_programs_after_loop=n_predict, swaps=st["n_swaps"],
+        programs=sorted(f"{k[0]}@{k[1][0][0]}"
+                        for k in server.predict_programs.keys()),
+        graphs=server.predict_programs.stats()["graphs"])
 
     # the first shadow batch (telemetry seq 0..BATCH-1) against the CPU
     first = ctl.trainer._batches[0]
@@ -4152,10 +4213,8 @@ def _grid_keys(engine) -> set:
     """(stage, padded batch) of every serving program in the cache: the
     gather's batch is its query rows' (its fifth argument), the other
     stages' their first argument's."""
-    with engine._cache_lock:
-        keys = list(engine._cache)
     out = set()
-    for key in keys:
+    for key in engine._programs.keys():
         name = key[0].split(":")[0]
         if name in SERVE_STAGES:
             shape = key[5][0] if name == "gather" else key[1][0]
@@ -4347,6 +4406,162 @@ def programs_path(servers, batches) -> None:
             continuous=dict(requests=len(q512), launches=got,
                             chunks=st["n_chunk_calls"], qps=len(res) / wall))
         log(f"phase 18: programs {knob}: " + json.dumps(line))
+
+
+# ------------------------------------------------------------ phase 19 --
+
+#: phase 19: mixed predicts under ``hot_path``, per knob
+PREDICT_BATCHES = 200
+
+
+def _eager_predict(server, rows, knob, stage):
+    """A predict stage function called eagerly on the server's padded
+    device operands (those its program copies in): the first rows'
+    values on the host."""
+    args, kw = server._operands(rows, knob)
+    return stage(*args, **kw)[:rows.shape[0]].cpu().numpy()
+
+
+def predict_programs_path(sys_, servers, batches, seen) -> None:
+    """Phase 19: the server's predict programs on the card.  Per knob a
+    fresh server on phase 2's cascade and config: the predict and margin
+    grid warmed (each build timed), a second warmup, 200 mixed predicts
+    under ``hot_path`` held bit for bit against eager stage calls, every
+    padded shape likewise, and the predict at batch 128 replayed beside
+    eager; then the predict numbers of the serving phases."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis import sanitizers
+    from repro_torch.serving import pipeline
+    from repro_torch.tree import leaves
+
+    terms = np.concatenate(batches)
+    qlen = terms.shape[1]
+    rng = np.random.default_rng(19)
+    stages = {"predict": pipeline._stage_predict,
+              "margin": pipeline._stage_margin}
+    for knob in ("rho", "k"):
+        _, casc, scfg = servers[knob]
+        server = pipeline.RetrievalServer(sys_.index, casc, scfg,
+                                          device="cuda")
+        pp = server.predict_programs
+        m = server.engine.batch_multiple
+        grid = list(range(m, BATCH + 1, m))
+        calls = {"predict": server.predict_classes,
+                 "margin": server.predict_margin}
+        # ---- the grid: every shape's predict and margin, each build
+        # timed (the copy in, the eager run, the capture, one replay) ----
+        torch.cuda.synchronize()
+        r0 = torch.cuda.memory_reserved()
+        build_s = {f: [] for f in calls}
+        t0 = time.perf_counter()
+        for b in grid:
+            dummy = np.full((b, qlen), -1, np.int32)
+            for f, call in calls.items():
+                t1 = time.perf_counter()
+                call(dummy)
+                build_s[f].append(time.perf_counter() - t1)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        added = torch.cuda.memory_reserved() - r0
+        built = pp.n_compiles
+        if built != 2 * len(grid):
+            raise AssertionError(f"phase 19: {knob}: the grid built "
+                                 f"{built} programs, not {2 * len(grid)}")
+        t0 = time.perf_counter()
+        for b in grid:
+            dummy = np.full((b, qlen), -1, np.int32)
+            for call in calls.values():
+                call(dummy)
+        torch.cuda.synchronize()
+        rewarm_s = time.perf_counter() - t0
+        if pp.n_compiles != built:
+            raise AssertionError(f"phase 19: {knob}: a warm grid built")
+        stats = pp.stats()
+        if not stats["graphs"] == stats["programs"] == built:
+            raise AssertionError(f"phase 19: {knob}: a program is not a "
+                                 f"CUDA graph: {stats}")
+        if sorted(pp.pool_sizes()) != grid:
+            raise AssertionError(f"phase 19: {knob}: pools "
+                                 f"{pp.pool_sizes()}")
+        # ---- 200 mixed predicts under hot_path ----
+        plan = []
+        for _ in range(PREDICT_BATCHES):
+            n = int(rng.integers(1, BATCH + 1))
+            lo = int(rng.integers(0, terms.shape[0] - n + 1))
+            plan.append(terms[lo:lo + n])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with sanitizers.hot_path(pp, allowed_syncs=SYNC_FAULTS) as rec:
+            got = [server.predict_classes(rows) for rows in plan]
+        mixed_s = time.perf_counter() - t0
+        if rec.new_compiles != 0:
+            raise AssertionError(f"phase 19: {knob}: {rec.new_compiles} "
+                                 "programs built on a warm grid")
+        for i, (rows, classes) in enumerate(zip(plan, got)):
+            want = _eager_predict(server, rows, knob, pipeline._stage_predict)
+            if not np.array_equal(classes, want):
+                raise AssertionError(f"phase 19: {knob}: mixed predict {i} "
+                                     "differs from the eager stage")
+        # ---- every padded shape, classes and margins against eager ----
+        for b in grid:
+            rows = terms[rng.permutation(terms.shape[0])[:b]]
+            for f, call in calls.items():
+                a = call(rows)
+                e = _eager_predict(server, rows, knob, stages[f])
+                if not np.array_equal(a, e):
+                    gap = float(np.abs(a.astype(np.float64) - e).max())
+                    raise AssertionError(f"phase 19: {knob}: {f} at {b} "
+                                         f"differs from eager by {gap}")
+        # ---- at BATCH: replayed beside eager ----
+        rows = batches[1]
+        args, kw = server._operands(rows, knob)
+        prog = pp.compiled(f"predict:{knob}", pipeline._stage_predict, args,
+                           kw)
+        replay, eager = (lambda: prog(*args),
+                         lambda: pipeline._stage_predict(*args, **kw))
+        wall = {"replayed": [], "eager": []}
+        for _ in range(15):
+            for name, fn in (("replayed", lambda: server.predict_classes(rows)),
+                             ("eager", lambda: _eager_predict(
+                                 server, rows, knob,
+                                 pipeline._stage_predict))):
+                t0 = time.perf_counter()
+                fn()
+                wall[name].append((time.perf_counter() - t0) * 1e3)
+        med = statistics.median
+        line = dict(
+            grid=[grid[0], grid[-1], m], programs=built,
+            expected=f"2 functions x {len(grid)} shapes",
+            graphs=stats["graphs"],
+            build_s=dict(predict=[min(build_s["predict"]),
+                                  med(build_s["predict"]),
+                                  max(build_s["predict"])],
+                         margin=[min(build_s["margin"]),
+                                 med(build_s["margin"]),
+                                 max(build_s["margin"])]),
+            build_s_note=f"min, median, max over the {len(grid)} shapes",
+            warmup_s=warm_s, second_warmup_s=rewarm_s, rebuilt=0,
+            memory_reserved_added_bytes=added,
+            static_bytes=stats["static_bytes"],
+            table_bytes=sum(t.numel() * t.element_size()
+                            for t in leaves(server._live[knob][0])),
+            mixed=dict(predicts=PREDICT_BATCHES, new_compiles=0,
+                       syncs=(None if rec.syncs is None
+                              else rec.syncs.by_frame()),
+                       queries_per_s=sum(len(r) for r in plan) / mixed_s),
+            bit_equal_to_eager=True,
+            at_batch=BATCH,
+            host_ms=dict(replayed=host_ms(replay), eager=host_ms(eager)),
+            ms=dict(replayed=time_ms(replay), eager=time_ms(eager)),
+            device_ms=dict(replayed=time_ms(replay, hold=True),
+                           eager=time_ms(eager, hold=True)),
+            wall_ms=dict(replayed=med(wall["replayed"]),
+                         eager=med(wall["eager"])),
+            phase2_server_programs=servers[knob][0].predict_programs.stats())
+        log(f"phase 19: predict programs {knob}: " + json.dumps(line))
+        del server, prog, args
+    log("phase 19: predict on the serving paths: " + json.dumps(seen))
 
 
 def _busy_us(events) -> float:
@@ -4896,7 +5111,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     sys_, servers, batches, meds = build_servers()
-    launches, report, served = main_path(sys_, servers, batches)
+    # the predict numbers of the serving phases (2, 4, 7, 8), which
+    # replay the server's predict programs; phase 19 prints them
+    seen = {}
+    launches, report, served = main_path(sys_, servers, batches, seen)
     mlp_path(sys_, batches, meds)
     funnel, fbatches, fmixed = build_funnel()
     f_launches, _, fserved = funnel_path(funnel, fbatches, fmixed)
@@ -4904,15 +5122,15 @@ def main() -> int:
                     embedding_bag=f_launches["embedding_bag"])
     t0 = time.perf_counter()
     service_launches = service_path(sys_, servers, batches, served, funnel,
-                                    fbatches, fserved)
+                                    fbatches, fserved, seen)
     serve_cli()
     drivers_cli()
     log(f"phase 4: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    cont_launches = continuous_path(servers, batches)
+    cont_launches = continuous_path(servers, batches, seen)
     log(f"phase 7: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    online_launches = online_path(sys_, servers)
+    online_launches = online_path(sys_, servers, seen)
     serve_cli_online()
     log(f"phase 8: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -4941,6 +5159,10 @@ def main() -> int:
     t0 = time.perf_counter()
     programs_path(servers, batches)
     log(f"phase 18: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    predict_programs_path(sys_, servers, batches, seen)
+    torch.cuda.empty_cache()
+    log(f"phase 19: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     distrib_path(dev)
     log(f"phase 17: the card's checks {time.perf_counter() - t0:.1f} s")

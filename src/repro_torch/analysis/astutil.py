@@ -6,18 +6,20 @@ the captured scopes.
 
 * **Captured-scope discovery** (``find_captured_scopes``): which
   function bodies run inside a CUDA graph capture.  A function is
-  captured when it is handed to the engine's program cache -- an
-  argument of ``_timed``, ``_run`` or ``_compiled`` (a function, a
-  method, a lambda) -- or called from a captured function, in the same
+  captured when it is handed to a program cache -- an argument of the
+  engine's ``_timed``, ``_run`` or ``_compiled``, or of
+  ``ProgramCache.compiled`` (the server's predicts) -- (a function, a
+  method, a lambda) or called from a captured function, in the same
   package (imports are followed across modules), or nested inside one.
   A branch that runs only on the CPU (``if <x>.type == "cpu":``) is not
   captured: a graph is captured on a CUDA device only.
 * **Taint tracking** (``Taint``): which names in a captured body hold
   tensors.  A function handed to the cache has every positional
-  parameter tainted (the cache's arguments are tensors; static
+  parameter and its ``*args`` tainted (the cache's arguments are tensors; static
   configuration goes by keyword); a callee has the parameters its
   captured call sites pass tainted values to.  Taint propagates through
-  assignment, tuple unpacking, ``for`` targets and calls, and stops at
+  assignment, tuple unpacking, ``for`` targets (not ``enumerate``'s
+  index) and calls, and stops at
   static metadata (``.shape``, ``.dtype``, ``.device``, ``.size()``,
   ``.data_ptr()``, ``len()``).  Tensor factories (``torch.arange``,
   ``torch.full``, ...) are tainted whatever their inputs.
@@ -55,8 +57,8 @@ TENSOR_FACTORIES = {"arange", "full", "zeros", "ones", "empty", "full_like",
                     "zeros_like", "ones_like", "empty_like", "rand", "randn",
                     "randint", "linspace", "eye"}
 
-#: call tails that hand a stage function to the engine's program cache
-CACHE_ENTRYPOINTS = {"_timed", "_run", "_compiled"}
+#: call tails that hand a stage function to a program cache
+CACHE_ENTRYPOINTS = {"_timed", "_run", "_compiled", "compiled"}
 
 
 def tail(node: ast.AST) -> str | None:
@@ -209,13 +211,22 @@ class Taint:
                 for t in targets:
                     self._taint_target(t)
         elif isinstance(node, ast.For):
-            if self.is_tainted(node.iter):
-                self._taint_target(node.target)
+            self._taint_loop(node.iter, node.target)
         elif isinstance(node, (ast.ListComp, ast.SetComp, ast.DictComp,
                                ast.GeneratorExp)):
             for comp in node.generators:
-                if self.is_tainted(comp.iter):
-                    self._taint_target(comp.target)
+                self._taint_loop(comp.iter, comp.target)
+
+    def _taint_loop(self, it: ast.expr, target: ast.expr) -> None:
+        """A loop over a tainted iterable taints its target; the index
+        of ``enumerate`` stays a Python int."""
+        if not self.is_tainted(it):
+            return
+        if (isinstance(it, ast.Call) and tail(it.func) == "enumerate"
+                and isinstance(target, ast.Tuple) and len(target.elts) == 2):
+            self._taint_target(target.elts[1])
+        else:
+            self._taint_target(target)
 
     def is_tainted(self, e: ast.AST) -> bool:
         """Does evaluating ``e`` yield a tensor (or a value read from
@@ -426,8 +437,10 @@ class _CallGraph:
                 got = ((m, arg) if isinstance(arg, ast.Lambda)
                        else self.resolve(m, qual, arg))
                 if got is not None:
-                    add(got[0], got[1], set(positional(got[1])), set(),
-                        True, f"handed to `{entry}` in `{qual}`")
+                    va = got[1].args.vararg
+                    add(got[0], got[1],
+                        set(positional(got[1])) | ({va.arg} if va else set()),
+                        set(), True, f"handed to `{entry}` in `{qual}`")
         while todo:
             m, node = todo.pop()
             sc = out[node]

@@ -28,7 +28,9 @@ tensor, a data-dependent shape (``nonzero``, boolean masks,
 
 Hot scopes: the engine outside construction and warmup, its captured
 programs (``serving/programs.py``: a build runs on the serving path
-when a shape is first served), the service's
+when a shape is first served), the server's predict (``predict_classes``,
+``predict_versioned``, ``predict_margin``, their ``_operands`` and
+``_host`` and the stage functions its cache captures), the service's
 ``_exec_loop`` and ``_run_batch``, the scheduler's ``_chunk_step``,
 ``kernels/``, ``obs/trace.py`` and ``obs/metrics.py`` (the reference's),
 plus the LM decode path: ``decode_step`` and its decode-only helpers in
@@ -50,6 +52,9 @@ HOT_PATHS: tuple[tuple[str, tuple[str, ...] | None, tuple[str, ...]], ...] = (
     ("serving/engine.py", None,
      ("__init__", "warmup", "warmup_shape", "padded_batch")),
     ("serving/programs.py", None, ()),
+    ("serving/pipeline.py",
+     ("predict_classes", "predict_versioned", "predict_margin", "_operands",
+      "_host", "_stage_proba0", "_stage_predict", "_stage_margin"), ()),
     ("serving/service.py", ("_exec_loop", "_run_batch"), ()),
     ("serving/sched/scheduler.py", ("_chunk_step",), ()),
     ("kernels/", None, ()),

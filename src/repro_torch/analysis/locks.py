@@ -1,8 +1,9 @@
 """Lock-discipline checker: guarded attributes stay under their lock.
 A copy of the JAX package's ``analysis/locks.py``: the port's serving
 classes carry the reference's names and locks, so the registry applies
-to them as it stands, with one entry of the port's own at its end (the
-captured program's lock, ``serving/programs.py``).
+to them as it stands, with entries of the port's own at its end (the
+captured program's and the program cache's locks,
+``serving/programs.py``).
 
 The serving path runs four concurrent threads (svc-admit, svc-exec,
 svc-warmup, plus the online controller), coordinated by a handful of
@@ -96,6 +97,12 @@ LOCK_REGISTRY: tuple[LockSpec, ...] = (
     # one build or call at a time from the copy-in to the copy-out (a
     # leaf but for the kernel build lock under a first launch)
     LockSpec("GraphProgram", "_lock", ("_replays", "_pool")),
+    # a program cache's lock (the engine's stages and the server's
+    # predicts each hold a cache): its programs and pending markers, its
+    # graph pools and its build count; held briefly, never across a
+    # build, below the swap lock (service -> admission -> sched -> swap
+    # -> cache -> obs)
+    LockSpec("ProgramCache", "_lock", ("_programs", "_pools", "n_compiles")),
 )
 
 

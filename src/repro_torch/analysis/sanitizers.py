@@ -24,14 +24,15 @@ imported by the serving modules, and nothing in them is hooked for it.
 * ``compile_sentinel(*probes, allowed=0)`` -- the reference's:
   snapshots compile counters before the block and raises
   ``RecompileError`` after it if more than ``allowed`` programs were
-  built.  Probes: an engine (reads ``n_compiles``, the programs its
+  built.  Probes: an engine or a program cache (the server's
+  ``predict_programs``; each reads ``n_compiles``, the programs its
   shape-keyed cache built) or any zero-argument callable returning an
   int.
 * ``hot_path(*probes, allowed=0)`` -- the serving path's invariant in
   one guard, as the reference's (``no_transfers`` plus the sentinel):
   ``no_syncs`` plus ``compile_sentinel``.  ``no_syncs`` is armed when a
-  probe is an engine on a CUDA device; on the CPU there is no stream to
-  wait for, and the sentinel is armed alone.
+  probe is an engine or a program cache on a CUDA device; on the CPU
+  there is no stream to wait for, and the sentinel is armed alone.
 * ``lock_order(*objects)`` -- a copy of the reference's: wraps the
   locks the static registry (``repro_torch.analysis.locks.
   LOCK_REGISTRY``) declares on the given objects with instrumented

@@ -79,10 +79,11 @@ def place_node_params(kind: str, node_params, max_depth: int,
 
 def classes_from_proba(p0: torch.Tensor, t) -> torch.Tensor:
     """First node whose class-0 probability clears its threshold; ``t``
-    is a scalar or a per-node vector.  No firing node -> class c."""
+    is a Python number, or a float32 tensor on ``p0``'s device (a scalar
+    or a per-node vector), so a captured predict reads no host data.  No
+    firing node -> class c."""
     c = p0.shape[1]
-    tv = torch.as_tensor(t, dtype=torch.float32, device=p0.device)
-    fire = p0 > tv.expand(c)[None, :]
+    fire = p0 > t
     first = fire.to(torch.int32).argmax(dim=1)
     none = ~fire.any(dim=1)
     return torch.where(none, torch.full_like(first, c),
@@ -168,7 +169,9 @@ def predict_batched(cascade: Cascade, x: torch.Tensor, t) -> torch.Tensor:
 
     ``t`` is a scalar confidence threshold or a per-node vector of c
     thresholds (the paper's "variable cutoff thresholds" extension)."""
-    return classes_from_proba(cascade.proba0(x), t)
+    p0 = cascade.proba0(x)
+    return classes_from_proba(p0, torch.as_tensor(
+        t, dtype=torch.float32, device=p0.device))
 
 
 def tune_thresholds(cascade: Cascade, x: np.ndarray, med_table: np.ndarray,

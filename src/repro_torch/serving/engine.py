@@ -25,9 +25,11 @@ name and its tensor arguments' shapes and dtypes, static configuration
 goes by keyword, and the predicted parameters are tensors, so a padded
 batch shape builds each stage's program once whatever its mix of
 classes.  On a CUDA device a program is a CUDA graph captured once and
-replayed (``serving/programs.py``); on the CPU it is the stage function
-itself.  ``n_compiles`` (and the ``engine.compiles`` counter) counts the
-programs built, the JAX engine's count on the same calls, and
+replayed (``serving/programs.py``'s ``ProgramCache``, a cache of the
+engine's own: the server's predicts have another); on the CPU it is the
+stage function itself.  ``n_compiles`` (and the ``engine.compiles``
+counter) counts the programs built, the JAX engine's count on the same
+calls, and
 ``warmup``/``warmup_shape`` build the pad grid ahead of traffic.  Each
 stage runs inside an ``engine.<name>`` span (``bind_obs``; the JAX
 engine's names) and counts one dispatch; its timing is the span's,
@@ -60,7 +62,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import threading
 
 import numpy as np
 import torch
@@ -77,19 +78,10 @@ from repro_torch.retrieval.index import (block_doc_bounds, partition_cap,
                                          partition_postings,
                                          partition_scored_postings)
 from repro_torch.serving import bucketing
-from repro_torch.serving.programs import GraphPool, build_program
+from repro_torch.serving.programs import ProgramCache
 
 __all__ = ["SchedPrograms", "SchedState", "ServingEngine",
            "ShardedSchedPrograms", "ShardedServingEngine"]
-
-
-class _PendingCompile:
-    """In-flight marker in the program cache (see ``_compiled``)."""
-
-    def __init__(self):
-        self.ready = threading.Event()
-        self.exe = None
-        self.err: BaseException | None = None
 
 
 def _pad_ranked(ranked: np.ndarray, depth: int) -> np.ndarray:
@@ -277,16 +269,11 @@ class ServingEngine:
         self.n_docs = index.n_docs
         self.max_k = int(max(cfg.cutoffs))
         self.batch_multiple = cfg.pad_multiple
-        # shape-keyed program cache: key -> program (or _PendingCompile),
-        # and on a card the graph pool of each padded batch size
-        self._cache: dict = {}
-        self._pools: dict = {}
-        self._cache_lock = threading.Lock()
-        self.n_compiles = 0
-        self._sides = threading.local()   # each thread's build stream
-        #: arguments a captured program reads in place (never copied)
-        self._consts = (self.offsets, self.pdoc, self.pimp, self.pscore,
-                        self.doc_len)
+        # the stages' shape-keyed program cache; a captured program reads
+        # the index tensors in place (never copied)
+        self._programs = ProgramCache(
+            self.device, consts=(self.offsets, self.pdoc, self.pimp,
+                                 self.pscore, self.doc_len))
         # observability: spans around stage boundaries + deterministic
         # dispatch/compile counters (NULL until bind_obs)
         self.trace = obs_lib.NULL_TRACE
@@ -299,91 +286,25 @@ class ServingEngine:
         self.trace = obs.trace
         self._m_dispatch = obs.metrics.counter("engine.dispatches")
         self._m_compile = obs.metrics.counter("engine.compiles")
+        self._programs.metric = self._m_compile
 
     # ---------------------------------------------------- program cache --
+    @property
+    def n_compiles(self) -> int:
+        """Programs the stage cache built (the JAX engine's count)."""
+        return self._programs.built()
+
     def _compiled(self, name: str, fn, args, kwargs):
-        """Shape-keyed program cache lookup; builds on a miss.
-
-        The key is ``(name,) + ((shape, dtype) of each argument)``, as
-        in the JAX engine; every positional argument is a tensor and
-        static configuration goes by keyword (fixed for a name: a hit
-        with other keywords raises).  Thread-safe: the service's warmup
-        thread builds beside the execution thread, so a miss installs a
-        pending marker under the lock and exactly one thread builds each
-        key (others wait on its event instead of building it again or
-        counting it twice in ``n_compiles``)."""
-        if not args or not all(isinstance(a, torch.Tensor) for a in args):
-            raise TypeError(
-                f"stage {name!r}: the program cache keys on tensor "
-                "arguments only (static configuration goes by keyword), "
-                f"got {[type(a).__name__ for a in args]}")
-        key = (name,) + tuple((tuple(a.shape), a.dtype) for a in args)
-        owner = False
-        with self._cache_lock:
-            entry = self._cache.get(key)
-            if entry is None:
-                entry = self._cache[key] = _PendingCompile()
-                owner = True
-        if isinstance(entry, _PendingCompile):
-            if owner:
-                try:
-                    exe = build_program(name, fn, args, kwargs, self.device,
-                                        *self._graph_place(args),
-                                        consts=self._consts)
-                except BaseException as e:
-                    with self._cache_lock:
-                        self._cache.pop(key, None)
-                    entry.err = e
-                    entry.ready.set()
-                    raise
-                with self._cache_lock:
-                    self._cache[key] = exe
-                    self.n_compiles += 1
-                self._m_compile.inc()
-                entry.exe = exe
-                entry.ready.set()
-                return exe
-            entry.ready.wait()
-            if entry.err is not None:
-                raise entry.err
-            entry = entry.exe
-        if entry.kwargs != kwargs:
-            raise ValueError(
-                f"stage {name!r} was built with {entry.kwargs} and is "
-                f"called with {kwargs}: static keywords are part of the "
-                "stage's name")
-        return entry
-
-    def _graph_place(self, args) -> tuple:
-        """(pool, side stream) of a program built on a card: the pool of
-        its padded batch size (the leading size of its first argument
-        that is not an engine constant), and the building thread's side
-        stream; (None, None) on the CPU."""
-        if self.device.type != "cuda":
-            return None, None
-        b = next((a.shape[0] for a in args
-                  if not any(a is c for c in self._consts)), None)
-        with self._cache_lock:
-            pool = self._pools.get(b)
-            if pool is None:
-                pool = self._pools[b] = GraphPool()
-        side = getattr(self._sides, "stream", None)
-        if side is None:
-            side = self._sides.stream = torch.cuda.Stream(self.device)
-        return pool, side
+        """Shape-keyed program cache lookup; builds on a miss
+        (``ProgramCache.compiled``: the JAX engine's key, lock and
+        pending marker)."""
+        return self._programs.compiled(name, fn, args, kwargs)
 
     def program_stats(self) -> dict:
-        """The cache: programs built, CUDA graphs among them, their
+        """The stage cache: programs built, CUDA graphs among them, their
         replays and the bytes of static inputs and outputs they hold
         (the graph pools hold the captures' intermediates beside)."""
-        with self._cache_lock:
-            progs = [p for p in self._cache.values()
-                     if not isinstance(p, _PendingCompile)]
-        stats = [p.stats() for p in progs]
-        return {"programs": len(progs),
-                "graphs": sum(p.graph for p in progs),
-                "replays": sum(s["replays"] for s in stats),
-                "static_bytes": sum(s["static_bytes"] for s in stats)}
+        return self._programs.stats()
 
     def padded_batch(self, n: int) -> int:
         return bucketing.pad_length(n, self.batch_multiple)
@@ -471,28 +392,24 @@ class ServingEngine:
         pass it, so the first depth-predicting batch finds it built).
         Returns the programs built (0 when the shape was already
         warm)."""
-        with self._cache_lock:
-            before = self.n_compiles
+        before = self._programs.built()
         b = self.padded_batch(int(batch_size))
         qt = np.full((b, query_len), -1, np.int32)
         pv = np.ones(b, np.int32)
         self.serve(qt, pv)
         if with_depth:
             self.serve(qt, pv, depth_vec=np.ones(b, np.int32))
-        with self._cache_lock:
-            return self.n_compiles - before
+        return self._programs.built() - before
 
     def warmup(self, batch_sizes, query_len: int, *,
                with_depth: bool = False) -> int:
         """Build the pipeline's programs for each padded batch size in
         ``batch_sizes`` (the configured pad grid).  Returns the number
         of programs built."""
-        with self._cache_lock:
-            before = self.n_compiles
+        before = self._programs.built()
         for b in sorted({self.padded_batch(int(b)) for b in batch_sizes}):
             self.warmup_shape(b, query_len, with_depth=with_depth)
-        with self._cache_lock:
-            return self.n_compiles - before
+        return self._programs.built() - before
 
     # ----------------------------------------------- continuous serving --
     @property
@@ -1058,8 +975,7 @@ class SchedPrograms:
         outputs, so no live state is touched.  Returns the programs
         built."""
         e = self.engine
-        with e._cache_lock:
-            before = e.n_compiles
+        before = e._programs.built()
         g = self.grain
         state = self.init_state(slots, query_len)
         rows, _, _ = self.gather(np.full((g, query_len), -1, np.int32))
@@ -1068,8 +984,7 @@ class SchedPrograms:
         state = self.chunk(state, zeros, zeros)
         self.finalize(state, np.zeros(g, np.int32), np.ones(g, np.int32),
                       np.ones(g, np.int32), np.zeros(g, np.int32))
-        with e._cache_lock:
-            return e.n_compiles - before
+        return e._programs.built() - before
 
 
 # --------------------------------------- sharded scheduler stage bodies --

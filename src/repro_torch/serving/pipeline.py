@@ -8,6 +8,19 @@
 Everything after the class prediction runs through the batch-once
 ``ServingEngine``.  ``serve_batch_reference`` keeps the per-bucket
 execution model (one static parameter per class) as the oracle.
+
+Prediction is the JAX server's fused predict: features, the cascade and
+the first firing node in one program a knob and padded shape (the
+margin has its own), through a ``ProgramCache`` of the server's own
+(``predict_programs``): a CUDA graph on a card, the stage function on
+the CPU.  The stage functions (``_stage_predict``, ``_stage_margin``)
+take every tensor as an argument: the queries, the term statistics
+(read in place), the thresholds and the knob's node tables (the leaves
+of its per-node parameter trees); the node kind, depth and the trees'
+structure go by keyword.  A hot swap installs new tables of the same
+shapes and the next call copies them in, so it builds nothing, as the
+JAX server's runtime operands.  The predicts are warmed where the JAX server
+warms them, and each knob counts the JAX ``_cache_size()``.
 """
 
 from __future__ import annotations
@@ -22,12 +35,13 @@ import torch
 from repro_torch.core import cascade as cascade_lib
 from repro_torch.core import features as feat_lib
 from repro_torch.core import knobs as knobs_lib
-from repro_torch.device import resolve_device
+from repro_torch.device import fence, resolve_device
 from repro_torch.retrieval import gold, jass
 from repro_torch.serving import bucketing
 from repro_torch.serving.engine import (ServingEngine, ShardedServingEngine,
-                                       _pad_ranked)
-from repro_torch.tree import leaves_with_paths, map_tree
+                                       _h2d, _pad_ranked)
+from repro_torch.serving.programs import ProgramCache
+from repro_torch.tree import leaves, leaves_with_paths, map_tree, unflatten
 
 __all__ = ["ServingConfig", "RetrievalServer"]
 
@@ -75,6 +89,31 @@ class ServingConfig:
                 else max(self.cutoffs))
 
 
+# ---------------------------------------------------- predict stages --
+
+def _stage_proba0(qt, stats, ctf, df, tables, *, kind: str, max_depth: int,
+                  skeleton):
+    x = feat_lib.query_features(qt, stats, ctf, df)
+    node_params = unflatten(skeleton, list(tables))
+    return cascade_lib.proba0_from_params(kind, node_params, x, max_depth)
+
+
+def _stage_predict(qt, stats, ctf, df, thresholds, *tables, kind: str,
+                   max_depth: int, skeleton):
+    """Features + cascade + first firing node: (Q,) int32 classes."""
+    p0 = _stage_proba0(qt, stats, ctf, df, tables, kind=kind,
+                       max_depth=max_depth, skeleton=skeleton)
+    return cascade_lib.classes_from_proba(p0, thresholds)
+
+
+def _stage_margin(qt, stats, ctf, df, thresholds, *tables, kind: str,
+                  max_depth: int, skeleton):
+    """Features + cascade: (Q,) min over nodes of |p0 - t|."""
+    p0 = _stage_proba0(qt, stats, ctf, df, tables, kind=kind,
+                       max_depth=max_depth, skeleton=skeleton)
+    return (p0 - thresholds[None, :]).abs().amin(dim=1)
+
+
 def _same_layout(new, old) -> None:
     """Swapped node params (forest tables or MLP states) must match the
     live ones in structure, shapes and dtypes."""
@@ -102,7 +141,9 @@ class RetrievalServer:
     With a ``mesh`` (``distrib.sharding.DeviceMesh``) the engine is the
     ``ShardedServingEngine``: docs shard over ``shard_axis``, request
     rows over the mesh's data axes, with the same ``serve`` surface and
-    the same lists.  ``device`` is where the cascade predicts."""
+    the same lists.  ``device`` is where the cascade predicts, through
+    ``predict_programs`` (its ``n_compiles`` is the predicts' and
+    margins' count; ``engine.n_compiles`` stays the stages')."""
 
     def __init__(self, index, casc: cascade_lib.Cascade | None,
                  cfg: ServingConfig, *,
@@ -133,7 +174,9 @@ class RetrievalServer:
         self.ctf = ts.ctf.to(self.device)
         self.df = ts.df.to(self.device)
         self.n_docs = index.n_docs
-        self._kinds = {}               # knob -> (node kind, max_depth)
+        self.predict_programs = ProgramCache(
+            self.device, consts=(self.stats, self.ctf, self.df))
+        self._kinds = {}   # knob -> (node kind, max_depth, tree skeleton)
         self._live = {}                # knob -> (node_params, thresholds)
         self._swap_lock = threading.Lock()
         self.predictor_version = 0
@@ -145,6 +188,12 @@ class RetrievalServer:
         if warmup_batch_sizes and warmup_query_len:
             self.engine.warmup(warmup_batch_sizes, warmup_query_len,
                                with_depth=self.has_depth_knob)
+            for knob in self._kinds:       # the fused predicts, as JAX's
+                for b in sorted({self.engine.padded_batch(int(x))
+                                 for x in warmup_batch_sizes}):
+                    self.predict_classes(
+                        np.full((b, warmup_query_len), -1, np.int32),
+                        knob=knob)
 
     def _boot_knob(self, knob: str, casc: cascade_lib.Cascade) -> None:
         """Install a knob's boot cascade (forest or MLP nodes) on the
@@ -160,7 +209,9 @@ class RetrievalServer:
             casc.kind, casc.node_params, casc.max_depth, self.device)
         thresholds = torch.full((casc.n_cutoffs,), self.cfg.threshold,
                                 dtype=torch.float32, device=self.device)
-        self._kinds[knob] = (casc.kind, casc.max_depth)
+        fence(self.device)   # placed before any other stream reads them
+        self._kinds[knob] = (casc.kind, casc.max_depth,
+                             map_tree(lambda _: None, node_params))
         with self._swap_lock:
             self._live = {**self._live, knob: (node_params, thresholds)}
 
@@ -168,49 +219,77 @@ class RetrievalServer:
     def has_depth_knob(self) -> bool:
         return "depth" in self.knobs
 
-    def _padded_terms(self, query_terms: np.ndarray) -> torch.Tensor:
+    def _operands(self, query_terms: np.ndarray, knob: str):
+        """(tensor arguments, static keywords) of ``knob``'s predict
+        programs on the padded queries, or None when the knob has no
+        cascade.  The live tables and thresholds are read together under
+        the swap lock, then the program copies them in: a swap between
+        two calls gives each batch exactly one version's weights."""
+        with self._swap_lock:
+            live = self._live.get(knob)
+        if live is None:
+            return None
         qt = bucketing.pad_rows(query_terms, self.engine.batch_multiple,
                                 fill=-1)
-        return torch.from_numpy(qt.astype(np.int32)).to(self.device)
+        qt = _h2d(qt.astype(np.int32), self.device)
+        node_params, thresholds = live
+        kind, depth, skeleton = self._kinds[knob]
+        return ((qt, self.stats, self.ctf, self.df, thresholds)
+                + tuple(leaves(node_params)),
+                dict(kind=kind, max_depth=depth, skeleton=skeleton))
 
-    def _proba0(self, knob: str, node_params, qt: torch.Tensor):
-        x = feat_lib.query_features(qt, self.stats, self.ctf, self.df)
-        kind, depth = self._kinds[knob]
-        return cascade_lib.proba0_from_params(kind, node_params, x, depth)
+    @staticmethod
+    def _host(out: torch.Tensor, n: int) -> np.ndarray:
+        """A predict's first ``n`` rows on the host: its one copy out."""
+        return out[:n].cpu().numpy()
 
     # stage 0: prediction ------------------------------------------------
     def predict_classes(self, query_terms: np.ndarray,
                         knob: str | None = None) -> np.ndarray:
-        """Featurize + cascade on the device: (n,) classes.
+        """Featurize + cascade, fused into one program a knob and padded
+        shape: (n,) classes.
 
         A declared knob with no cascade installed predicts the
         no-envelope class for every query, which ``params_of`` maps to
         the knob's reference."""
         knob = self.cfg.knob if knob is None else knob
-        n = query_terms.shape[0]
-        with self._swap_lock:
-            live = self._live.get(knob)
-        if live is None:
-            return np.full(n, self.knobs[knob].n_cutoffs, np.int32)
-        node_params, thresholds = live
-        p0 = self._proba0(knob, node_params, self._padded_terms(query_terms))
-        return cascade_lib.classes_from_proba(
-            p0, thresholds)[:n].cpu().numpy()
+        call = self._operands(query_terms, knob)
+        if call is None:
+            return np.full(query_terms.shape[0],
+                           self.knobs[knob].n_cutoffs, np.int32)
+        prog = self.predict_programs.compiled(f"predict:{knob}",
+                                              _stage_predict, *call)
+        return self._host(prog(*call[0]), query_terms.shape[0])
+
+    def predict_versioned(self, query_terms: np.ndarray,
+                          knob: str | None = None):
+        """(``predict_classes``' classes, the version of the weights that
+        gave them), for the service and the scheduler.  The live tables
+        and version are read before the predict and the tables again
+        after it; a swap in between runs the predict again (swaps are
+        rare), so a batch's classes are never put down to other weights.
+        It calls ``predict_classes``, so a stand-in for that serves here
+        too."""
+        while True:
+            with self._swap_lock:
+                live, version = self._live, self.predictor_version
+            classes = self.predict_classes(query_terms, knob)
+            with self._swap_lock:
+                if self._live is live:
+                    return classes, version
 
     def predict_margin(self, query_terms: np.ndarray,
                        knob: str | None = None) -> np.ndarray:
-        """Per-query cascade uncertainty: min over nodes of |p0 - t|.
-        Knobs with no cascade report zero margin."""
+        """Per-query cascade uncertainty: min over nodes of |p0 - t|,
+        through a program of its own.  Knobs with no cascade report
+        zero margin."""
         knob = self.cfg.knob if knob is None else knob
-        n = query_terms.shape[0]
-        with self._swap_lock:
-            live = self._live.get(knob)
-        if live is None:
-            return np.zeros(n, np.float32)
-        node_params, thresholds = live
-        p0 = self._proba0(knob, node_params, self._padded_terms(query_terms))
-        margin = (p0 - thresholds[None, :]).abs().amin(dim=1)
-        return margin[:n].cpu().numpy()
+        call = self._operands(query_terms, knob)
+        if call is None:
+            return np.zeros(query_terms.shape[0], np.float32)
+        prog = self.predict_programs.compiled(f"margin:{knob}",
+                                              _stage_margin, *call)
+        return self._host(prog(*call[0]), query_terms.shape[0])
 
     def swap_predictor(self, node_params, thresholds=None, *,
                        version: int | None = None,
@@ -218,7 +297,8 @@ class RetrievalServer:
         """Atomically replace a knob's live cascade tables (and optionally
         its per-node thresholds).  The new tables must match the live
         ones in structure, shapes and dtypes (``online.PredictorStore``
-        pads retrained forests to the template)."""
+        pads retrained forests to the template).  The predict programs
+        copy the new tables in at their next call and build nothing."""
         knob = self.cfg.knob if knob is None else knob
         if knob not in self._kinds:
             raise RuntimeError(
@@ -226,18 +306,19 @@ class RetrievalServer:
                 "to swap (no boot cascade was installed for it)")
         new_params = [map_tree(lambda v: torch.as_tensor(v).to(self.device),
                                p) for p in node_params]
+        if thresholds is not None:
+            thresholds = torch.as_tensor(
+                thresholds, dtype=torch.float32).to(self.device)
+        fence(self.device)   # placed before any other stream reads them
         with self._swap_lock:
             old_params, old_thr = self._live[knob]
             _same_layout(new_params, old_params)
             if thresholds is None:
                 thresholds = old_thr
-            else:
-                thresholds = torch.as_tensor(
-                    thresholds, dtype=torch.float32).to(self.device)
-                if thresholds.shape != old_thr.shape:
-                    raise ValueError(
-                        f"thresholds shape {tuple(thresholds.shape)} != "
-                        f"live {tuple(old_thr.shape)}")
+            elif thresholds.shape != old_thr.shape:
+                raise ValueError(
+                    f"thresholds shape {tuple(thresholds.shape)} != "
+                    f"live {tuple(old_thr.shape)}")
             self._live = {**self._live, knob: (new_params, thresholds)}
             self.predictor_version = (self.predictor_version + 1
                                       if version is None else int(version))

@@ -1,9 +1,16 @@
-"""The programs of the engine's cache: one per stage and input shapes.
+"""The program caches of the port: one program per stage and input shapes.
 
-The port of what the JAX engine's AOT executables are to its cache
-(``ServingEngine._compiled``).  A program runs one stage function at one
-key -- the stage's name and its tensor arguments' shapes and dtypes --
-with its static configuration bound by keyword.
+The port of what the JAX package's compiled executables are to its
+serving path: the engine's AOT cache (``ServingEngine._compiled``) and
+the server's jitted predicts (``RetrievalServer._predict_fns``).  A
+``ProgramCache`` holds the programs of one owner -- the engine's stages,
+or the server's predict and margin -- each at one key: the stage's name
+and its tensor arguments' shapes and dtypes, with its static
+configuration bound by keyword.  The engine and the server each hold a
+cache of their own, so each counts its own builds (``n_compiles``), and
+on a card each has its own graph pools: a predict on the service's
+admission stream never waits for a pool lock that an engine stage on
+the execution thread holds.
 
 * ``EagerProgram`` (the CPU): the stage function itself.  Nothing is
   captured; the cache's keys, counts, locks and warmup are the same.
@@ -47,9 +54,11 @@ import threading
 
 import torch
 
+from repro_torch import obs as obs_lib
 from repro_torch.kernels import _build
 
-__all__ = ["EagerProgram", "GraphPool", "GraphProgram", "build_program"]
+__all__ = ["EagerProgram", "GraphPool", "GraphProgram", "ProgramCache",
+           "build_program"]
 
 
 def _tensors(out, name: str) -> tuple[torch.Tensor, ...]:
@@ -188,3 +197,137 @@ def build_program(name: str, fn, args, kwargs: dict, device: torch.device,
         raise ValueError(f"the program cache runs on cuda or cpu, not "
                          f"{device}")
     return EagerProgram(name, fn, kwargs)
+
+
+class _PendingCompile:
+    """In-flight marker in a program cache (see ``ProgramCache.compiled``)."""
+
+    def __init__(self):
+        self.ready = threading.Event()
+        self.exe = None
+        self.err: BaseException | None = None
+
+
+class ProgramCache:
+    """Shape-keyed programs of one owner on one device.
+
+    ``compiled(name, fn, args, kwargs)`` returns the program of the key
+    ``(name,) + ((shape, dtype) of each argument)``, building it on a
+    miss, as the JAX engine's ``_compiled`` does; every positional
+    argument is a tensor and static configuration goes by keyword (fixed
+    for a name: a hit with other keywords raises).  ``consts`` are the
+    owner's tensors a captured program reads in place (the engine's
+    index, the server's term statistics).
+
+    Thread-safe: the service's warmup thread builds beside the serving
+    threads, so a miss installs a pending marker under ``_lock`` and
+    exactly one thread builds each key (others wait on its event instead
+    of building it again or counting it twice in ``n_compiles``).  On a
+    card a program is captured into the ``GraphPool`` of its padded
+    batch size (the leading size of its first argument that is not a
+    constant) on the building thread's side stream (one a thread and
+    cache).  ``metric`` (a counter, ``obs``) counts each build."""
+
+    def __init__(self, device: torch.device, consts=()):
+        self.device = device
+        self.consts = tuple(consts)
+        self._lock = threading.Lock()
+        self._programs: dict = {}        # key -> program or _PendingCompile
+        self._pools: dict = {}           # padded batch -> GraphPool (card)
+        self._sides = threading.local()  # each thread's build stream
+        self.n_compiles = 0
+        self.metric = obs_lib.NULL_METRIC
+
+    def compiled(self, name: str, fn, args, kwargs: dict):
+        """The program of ``name`` at ``args``' shapes; built on a miss."""
+        if not args or not all(isinstance(a, torch.Tensor) for a in args):
+            raise TypeError(
+                f"stage {name!r}: the program cache keys on tensor "
+                "arguments only (static configuration goes by keyword), "
+                f"got {[type(a).__name__ for a in args]}")
+        key = (name,) + tuple((tuple(a.shape), a.dtype) for a in args)
+        owner = False
+        with self._lock:
+            entry = self._programs.get(key)
+            if entry is None:
+                entry = self._programs[key] = _PendingCompile()
+                owner = True
+        if isinstance(entry, _PendingCompile):
+            if owner:
+                try:
+                    exe = build_program(name, fn, args, kwargs, self.device,
+                                        *self._place(args),
+                                        consts=self.consts)
+                except BaseException as e:
+                    with self._lock:
+                        self._programs.pop(key, None)
+                    entry.err = e
+                    entry.ready.set()
+                    raise
+                with self._lock:
+                    self._programs[key] = exe
+                    self.n_compiles += 1
+                self.metric.inc()
+                entry.exe = exe
+                entry.ready.set()
+                return exe
+            entry.ready.wait()
+            if entry.err is not None:
+                raise entry.err
+            entry = entry.exe
+        if entry.kwargs != kwargs:
+            raise ValueError(
+                f"stage {name!r} was built with {entry.kwargs} and is "
+                f"called with {kwargs}: static keywords are part of the "
+                "stage's name")
+        return entry
+
+    def _place(self, args) -> tuple:
+        """(pool, side stream) of a program built on a card: the pool of
+        its padded batch size, and the building thread's side stream;
+        (None, None) on the CPU."""
+        if self.device.type != "cuda":
+            return None, None
+        b = next((a.shape[0] for a in args
+                  if not any(a is c for c in self.consts)), None)
+        with self._lock:
+            pool = self._pools.get(b)
+            if pool is None:
+                pool = self._pools[b] = GraphPool()
+        side = getattr(self._sides, "stream", None)
+        if side is None:
+            side = self._sides.stream = torch.cuda.Stream(self.device)
+        return pool, side
+
+    def built(self, name: str | None = None) -> int:
+        """Programs built: all of them, or those of stage ``name``."""
+        with self._lock:
+            if name is None:
+                return self.n_compiles
+            return sum(1 for k, p in self._programs.items()
+                       if k[0] == name
+                       and not isinstance(p, _PendingCompile))
+
+    def keys(self) -> list:
+        """The keys of the programs built."""
+        with self._lock:
+            return [k for k, p in self._programs.items()
+                    if not isinstance(p, _PendingCompile)]
+
+    def pool_sizes(self) -> list:
+        """The padded batch sizes that have a graph pool (a card)."""
+        with self._lock:
+            return sorted(self._pools)
+
+    def stats(self) -> dict:
+        """Programs built, CUDA graphs among them, their replays and the
+        bytes of static inputs and outputs they hold (the graph pools
+        hold the captures' intermediates beside)."""
+        with self._lock:
+            progs = [p for p in self._programs.values()
+                     if not isinstance(p, _PendingCompile)]
+        stats = [p.stats() for p in progs]
+        return {"programs": len(progs),
+                "graphs": sum(p.graph for p in progs),
+                "replays": sum(s["replays"] for s in stats),
+                "static_bytes": sum(s["static_bytes"] for s in stats)}

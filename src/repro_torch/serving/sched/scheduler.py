@@ -299,12 +299,11 @@ class ContinuousScheduler:
         return qt
 
     def _predict(self, cand):
-        ver = self.server.predictor_version
         if self.fixed_param is not None:
             # the fixed arm runs no cascade: every query at one budget
-            return np.zeros(len(cand), np.int64), ver
-        qt = self._rows(cand, len(cand))
-        return np.asarray(self.server.predict_classes(qt)), ver
+            return (np.zeros(len(cand), np.int64),
+                    self.server.predictor_version)
+        return self.server.predict_versioned(self._rows(cand, len(cand)))
 
     def _select(self, cand, classes, n: int):
         """Refill-group choice: the most urgent request (cand[0]) always

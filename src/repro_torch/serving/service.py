@@ -134,11 +134,10 @@ class EngineBackend:
         return qt
 
     def predict(self, qt: np.ndarray):
-        # capture the predictor version *with* the decision: a hot-swap
-        # landing between predict and execute must not re-attribute this
-        # batch's classes to the new weights
-        ver = self.predictor_version
-        return self.server.predict_classes(qt), ver
+        # the predictor version is read *with* the weights the predict
+        # copies in: a hot-swap landing before, during or after it must
+        # not re-attribute this batch's classes to other weights
+        return self.server.predict_versioned(qt)
 
     def execute(self, qt, pred) -> tuple[list[dict], dict]:
         classes, ver = pred
@@ -165,7 +164,7 @@ class EngineBackend:
         dummy = np.full((padded_size, self.query_len), -1, np.int32)
         if self.server.cascade is not None:
             self.server.predict_classes(dummy)
-        if with_depth:
+        if with_depth and self.server.depth_cascade is not None:
             self.server.predict_classes(dummy, knob="depth")
         return n
 

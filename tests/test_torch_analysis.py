@@ -163,13 +163,14 @@ def test_locks_pass_flags_unguarded_reads_and_spares_exemptions():
 
 
 def test_locks_registry_is_the_references():
-    """The reference's registry in its order, then the port's own entry:
-    the captured program's lock."""
+    """The reference's registry in its order, then the port's own
+    entries: the captured program's lock and the program cache's."""
     from repro.analysis.locks import LOCK_REGISTRY as J_REGISTRY
     n = len(J_REGISTRY)
     assert S.LOCK_REGISTRY[:n] == tuple(
         S.LOCK_REGISTRY[0].__class__(**vars(s)) for s in J_REGISTRY)
-    assert [s.cls for s in S.LOCK_REGISTRY[n:]] == ["GraphProgram"]
+    assert [s.cls for s in S.LOCK_REGISTRY[n:]] == [
+        "GraphProgram", "ProgramCache"]
 
 
 # ----------------------------------------------------------- recompile --
@@ -374,6 +375,64 @@ def test_recompile_finds_the_engines_captured_scopes(monkeypatch):
     assert "gather_streams" in {getattr(n, "name", None) for n in
                                 astutil.find_captured_scopes(tree, jass)}
     assert analysis_main(["src/repro_torch", "--select", "recompile"]) == 0
+
+
+def test_recompile_finds_the_servers_predict_scopes(monkeypatch):
+    """The predict and margin stages the server hands to its program
+    cache, and their callees in ``core/`` (features, the cascade, both
+    node kinds, the first firing node), are captured; the server's host
+    methods are not.  The pass holds them green with the committed
+    baseline."""
+    import ast
+    from repro_torch.analysis import astutil
+    monkeypatch.chdir(REPO_ROOT)
+    names = set()
+    for f in ("serving/pipeline.py", "core/features.py", "core/cascade.py",
+              "core/forest.py", "core/mlp.py"):
+        path = "src/repro_torch/" + f
+        with open(path) as fh:
+            tree = ast.parse(fh.read())
+        names |= {getattr(n, "name", None) for n in
+                  astutil.find_captured_scopes(tree, path)}
+    assert {"_stage_predict", "_stage_margin", "query_features",
+            "proba0_from_params", "forest_predict_proba",
+            "mlp_predict_proba", "classes_from_proba"} <= names
+    assert not names & {"predict_classes", "predict_versioned",
+                        "predict_margin", "_operands", "swap_predictor",
+                        "predict_batched", "train_mlp"}
+    assert analysis_main(["src/repro_torch", "--select", "recompile"]) == 0
+
+
+def test_taint_keeps_the_enumerate_index_a_host_int():
+    """A loop over a captured list of tensors unrolls: ``enumerate``'s
+    index is a Python int, so a branch on it is not captured (the MLP
+    node's last-layer test), while a branch on the element still is."""
+    src = CAPTURE_HEAD + """
+def _stage(x, layers):
+    for i, w in enumerate(layers):
+        if i + 1 < len(layers):
+            x = x @ w
+        if w.sum() > 0:
+            x = x + 1
+    return x
+"""
+    found = [(f.invariant, f.code) for f in analysis.analyze_source(
+        src, ENGINE, passes={"recompile"})]
+    assert found == [("recompile/captured-branch", "w.sum() > 0")]
+
+
+def test_hot_path_holds_the_servers_predict():
+    """The predict path's methods and stages are hot scopes; the swap
+    and the boot are not."""
+    pipeline = "src/repro_torch/serving/pipeline.py"
+    for scope, hot in (("predict_classes", True), ("predict_margin", True),
+                       ("_stage_predict", True), ("_host", True),
+                       ("swap_predictor", False), ("_boot_knob", False)):
+        src = f"""
+            def {scope}(x):
+                return x.item()
+        """
+        assert bool(_hostsync(src, pipeline)) is hot, scope
 
 
 # ------------------------------------------------------------ baseline --

@@ -66,6 +66,7 @@ Tolerances, with their reasons:
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -233,9 +234,10 @@ def test_serve_batch_on_card_matches_cpu(cuda_device, knob):
                                   gpu.serve_batch_reference(qt)["ranked"])
 
 
-def _card_server(cuda_device, knob, mesh=None, **cfg_kw):
+def _card_server(cuda_device, knob, mesh=None, kind="forest", **cfg_kw):
     """A tiny system's server on the card (over ``mesh``, if given; the
-    ``ServingConfig`` takes ``cfg_kw``) and 37 of its queries."""
+    ``ServingConfig`` takes ``cfg_kw``; ``kind`` the cascade's nodes) and
+    37 of its queries."""
     sys_ = experiment.build_system(experiment.ExperimentConfig(
         n_docs=1500, vocab=4000, n_queries=96, stream_cap=256,
         pool_depth=400, gold_depth=100, query_batch=48, seed=3),
@@ -244,7 +246,10 @@ def _card_server(cuda_device, knob, mesh=None, **cfg_kw):
     med = experiment.med_tables(sys_, knob, metrics=("rbp",))["rbp"]
     labels = labeling.envelope_labels(med, 0.05).numpy()
     casc = cascade.train_cascade(sys_.features, labels, n_cutoffs=len(cuts),
+                                 kind=kind,
                                  forest_kwargs=dict(n_trees=5, max_depth=4),
+                                 mlp_kwargs=dict(hidden=(16,), epochs=3,
+                                                 batch=32),
                                  device=cuda_device)
     server = pipeline.RetrievalServer(
         sys_.index, casc, pipeline.ServingConfig(
@@ -692,9 +697,11 @@ def test_continuous_on_card_equals_batch_once(cuda_device, knob):
 @pytest.mark.gpu
 def test_hot_swap_under_threaded_traffic_on_card(cuda_device):
     """Versions published (a fence on the publishing thread) and
-    installed while a threaded batch-once service predicts on its own
-    stream: every request's classes are one live cascade's, row for row,
-    and both cascades served traffic."""
+    installed while a threaded batch-once service replays its predict
+    graphs on its own stream: every request's classes are those of the
+    version it reports, row for row (a batch reads one version's tables
+    and reports that version), both cascades served traffic, and the
+    swaps built no predict program."""
     from repro_torch.core import features
     from repro_torch.online import PredictorStore
     server, qt = _card_server(cuda_device, "rho")
@@ -718,6 +725,8 @@ def test_hot_swap_under_threaded_traffic_on_card(cuda_device):
         service.EngineBackend(server, query_len=qt.shape[1]),
         admission.AdmissionConfig(max_batch=8, pad_multiple=8),
         service.WarmupPolicy(census_path=None))
+    svc.warmup_now([8])
+    built = server.predict_programs.n_compiles
     results = []
     with svc:
         for v in range(1, 7):
@@ -726,11 +735,14 @@ def test_hot_swap_under_threaded_traffic_on_card(cuda_device):
             store.install(server)
             results.append([f.result(timeout=120.0) for f in futs])
     assert server.predictor_version == 6
+    assert server.predict_programs.n_compiles == built
+    stats = server.predict_programs.stats()
+    assert stats["graphs"] == stats["programs"] > 0
     versions = set()
     for res in results:
         for i, r in enumerate(res):
             versions.add(r["predictor_version"])
-            assert r["class"] in (want[0][i], want[1][i])
+            assert r["class"] == want[r["predictor_version"] % 2][i]
     assert len(versions) >= 2
 
 
@@ -1205,7 +1217,7 @@ def test_replayed_programs_equal_the_eager_stages_on_card(cuda_device,
     built = e.warmup(grid, qt.shape[1], with_depth=True)
     stats = e.program_stats()
     assert built == stats["programs"] == stats["graphs"] == 5 * len(grid)
-    assert sorted(e._pools) == grid          # one graph pool a shape
+    assert e._programs.pool_sizes() == grid  # one graph pool a shape
     r0 = stats["replays"]
     rng = np.random.default_rng(5)
     for n in (5, 16, 37, 37, 30):
@@ -1268,6 +1280,82 @@ def test_warmup_mid_flight_leaves_live_state_unchanged_on_card(cuda_device):
                                             for f in futs]), ref)
     assert server.engine.program_stats()["graphs"] == \
         server.engine.n_compiles
+
+
+def _eager_predict(server, rows, knob, stage):
+    """A predict stage function called eagerly on the server's padded
+    device operands (the ones its program copies in)."""
+    args, kw = server._operands(rows, knob)
+    return stage(*args, **kw)[:rows.shape[0]].cpu().numpy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["forest", "mlp"])
+def test_replayed_predicts_equal_the_eager_stages_on_card(cuda_device,
+                                                          kind):
+    """Every predict and margin program of the grid is a CUDA graph in a
+    pool of the server's own (one a padded shape), and replayed classes
+    and margins equal eager calls of the same stage functions bit for
+    bit, on rows that change from call to call."""
+    server, qt = _card_server(cuda_device, "rho", kind=kind)
+    pp = server.predict_programs
+    grid = [8, 16, 24, 32, 40]
+    terms = np.concatenate([qt, qt[::-1]])
+    rng = np.random.default_rng(8)
+    for rep in range(2):
+        for b in grid:
+            rows = terms[rng.permutation(len(terms))[:b - rep * 3]]
+            np.testing.assert_array_equal(
+                server.predict_classes(rows),
+                _eager_predict(server, rows, "rho", pipeline._stage_predict))
+            np.testing.assert_array_equal(
+                server.predict_margin(rows),
+                _eager_predict(server, rows, "rho", pipeline._stage_margin))
+    stats = pp.stats()
+    assert stats["programs"] == stats["graphs"] == pp.n_compiles \
+        == 2 * len(grid)
+    assert stats["replays"] == 2 * 2 * len(grid)
+    assert pp.pool_sizes() == grid
+    assert server.engine.n_compiles == 0       # no stage was served
+
+
+@pytest.mark.gpu
+def test_a_predict_on_the_admission_stream_runs_beside_the_engine(
+        cuda_device):
+    """The admission thread's predict replays on its own stream from the
+    server's own pools: it ends while the default stream (the execution
+    thread's) is still busy, and while an engine replay of the same
+    padded shape holds its pool."""
+    import threading
+    server, qt = _card_server(cuda_device, "rho")
+    pv = server.params_of(server.predict_classes(qt))
+    server.engine.serve(qt, pv)                 # the engine's shape 40
+    want = server.predict_classes(qt)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):               # the pinned copy's block
+        server.predict_classes(qt)
+    out, spent = [], []
+
+    def admit():
+        with torch.cuda.stream(side):
+            t0 = time.perf_counter()
+            out.append(server.predict_classes(qt))
+            spent.append(time.perf_counter() - t0)
+
+    busy = torch.cuda.Event()
+    with server.engine._programs._pools[40].lock:
+        torch.cuda._sleep(int(3e9))              # ~1.5-2 s of the card
+        busy.record()
+        t = threading.Thread(target=admit)
+        t.start()
+        t.join(timeout=60.0)
+        assert not t.is_alive()
+        assert not busy.query()                  # the sleep still runs
+    np.testing.assert_array_equal(out[0], want)
+    assert spent[0] < 0.5, spent
+    assert server.predict_programs._pools[40] is not \
+        server.engine._programs._pools[40]
 
 
 def _syncing_stage(x):

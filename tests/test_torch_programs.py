@@ -27,6 +27,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.impact_scan import kernel as is_kernel
 from repro_torch.serving import engine as t_engine
+from repro_torch.serving import programs as t_programs
 from repro_torch.serving import service as t_service
 
 GRID = [8, 16, 24]
@@ -158,14 +159,14 @@ def test_threads_warming_one_shape_build_each_key_once(carried,
     _, ts = _pair(carried, "k")
     qlen = carried[0].queries.terms.shape[1]
     builds = []
-    real = t_engine.build_program
+    real = t_programs.build_program
 
     def slow_build(name, *a, **kw):
         builds.append(name)
         time.sleep(0.05)                 # hold the key while others miss
         return real(name, *a, **kw)
 
-    monkeypatch.setattr(t_engine, "build_program", slow_build)
+    monkeypatch.setattr(t_programs, "build_program", slow_build)
     n_threads = 2 * (os.cpu_count() or 4)
     go = threading.Barrier(n_threads)
     errors = []
