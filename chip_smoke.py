@@ -173,7 +173,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      steps of 0.25 and printed, not changed in the default).  On
      data=2 x model=2 ``ShardedEngineBackend`` inline (6 dispatches a
      batch) and on model=4 ``ContinuousBackend`` over batch 0's 128
-     requests must equal phase 2 bit for bit.  Then
+     requests must equal phase 2 bit for bit.  The sharded engine's six
+     stages and the sharded scheduler's four run as CUDA graphs of the
+     engine's program cache: each line's ``programs`` gives
+     ``n_compiles``, the graphs and the programs the batches built once
+     the shape was warm (0), and the 4 batches served again replayed and
+     with the stage functions called eagerly, both bit-equal to phase
+     2, with each one's wall ms; the continuous run likewise (its four
+     programs, q/s replayed and eager).  Each mesh's graph pools are
+     freed before the next mesh.  Then
      ``python -m repro_torch.launch.serve --shards 2
      --force-host-devices 2`` as a subprocess: exit 0 and its ``mesh:``
      line.
@@ -237,8 +245,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      MLA and its latent cache, prefill launching no flash) on the card
      against the CPU port, prefill and 8 decode steps, greedy tokens
      equal and logits within 2e-5; last one step at batch 8 and one
-     at decode_32k under the profiler: CUDA activities, device-busy ms
-     and idle share.
+     at decode_32k under the profiler, eager and replayed: CUDA
+     activities, device-busy ms and idle share.  The replayed decode
+     (``serving.decode.DecodePrograms``: ``decode_step`` as one CUDA
+     graph a batch and cache length, the parameters and the cache read
+     and written in place): the 32 steps again on a copy of the handed
+     cache, the program built at step ``LM_REPLAY_FROM`` on its own
+     inputs, every step's token and logits bit-equal to the eager run's
+     (``phase 13: decode replayed``: programs built, build s, the
+     ``memory_reserved`` the build added, a step's wall and host ms
+     beside eager's); at decode_32k the step through its program on the
+     same cache, logits bit-equal to the eager step's, with the same
+     numbers in the shape's ``replayed`` field.
   15. (after phase 13, before phase 5) GraphSAGE on the card.
      ``minibatch_lg`` at full width: the Reddit-scale graph from
      ``make_graph`` (232 965 nodes, 114 615 892 edges, d 602, 41
@@ -264,7 +282,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      batch through the engine's stages (phase 2's servers, batch 2,
      ranked lists equal to phase 2's), one continuous-scheduler chunk
      step with its slots filled, and one tinyllama-1.1b ``decode_step``
-     at full width (phase 13's parameters and cache).  One ``phase 16:``
+     at full width (phase 13's parameters and cache), eagerly and
+     replayed through its decode program.  One ``phase 16:``
      line per scope gives its syncs by frame, each ``vetted``,
      ``allowed`` (a fault ROADMAP section 4 lists, ``SYNC_FAULTS``) or
      ``unvetted``; an unvetted sync fails the phase.
@@ -2653,6 +2672,55 @@ def check_shard_shapes(server, qt, slack) -> tuple[dict, dict]:
     return is_row, tk_row
 
 
+def _with_stage_functions(engine, fn):
+    """``fn()`` with the engine's stages, and its scheduler's, run as the
+    stage functions called directly (the eager path its program cache
+    captures) instead of as programs."""
+    import functools
+    engine._compiled = (lambda name, f, args, kwargs, consts=():
+                        functools.partial(f, **kwargs))
+    try:
+        return fn()
+    finally:
+        del engine._compiled
+
+
+def _sharded_programs(sh, batches, ranked) -> dict:
+    """Phase 11's programs of one mesh after its counted window: every
+    program a CUDA graph, the 4 batches served again replayed and with
+    the stage functions called eagerly, each list bit-equal to
+    ``ranked``, the wall ms of each (medians over batches 2 on) and the
+    programs those batches built (0: the shape is warm)."""
+    import numpy as np
+    import torch
+    e = sh.engine
+    stats = e.program_stats()
+    if stats["graphs"] != stats["programs"] or not e.n_compiles:
+        raise AssertionError(f"phase 11: sharded programs {stats}")
+    built0 = e.n_compiles
+    walls = {"replayed": [], "eager": []}
+    for b, qt in enumerate(batches):
+        for how in ("replayed", "eager"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = (sh.serve_batch(qt) if how == "replayed" else
+                   _with_stage_functions(e, lambda: sh.serve_batch(qt)))
+            torch.cuda.synchronize()
+            walls[how].append((time.perf_counter() - t0) * 1e3)
+            if not np.array_equal(out["ranked"], ranked[b]["ranked"]):
+                raise AssertionError(f"phase 11: sharded {how} batch {b} "
+                                     "differs from serve_batch")
+    if e.n_compiles != built0:
+        raise AssertionError(f"phase 11: {e.n_compiles - built0} sharded "
+                             "programs built on a warm shape")
+    return dict(n_compiles=e.n_compiles, graphs=stats["graphs"],
+                static_bytes=stats["static_bytes"],
+                built_by_traffic=e.n_compiles - built0,
+                lists_bit_equal=True,
+                wall_ms={k: statistics.median(v[1:])
+                         for k, v in walls.items()})
+
+
 def sharded_path(sys_, servers, batches, served, report) -> dict:
     """Phase 11: sharded serving on the card, over phase 2's system,
     cascades and batches, each mesh of SHARD_MESHES laid over the card.
@@ -2661,11 +2729,14 @@ def sharded_path(sys_, servers, batches, served, report) -> dict:
     the lists must equal phase 2's ``serve_batch`` bit for bit, and
     impact_scan must launch once a shard and data group a batch (topk
     too on rho; k's pool of 10 000 > KP_MAX takes the plain sort).
-    Then ``ShardedEngineBackend`` inline on the data x model mesh and
-    ``ContinuousBackend`` over model=4 on the first 128 requests, both
-    bit-equal to phase 2.  Returns the launches of the counted
-    windows."""
+    Then the mesh's programs (``_sharded_programs``: graphs, replayed
+    against eager), ``ShardedEngineBackend`` inline on the data x model
+    mesh and ``ContinuousBackend`` over model=4 on the first 128
+    requests, replayed and eager, all bit-equal to phase 2.  Each mesh's
+    graph pools are freed before the next.  Returns the launches of the
+    counted windows."""
     import dataclasses
+    import gc
     import numpy as np
     import torch
     from repro_torch.kernels.impact_scan import kernel as is_kernel
@@ -2727,7 +2798,9 @@ def sharded_path(sys_, servers, batches, served, report) -> dict:
                             launches_per_batch=per_batch, stage_ms=stages,
                             unsharded_stage_ms=report[knob]["stage_ms"],
                             qps=BATCH / (stages["total_ms"] / 1e3),
-                            partition=need)
+                            partition=need,
+                            programs=_sharded_programs(sh, batches,
+                                                       served[knob]))
                 if (data, model) == (2, 2):
                     backend = ShardedEngineBackend(
                         sh, query_len=batches[0].shape[1])
@@ -2752,12 +2825,25 @@ def sharded_path(sys_, servers, batches, served, report) -> dict:
                         launches=sgot)
                 if (data, model) == (1, SHARDS):
                     qt = batches[0]
+                    n0 = sh.engine.n_compiles
                     res, st, wall, cgot, _ = _continuous_run(
                         sh, qt, "inline", chunk_p=None)
-                    if not np.array_equal(np.stack([r["ranked"] for r in res]),
-                                          served[knob][0]["ranked"]):
-                        raise AssertionError(f"sharded continuous {knob} "
-                                             "differs from serve_batch")
+                    sched = sorted({k[0] for k in sh.engine._programs.keys()}
+                                   & {"sgather", "refill", "chunk",
+                                      "finalize"})
+                    eres, _, ewall, _, _ = _with_stage_functions(
+                        sh.engine, lambda: _continuous_run(
+                            sh, qt, "inline", chunk_p=None))
+                    for got in (res, eres):
+                        if not np.array_equal(
+                                np.stack([r["ranked"] for r in got]),
+                                served[knob][0]["ranked"]):
+                            raise AssertionError(f"sharded continuous {knob} "
+                                                 "differs from serve_batch")
+                    if len(sched) != 4 or sh.engine.n_compiles - n0 != 4:
+                        raise AssertionError(
+                            f"sharded continuous {knob}: programs {sched}, "
+                            f"built {sh.engine.n_compiles - n0}")
                     cwant = dict(
                         impact_scan=SHARDS * st["n_chunk_calls"],
                         topk=(SHARDS * st["n_finalize_calls"]
@@ -2767,10 +2853,16 @@ def sharded_path(sys_, servers, batches, served, report) -> dict:
                                              f"launches {cgot}, not {cwant}")
                     line["continuous"] = dict(
                         requests=len(qt), qps=len(qt) / wall,
+                        eager_qps=len(qt) / ewall, programs=sched,
                         chunk_p=st["chunk_p"], chunks_max=st["chunks_max"],
                         chunk_dispatches=st["n_chunk_calls"],
                         finalizes=st["n_finalize_calls"], launches=cgot)
                 log(f"phase 11: sharded {knob}: " + json.dumps(line))
+                # this mesh's graph pools go before the next mesh's
+                del sh, outs
+                backend = None
+                gc.collect()
+                torch.cuda.empty_cache()
     finally:
         mesh_lib.force_host_device_count(0)
     return launches, shard_rows
@@ -3370,6 +3462,10 @@ LM_LONG_CACHE, LM_LONG_BATCHES = 32768, (128, 64, 32)
 LM_SMOKE = (("tinyllama-1.1b", 24), ("qwen2-0.5b", 24), ("qwen3-4b", 24),
             ("mixtral-8x22b", 32), ("deepseek-v3-671b", 24))
 LM_SMOKE_STEPS, LM_SMOKE_TOL = 8, 2e-5
+#: the replayed decode (``serving.decode.DecodePrograms``): the step at
+#: which its program is built, on that step's own inputs, in the middle
+#: of the generation (the steps before it run eagerly)
+LM_REPLAY_FROM = 5
 #: bf16 tolerance of tinyllama's logits, absolute: two bf16 steps at
 #: |logit| in [4, 8).  The logits are bf16 products widened to float32;
 #: the kernel path against the plain one, and a decode step against a
@@ -3536,6 +3632,8 @@ def lm_long_cache_step(params, cfg, dev):
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("phase 13: decode_32k logits are not finite")
     ms, enqueue_ms = _step_ms(step)
+    replayed_row, replayed = _decode_replayed_long(params, cfg, cache, tok,
+                                                   pos, logits, dev)
     w_bytes = sum(x.numel() * x.element_size() for x in leaves(params))
     e = params["embed"]
     n_bytes = (w_bytes - e.numel() * e.element_size()
@@ -3546,8 +3644,87 @@ def lm_long_cache_step(params, cfg, dev):
                cache_bytes=b * per_row, step_ms=ms, host_ms=enqueue_ms,
                tokens_per_s=b / (ms / 1e3), bytes_read=n_bytes,
                gb_per_s=n_bytes / ms / 1e6,
-               bytes_bound_ms=n_bytes / HBM_BYTES_S * 1e3)
-    return row, step
+               bytes_bound_ms=n_bytes / HBM_BYTES_S * 1e3,
+               replayed=replayed_row)
+    return row, step, replayed
+
+
+def _decode_programs_row(progs, build_ms, added) -> dict:
+    stats = progs.stats()
+    if stats["graphs"] != stats["programs"]:
+        raise AssertionError(f"phase 13: a decode program is not a CUDA "
+                             f"graph: {stats}")
+    return dict(programs_built=progs.n_compiles, build_s=build_ms / 1e3,
+                memory_reserved_added_bytes=added,
+                static_bytes=stats["static_bytes"])
+
+
+def _decode_replayed_long(params, cfg, cache, tok, pos, logits, dev):
+    """decode_32k's step through ``DecodePrograms`` on the same cache and
+    inputs: its build (the first call, which writes the slot the eager
+    step wrote), logits bit-equal to the eager step's, and a replayed
+    step's wall and host ms.  Returns the row and the replayed step."""
+    import torch
+    from repro_torch.serving.decode import DecodePrograms
+    progs = DecodePrograms(params, cfg)
+
+    def replayed():
+        return progs(params, cache, tok, pos)
+
+    torch.cuda.empty_cache()     # the side stream's build takes fresh blocks
+    r0 = torch.cuda.memory_reserved(dev)
+    (_, got, _), build_ms = _fenced(replayed)
+    added = torch.cuda.memory_reserved(dev) - r0
+    if not torch.equal(got, logits):
+        raise AssertionError("phase 13: decode_32k replayed logits differ "
+                             "from the eager step's")
+    ms, enqueue_ms = _step_ms(replayed)
+    return dict(_decode_programs_row(progs, build_ms, added),
+                logits_bit_equal=True, step_ms=ms, host_ms=enqueue_ms), \
+        replayed
+
+
+def lm_replayed_decode(params, cfg, cache, gen_tokens, step_logits, s, dev):
+    """The LM_DECODE greedy steps again, through ``DecodePrograms`` on
+    ``cache`` (a copy of the eager run's cache as the prefill handed it
+    over): steps before LM_REPLAY_FROM eagerly, the program built at
+    that step on its own token and positions, the rest replayed.  Every
+    step's token and logits must be bit-equal to the eager run's.
+    Returns the row (programs built, build s, the ``memory_reserved`` the
+    build added, one replayed step's wall and host ms) and that step
+    (the last, again) as a call."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.decode import DecodePrograms
+    progs = DecodePrograms(params, cfg)
+    b = gen_tokens[0].shape[0]
+    tok, build_ms, added = gen_tokens[0], None, None
+    for i in range(LM_DECODE):
+        pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
+        if i + 1 < LM_REPLAY_FROM:
+            tok, lg, _ = T.decode_step(params, cfg, cache, tok, pos)
+        elif i + 1 == LM_REPLAY_FROM:
+            torch.cuda.synchronize()
+            r0 = torch.cuda.memory_reserved(dev)
+            (tok, lg, _), build_ms = _fenced(
+                lambda tok=tok, pos=pos: progs(params, cache, tok, pos))
+            added = torch.cuda.memory_reserved(dev) - r0
+        else:
+            tok, lg, _ = progs(params, cache, tok, pos)
+        if not (torch.equal(tok, gen_tokens[i + 1])
+                and torch.equal(lg, step_logits[i])):
+            raise AssertionError(f"phase 13: replayed decode step {i + 1} "
+                                 "differs from the eager step")
+    last = torch.full((b,), s + LM_DECODE - 1, dtype=torch.int32, device=dev)
+
+    def step():
+        return progs(params, cache, gen_tokens[-2], last)
+
+    wall_ms, enqueue_ms = _step_ms(step)
+    return dict(_decode_programs_row(progs, build_ms, added), batch=b,
+                built_at_step=LM_REPLAY_FROM, steps_bit_equal=LM_DECODE,
+                replays=progs.stats()["replays"], step_wall_ms=wall_ms,
+                host_ms=enqueue_ms), step
 
 
 def lm_path(dev) -> tuple:
@@ -3574,7 +3751,7 @@ def lm_path(dev) -> tuple:
     from repro_torch.kernels.impact_scan import kernel as is_k
     from repro_torch.kernels.topk import kernel as tk_k
     from repro_torch.models import transformer as T
-    from repro_torch.tree import leaves
+    from repro_torch.tree import leaves, map_tree
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3605,6 +3782,7 @@ def lm_path(dev) -> tuple:
     cache = T.init_cache(cfg, b, s + LM_DECODE, device=dev)
     _lm_handoff(cache, pre)
     del pre
+    handed = map_tree(torch.clone, cache)     # for the replayed decode
     tok = torch.argmax(logits, -1).to(torch.int32)
     gen_tokens, step_logits, step_ms = [tok], [], []
     for i in range(LM_DECODE):
@@ -3684,18 +3862,26 @@ def lm_path(dev) -> tuple:
         max_memory_allocated=peak,
         decode_flops=lm_common.model_flops(cfg, "decode", b, s))
     log("phase 13: decode " + json.dumps(decode))
+    rep_row, rep_step = lm_replayed_decode(params, cfg, handed, gen_tokens,
+                                           step_logits, s, dev)
+    log("phase 13: decode replayed " + json.dumps(dict(
+        rep_row, eager=dict(step_wall_ms=wall_ms, host_ms=enqueue_ms))))
     del step_logits
-    long_row, long_step = lm_long_cache_step(params, cfg, dev)
+    long_row, long_step, long_rep = lm_long_cache_step(params, cfg, dev)
     log("phase 13: decode_32k shape " + json.dumps(long_row))
     log("phase 13: smoke configs, card against CPU, max abs logit "
         "difference " + json.dumps(lm_smoke_card_vs_cpu(dev)))
     # last, so that the profiler runs after every timed part
     log("phase 13: one decode step under the profiler " + json.dumps(
         {f"batch {b}": _step_profile(step, wall_ms),
-         "decode_32k": _step_profile(long_step, long_row["step_ms"])}))
-    del long_step
+         f"batch {b} replayed": _step_profile(rep_step,
+                                              rep_row["step_wall_ms"]),
+         "decode_32k": _step_profile(long_step, long_row["step_ms"]),
+         "decode_32k replayed": _step_profile(
+             long_rep, long_row["replayed"]["step_ms"])}))
+    del long_step, long_rep
     torch.cuda.empty_cache()
-    return dict(launches, flash_routes=flash_routes), step
+    return dict(launches, flash_routes=flash_routes), step, rep_step
 
 
 # ------------------------------------------------------------ phase 14 --
@@ -4156,10 +4342,10 @@ def _no_syncs_scope(name: str, fn):
     return out
 
 
-def sync_path(servers, batches, served, decode_step) -> None:
+def sync_path(servers, batches, served, decode_step, replayed_step) -> None:
     """Phase 16: the sync sanitizer around the engine's stages (one ρ and
     one k batch), one continuous chunk step and one full-width decode
-    step."""
+    step, eager and replayed (``DecodePrograms``)."""
     import numpy as np
     import torch
     from repro_torch.obs import Observability
@@ -4197,6 +4383,7 @@ def sync_path(servers, batches, served, decode_step) -> None:
         sched.tick()
     svc.stop()
     _no_syncs_scope("tinyllama-1.1b decode_step", decode_step)
+    _no_syncs_scope("tinyllama-1.1b decode_step replayed", replayed_step)
     torch.cuda.empty_cache()
 
 
@@ -5146,14 +5333,14 @@ def main() -> int:
     fa_row["train"] = train_path(dev, fcfg.bst)
     log(f"phase 12: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    lm_launches, decode_step = lm_path(dev)
+    lm_launches, decode_step, replayed_step = lm_path(dev)
     log(f"phase 13: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     gnn_path(dev)
     log(f"phase 15: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    sync_path(servers, batches, served, decode_step)
-    del decode_step
+    sync_path(servers, batches, served, decode_step, replayed_step)
+    del decode_step, replayed_step
     torch.cuda.empty_cache()
     log(f"phase 16: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()

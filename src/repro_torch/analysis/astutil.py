@@ -50,7 +50,12 @@ STATIC_METHODS = {"size", "dim", "numel", "nelement", "stride", "data_ptr",
 
 #: calls whose result is static even on tensor operands
 STATIC_CALLS = {"len", "isinstance", "issubclass", "type", "getattr",
-                "hasattr", "callable", "id", "repr", "str", "format"}
+                "hasattr", "callable", "id", "repr", "str", "format",
+                "is_dtensor", "is_fake"}
+
+#: type checks whose true arm no graph captures: DTensors and fake
+#: tensors are the dry run's, traced on no card
+_UNCAPTURED_CHECKS = {"is_dtensor", "is_fake"}
 
 #: ``torch.<name>`` factories: a tensor whatever their inputs
 TENSOR_FACTORIES = {"arange", "full", "zeros", "ones", "empty", "full_like",
@@ -122,10 +127,17 @@ def qualname_map(tree: ast.Module) -> dict[ast.AST, str]:
     return out
 
 
-def _cpu_branch(test: ast.AST) -> str | None:
-    """Which arm of an ``if`` runs only on the CPU: ``"body"`` for
-    ``<x>.type == "cpu"`` (or ``!= "cuda"``), ``"orelse"`` for
-    ``<x>.type == "cuda"`` (or ``!= "cpu"``), else None."""
+def _uncaptured_branch(test: ast.AST) -> str | None:
+    """Which arm of an ``if`` no graph captures: ``"body"`` for
+    ``<x>.type == "cpu"`` (or ``!= "cuda"``) and for ``is_dtensor(..)``
+    or ``is_fake(..)``, ``"orelse"`` for ``<x>.type == "cuda"`` (or
+    ``!= "cpu"``) and for ``not is_dtensor(..)``, else None."""
+    negated = (isinstance(test, ast.UnaryOp)
+               and isinstance(test.op, ast.Not))
+    call = test.operand if negated else test
+    if (isinstance(call, ast.Call)
+            and tail(call.func) in _UNCAPTURED_CHECKS):
+        return "orelse" if negated else "body"
     if not (isinstance(test, ast.Compare) and len(test.ops) == 1
             and isinstance(test.left, ast.Attribute)
             and test.left.attr == "type"
@@ -138,8 +150,8 @@ def _cpu_branch(test: ast.AST) -> str | None:
 
 
 def captured_walk(node: ast.AST):
-    """``walk_shallow`` that also skips the arm of an ``if`` that runs
-    only on the CPU (no graph captures it)."""
+    """``walk_shallow`` that also skips the arm of an ``if`` that no
+    graph captures (the CPU's, the dry run's DTensors')."""
     stack = [node]
     first = True
     while stack:
@@ -150,7 +162,7 @@ def captured_walk(node: ast.AST):
         first = False
         yield cur
         if isinstance(cur, ast.If):
-            skip = _cpu_branch(cur.test)
+            skip = _uncaptured_branch(cur.test)
             stack.append(cur.test)
             if skip != "body":
                 stack.extend(cur.body)

@@ -34,8 +34,9 @@ the pass flags, under the JAX rules' names in torch's terms:
   reads ``self``: the cache keys on its arguments' shapes, and a replay
   keeps reading what the capture saw
 
-Branches that run only on the CPU (``if <x>.type == "cpu":``) are not
-captured and not checked.  Vetted findings live in the baseline with a
+Branches that run only on the CPU (``if <x>.type == "cpu":``) or only
+on the dry run's DTensors and fake tensors (``if is_dtensor(x):``) are
+not captured and not checked.  Vetted findings live in the baseline with a
 note, as for every pass.
 """
 

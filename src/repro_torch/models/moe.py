@@ -210,11 +210,11 @@ def moe_ffn_shard_map(params: dict, x: torch.Tensor, cfg: MoEConfig, mesh):
         # -> (E/n_ep, n_ep cap, D)
         got = C.all_to_all([local[m][0] for m in members], 0, 1)
         ys = []
-        for j, (c, buf) in enumerate(zip(members, got)):
+        for j, (m, buf) in enumerate(zip(members, got)):
             blk = slice(j * e_loc, (j + 1) * e_loc)
-            ys.append(_experts(buf, params["w_gate"][blk].to(dev[c]),
-                               params["w_up"][blk].to(dev[c]),
-                               params["w_down"][blk].to(dev[c])))
+            ys.append(_experts(buf, params["w_gate"][blk].to(dev[m]),
+                               params["w_up"][blk].to(dev[m]),
+                               params["w_down"][blk].to(dev[m])))
         # return the rows to their sources (the inverse all-to-all)
         back.update(zip(members, C.all_to_all(ys, 1, 0)))
     outs = []

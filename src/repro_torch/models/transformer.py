@@ -363,10 +363,14 @@ def _run_layers(cfg: LMConfig, stacked: dict, x: torch.Tensor,
     return x, aux, cache
 
 
-def _groups(params: dict, cfg: LMConfig):
-    """(group name, its MoE config) in the reference's order."""
+def _groups(cfg: LMConfig):
+    """(group name, its MoE config) in the reference's order: the groups
+    that ``init_params`` makes, from the layer counts (static, so a
+    captured decode step unrolls them whatever the tensors hold)."""
+    n_dense = cfg.moe.first_dense_layers if cfg.moe else cfg.n_layers
     return [(g, cfg.moe if g == "moe" else None)
-            for g in ("dense", "moe") if g in params]
+            for g, n in (("dense", n_dense), ("moe", cfg.n_layers - n_dense))
+            if n]
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -383,7 +387,7 @@ def backbone(params: dict, cfg: LMConfig, tokens: torch.Tensor,
     the MoE layers')."""
     x = _embed(params, cfg, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for g, moe_cfg in _groups(params, cfg):
+    for g, moe_cfg in _groups(cfg):
         x, a, _ = _run_layers(cfg, params[g], x, positions, moe_cfg, None,
                               use_kernel)
         aux = aux + a
@@ -443,7 +447,7 @@ def prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor, *,
     x = _embed(params, cfg, tokens)
     clen = cache_len(cfg, s)
     cache = {}
-    for g, moe_cfg in _groups(params, cfg):
+    for g, moe_cfg in _groups(cfg):
         x, _, cache[g] = _run_layers(cfg, params[g], x, positions,
                                      moe_cfg, clen, use_kernel)
     h = L.rms_norm(params["final_norm"], x)[:, -1]
@@ -552,11 +556,13 @@ def _decode_attn_mla(lp: dict, cfg: LMConfig, x: torch.Tensor, lc: dict,
 
 def _decode_layers(cfg: LMConfig, stacked: dict, cache: dict, x, pos,
                    moe_cfg):
-    attn = _decode_attn_mla if cfg.attn_type == "mla" else _decode_attn_gqa
     for i in range(_n_layers(stacked)):
         lp = _layer(stacked, i)
-        h = x + attn(lp["attn"], cfg, L.rms_norm(lp["ln1"], x),
-                     _layer(cache, i), pos)
+        hn, lc = L.rms_norm(lp["ln1"], x), _layer(cache, i)
+        if cfg.attn_type == "mla":
+            h = x + _decode_attn_mla(lp["attn"], cfg, hn, lc, pos)
+        else:
+            h = x + _decode_attn_gqa(lp["attn"], cfg, hn, lc, pos)
         x = h + _ffn(lp, L.rms_norm(lp["ln2"], h), moe_cfg)[0]
     return x
 
@@ -570,7 +576,7 @@ def decode_step(params: dict, cfg: LMConfig, cache: dict,
     cache updated in place."""
     pos = pos.long()
     x = _embed(params, cfg, token)[:, None, :]
-    for g, moe_cfg in _groups(params, cfg):
+    for g, moe_cfg in _groups(cfg):
         x = _decode_layers(cfg, params[g], cache[g], x, pos, moe_cfg)
     h = L.rms_norm(params["final_norm"], x)[:, 0]
     logits = (h @ params["lm_head"]).to(torch.float32)

@@ -43,10 +43,10 @@ Stage-2 noise qids are the query's batch position, as in the JAX engine.
 docs split in equal ranges over the ``model`` axis, request rows over
 the data axes, and each shard runs ``impact_scan`` and ``topk`` on its
 own doc-range partition of the streams.  One process drives every
-shard, as the JAX engine's single controller drives its mesh.  Its
-stages run eagerly (``_spanned``) and its ``n_compiles`` stays 0: their
-bodies take per-shard lists and close over them, which a key of tensor
-shapes cannot hold.
+shard, as the JAX engine's single controller drives its mesh.  Its six
+stages go through the same program cache, as the JAX engine compiles
+them: a stage takes a flat tuple of every position's tensors and its
+shard geometry by keyword, so its ``n_compiles`` is the JAX engine's.
 
 ``SchedPrograms`` is the continuous scheduler's execution surface over
 the same engine (``serving/sched``): four stage functions -- gather,
@@ -55,7 +55,8 @@ any admit/retire churn runs the same kernels at the same shapes.  The
 chunk runs ``impact_scan`` on a (slots, chunk_p) window of the table;
 the finalize runs ``topk`` on a group of ``grain`` finished rows.  The
 four go through the engine's program cache.  ``ShardedSchedPrograms``
-is its form over the sharded engine, eager as that engine is.
+is its form over the sharded engine, its four stages through the
+sharded engine's cache.
 """
 
 from __future__ import annotations
@@ -168,15 +169,14 @@ def _sched_gather(offsets, pdoc, pimp, pscore, qt, *, cap: int,
     return ds, im, seg_lo, seg_hi, sdocs, s3, slen
 
 
-def _sched_refill(ds_b, im_b, lo_b, hi_b, sd_b, s3_b, acc, slot_idx,
-                  ds, im, lo, hi, sd, s3):
-    """Install a refill group's gathered rows into its slots and zero
-    their accumulator rows, out of place: the old state stays whole if
-    any copy raises.  Entries of ``slot_idx`` equal to the table's
-    capacity are the group's padding, whose rows are dropped (the JAX
-    engine's ``mode="drop"``), so a group has one shape whatever its
-    fill: each slot takes the row whose index names it, or keeps its
-    own."""
+def _install(bufs, acc, slot_idx, rows) -> tuple:
+    """Install a refill group's gathered ``rows`` into the slot table's
+    ``bufs`` at ``slot_idx`` and zero those slots' ``acc`` rows, out of
+    place: the old state stays whole if any copy raises.  Entries of
+    ``slot_idx`` equal to the table's capacity are the group's padding,
+    whose rows are dropped (the JAX engine's ``mode="drop"``), so a
+    group has one shape whatever its fill: each slot takes the row whose
+    index names it, or keeps its own."""
     slots = acc.shape[0]
     dev = acc.device
     src = torch.full((slots + 1,), -1, dtype=torch.int64, device=dev)
@@ -185,12 +185,20 @@ def _sched_refill(ds_b, im_b, lo_b, hi_b, sd_b, s3_b, acc, slot_idx,
     hit = src >= 0
     take = src.clamp(min=0)
 
-    def put(buf, rows):
+    def put(buf, new):
         keep = hit.view((-1,) + (1,) * (buf.dim() - 1))
-        return torch.where(keep, rows.index_select(0, take), buf)
+        return torch.where(keep, new.index_select(0, take), buf)
 
-    return (put(ds_b, ds), put(im_b, im), put(lo_b, lo), put(hi_b, hi),
-            put(sd_b, sd), put(s3_b, s3), acc.masked_fill(hit[:, None], 0.0))
+    return (tuple(put(b, r) for b, r in zip(bufs, rows))
+            + (acc.masked_fill(hit[:, None], 0.0),))
+
+
+def _sched_refill(ds_b, im_b, lo_b, hi_b, sd_b, s3_b, acc, slot_idx,
+                  ds, im, lo, hi, sd, s3):
+    """``_install`` of a refill group's rows (the slot table's six
+    buffers)."""
+    return _install((ds_b, im_b, lo_b, hi_b, sd_b, s3_b), acc, slot_idx,
+                    (ds, im, lo, hi, sd, s3))
 
 
 def _sched_chunk(ds_b, im_b, lo_b, hi_b, acc, pos, end, *, chunk_p: int,
@@ -294,11 +302,11 @@ class ServingEngine:
         """Programs the stage cache built (the JAX engine's count)."""
         return self._programs.built()
 
-    def _compiled(self, name: str, fn, args, kwargs):
+    def _compiled(self, name: str, fn, args, kwargs, consts=()):
         """Shape-keyed program cache lookup; builds on a miss
         (``ProgramCache.compiled``: the JAX engine's key, lock and
-        pending marker)."""
-        return self._programs.compiled(name, fn, args, kwargs)
+        pending marker; ``consts``: the program's own constants)."""
+        return self._programs.compiled(name, fn, args, kwargs, consts)
 
     def program_stats(self) -> dict:
         """The stage cache: programs built, CUDA graphs among them, their
@@ -424,9 +432,15 @@ class ServingEngine:
 
 
 # ----------------------------------------------------- sharded stages --
-# One data group's stage bodies, the port of the JAX engine's shard_map
-# bodies.  Each takes lists over the group's shards (one element a shard,
-# on its device) and runs every shard's share, with the collectives
+# The sharded stages, the port of the JAX engine's shard_map bodies.  A
+# stage runs over the whole mesh as one program: its positional
+# arguments are flat, a fixed number of tensors a mesh position (data
+# groups major, shards minor: ``_flat``), each on its position's device,
+# and the shard geometry -- the data groups, each shard's first doc
+# ``los``, the shard width, caps -- comes in by keyword, so the program
+# cache keys a stage on its tensors' shapes as the JAX engine keys its
+# executables.  Each data group's body (``_sh_*``) takes lists over the
+# group's shards and runs every shard's share, with the collectives
 # (``distrib.collectives``) between.  The streams are doc-range
 # partitioned at gather time: each shard keeps the postings of the docs
 # it owns, compacted into a ``shard_cap``-wide local stream in global
@@ -443,7 +457,8 @@ class ServingEngine:
 class _Shard:
     """One mesh position: its device, the first doc it owns, and the
     tensors placed on it once (the postings replicated, ``doc_len`` its
-    own range, padding docs at length 1)."""
+    own range, padding docs at length 1): the sharded programs'
+    constants."""
 
     device: torch.device
     lo: int
@@ -453,10 +468,36 @@ class _Shard:
     pscore: torch.Tensor
     doc_len: torch.Tensor
 
+    @property
+    def index(self) -> tuple:
+        return self.offsets, self.pdoc, self.pimp, self.pscore
 
-def _sh_gather(shards, qts, *, cap: int, shard_cap: int, block_p: int,
+
+def _flat(*cols) -> tuple:
+    """A sharded stage's flat tensor arguments: for each mesh position
+    (data groups major, shards minor), its entry of each column, a
+    [group][shard] list of tensors or tuples of tensors."""
+    out = []
+    for g, group in enumerate(cols[0]):
+        for s in range(len(group)):
+            for col in cols:
+                x = col[g][s]
+                out.extend(x if isinstance(x, tuple) else (x,))
+    return tuple(out)
+
+
+def _nest(flat, groups: int, k: int) -> list:
+    """``_flat``'s inverse: [group][shard] k-tuples of a flat tuple."""
+    per = len(flat) // (groups * k)
+    return [[tuple(flat[(g * per + s) * k:(g * per + s + 1) * k])
+             for s in range(per)] for g in range(groups)]
+
+
+def _sh_gather(pos, los, *, cap: int, shard_cap: int, block_p: int,
                width: int, slack: float):
-    """Gather + doc-range partition: each shard's slice of the streams.
+    """Gather + doc-range partition over one data group: each shard's
+    slice of the streams.  ``pos``: the shards' (offsets, pdoc, pimp,
+    pscore, qt); ``los``: each shard's first doc.
 
     The global streams are gathered once a device, as on the unsharded
     path, then split by doc range.  Segment bounds are computed on the
@@ -465,66 +506,67 @@ def _sh_gather(shards, qts, *, cap: int, shard_cap: int, block_p: int,
     way, each posting keeping its term (``sterm``) for stage 2.
     Returns (per-shard row tuples (ds, im, seg_lo, seg_hi, gpos, sd, s3,
     sterm), the per-query partition overflow (the max over shards, on
-    the first shard's device), the stream lengths (first shard's))."""
-    n_shards = len(shards)
-    streams = collectives.per_device(
-        [sh.device for sh in shards], lambda i: (
-            jass.gather_streams(shards[i].offsets, shards[i].pdoc,
-                                shards[i].pimp, qts[i], cap=cap),
-            jass.gather_score_streams(shards[i].offsets, shards[i].pdoc,
-                                      shards[i].pscore, qts[i], cap=cap)))
+    each shard's device), the stream lengths (first shard's))."""
+    n_shards = len(pos)
+    devs = [p[4].device for p in pos]
+    streams = collectives.per_device(devs, lambda i: (
+        jass.gather_streams(*pos[i][:3], pos[i][4], cap=cap),
+        jass.gather_score_streams(pos[i][0], pos[i][1], pos[i][3],
+                                  pos[i][4], cap=cap)))
     rows, over = [], []
-    for sh, ((ds, im), (sdocs, s3)) in zip(shards, streams):
-        with device_scope(sh.device):
+    for lo, dev, ((ds, im), (sdocs, s3)) in zip(los, devs, streams):
+        with device_scope(dev):
             ds_l, im_l, gpos, novf = partition_postings(
-                ds, im, sh.lo, width=width, cap=shard_cap)
+                ds, im, lo, width=width, cap=shard_cap)
             seg_lo, seg_hi = block_doc_bounds(ds_l, block_p=block_p,
                                               n_docs=width)
             score_cap = partition_cap(sdocs.shape[-1], n_shards, slack)
             sd_l, s3_l, spos, sovf = partition_scored_postings(
-                sdocs, s3, sh.lo, width=width, cap=score_cap)
+                sdocs, s3, lo, width=width, cap=score_cap)
             rows.append((ds_l, im_l, seg_lo, seg_hi, gpos, sd_l, s3_l,
                          spos // cap))
             over.append(torch.maximum(novf, sovf))
     slen = (streams[0][0][0] >= 0).sum(dim=-1).to(torch.int32)
-    return rows, collectives.pmax(over)[0], slen
+    return rows, collectives.pmax(over), slen
 
 
-def _sh_survivors(shards, accs, kl: int):
+def _sh_survivors(accs, los, kl: int):
     """Each shard's top-``kl`` (values, global doc ids) of its local
     scores: the ``topk`` kernel for kl <= KP_MAX, else the plain stable
     sort, as on the unsharded path."""
     out = []
-    for sh, acc in zip(shards, accs):
-        with device_scope(sh.device):
+    for acc, lo in zip(accs, los):
+        with device_scope(acc.device):
             v, i = tk_ops.topk_select(acc, kl)
-            out.append((v, (i + sh.lo).to(torch.int32)))
+            out.append((v, (i + lo).to(torch.int32)))
     return out
 
 
-def _sh_stage1(shards, rows, pvecs, *, knob: str, width: int, kl: int,
-               block_p: int, block_d: int):
-    """Local stage 1 over each shard's partition: rho-masked accumulation
-    on the local stream (rho through ``owned_prefix_len``; the k knob
-    accumulates the whole stream) and the shard's survivors.  No
-    collective: the survivor merge comes after stage 2."""
+def _sh_stage1(pos, los, *, knob: str, width: int, kl: int, block_p: int,
+               block_d: int):
+    """Local stage 1 over one data group's partitions (``pos``: the
+    shards' ds, im, seg_lo, seg_hi, gpos and parameter vector):
+    rho-masked accumulation on the local stream (rho through
+    ``owned_prefix_len``; the k knob accumulates the whole stream) and
+    the shard's survivors.  No collective: the survivor merge comes
+    after stage 2."""
     accs = []
-    for sh, r, pv in zip(shards, rows, pvecs):
-        ds_l, im_l, seg_lo, seg_hi, gpos = r[:5]
-        with device_scope(sh.device):
+    for i in range(len(pos)):
+        ds_l, im_l, seg_lo, seg_hi, gpos, pv = pos[i]
+        with device_scope(ds_l.device):
             if knob == "rho":
                 rho_l = owned_prefix_len(gpos, pv)
             else:
                 rho_l = torch.full(ds_l.shape[:1], ds_l.shape[-1],
-                                   dtype=torch.int32, device=sh.device)
+                                   dtype=torch.int32, device=ds_l.device)
             accs.append(jass.saat_scores_masked(
                 ds_l, im_l, rho_l, width, use_kernel=True,
                 seg_bounds=(seg_lo, seg_hi), block_p=block_p,
                 block_d=block_d))
-    return _sh_survivors(shards, accs, kl)
+    return _sh_survivors(accs, los, kl)
 
 
-def _sh_merge(shards, vflat, gflat, k_vecs, *, depth: int):
+def _sh_merge(vflat, gflat, k_vecs, *, depth: int):
     """The arithmetic half of the pool merge: the gathered survivors
     down to the top-``depth`` pool on each shard (-1 where the score is
     not positive), masked to each query's pool width ``k_vecs`` (k knob;
@@ -533,22 +575,23 @@ def _sh_merge(shards, vflat, gflat, k_vecs, *, depth: int):
         mv, mg = collectives.merge_gathered_topk(vflat[i], gflat[i], depth)
         pool = torch.where(mv > 0, mg, torch.full_like(mg, -1))
         return pool if k_vecs is None else _depth_mask(pool, k_vecs[i])
-    return collectives.per_device([sh.device for sh in shards], one)
+    return collectives.per_device([v.device for v in vflat], one)
 
 
-def _sh_stage2(shards, sds, s3s, sterms, qids, *, width: int, n_docs: int,
-               n_terms: int):
-    """Doc-sharded stage 2 over the partitioned score streams: local
-    scorer accumulators (term by term, so each cell sees the unsharded
-    adds in the unsharded order), then the second-stage mixture with the
-    per-query normalization bounds reduced over the shards (pmin/pmax of
-    local min/max: exact; padding doc columns masked out)."""
+def _sh_stage2(pos, los, *, width: int, n_docs: int, n_terms: int):
+    """Doc-sharded stage 2 over one data group's partitioned score
+    streams (``pos``: the shards' sd, s3, sterm, doc_len and qids):
+    local scorer accumulators (term by term, so each cell sees the
+    unsharded adds in the unsharded order), then the second-stage
+    mixture with the per-query normalization bounds reduced over the
+    shards (pmin/pmax of local min/max: exact; padding doc columns
+    masked out)."""
     accs, lo_b, hi_b, gcols = [], [], [], []
-    for sh, sd, s3, st in zip(shards, sds, s3s, sterms):
-        with device_scope(sh.device):
+    for (sd, s3, st, _, _), lo in zip(pos, los):
+        with device_scope(sd.device):
             acc = torch.stack(jass.scorer_accumulators_by_term(
                 sd, s3, st, width, n_terms=n_terms), dim=1)  # (Q, 3, W)
-            cols = sh.lo + torch.arange(width, device=sh.device)
+            cols = lo + torch.arange(width, device=sd.device)
             real = (cols < n_docs)[None, None, :]
             lo_b.append(torch.where(real, acc, float("inf")).amin(dim=-1))
             hi_b.append(torch.where(real, acc, float("-inf")).amax(dim=-1))
@@ -556,17 +599,17 @@ def _sh_stage2(shards, sds, s3s, sterms, qids, *, width: int, n_docs: int,
         gcols.append(cols)
     lo_b, hi_b = collectives.pmin(lo_b), collectives.pmax(hi_b)
     out = []
-    for sh, acc, lo, hi, cols, qid in zip(shards, accs, lo_b, hi_b, gcols,
-                                          qids):
-        with device_scope(sh.device):
+    for (sd, _, _, doc_len, qid), acc, lo, hi, cols in zip(
+            pos, accs, lo_b, hi_b, gcols):
+        with device_scope(sd.device):
             bounds = tuple((lo[:, j:j + 1], hi[:, j:j + 1]) for j in range(3))
             out.append(gold.second_stage_mix(
-                acc[:, 0], acc[:, 1], acc[:, 2], bounds, sh.doc_len, qid,
+                acc[:, 0], acc[:, 1], acc[:, 2], bounds, doc_len, qid,
                 cols))
     return out
 
 
-def _sh_rerank(shards, stage2, pools, d_vecs, *, width: int, depth: int):
+def _sh_rerank(stage2, pools, d_vecs, los, *, width: int, depth: int):
     """The rerank over doc-sharded stage-2 scores: the owning shard gives
     each pool member's score, pmax assembles the (Q, pool) score matrix
     (the only stage-2 collective), and the first shard ranks it.
@@ -575,16 +618,88 @@ def _sh_rerank(shards, stage2, pools, d_vecs, *, width: int, depth: int):
     if d_vecs is not None:
         pools = [_depth_mask(p, d) for p, d in zip(pools, d_vecs)]
     parts = []
-    for sh, s2, pool in zip(shards, stage2, pools):
-        with device_scope(sh.device):
-            own = (pool >= sh.lo) & (pool < sh.lo + width)
-            local = (pool - sh.lo).clamp(0, width - 1).long()
+    for s2, pool, lo in zip(stage2, pools, los):
+        with device_scope(s2.device):
+            own = (pool >= lo) & (pool < lo + width)
+            local = (pool - lo).clamp(0, width - 1).long()
             parts.append(torch.where(
                 own, s2.gather(1, local),
-                torch.full(pool.shape, float("-inf"), device=sh.device)))
+                torch.full(pool.shape, float("-inf"), device=s2.device)))
     s = collectives.pmax(parts)[0]
-    with device_scope(shards[0].device):
+    with device_scope(pools[0].device):
         return gold.rank_pool_scores(s, pools[0], depth)
+
+
+# The six programs of the sharded engine: each runs its ``_sh_*`` body
+# over every data group of the flat arguments.
+
+def _shs_gather(*flat, groups: int, los: tuple, cap: int, shard_cap: int,
+                block_p: int, width: int, slack: float):
+    """Per position: offsets, pdoc, pimp, pscore (constants) and the
+    query rows -> the eight partitioned rows and the group's overflow."""
+    out, nested = [], _nest(flat, groups, 5)
+    for g in range(groups):
+        rows, over, _ = _sh_gather(nested[g], los, cap=cap,
+                                   shard_cap=shard_cap, block_p=block_p,
+                                   width=width, slack=slack)
+        out += [t for r, o in zip(rows, over) for t in r + (o,)]
+    return tuple(out)
+
+
+def _shs_stage1(*flat, groups: int, los: tuple, knob: str, width: int,
+                kl: int, block_p: int, block_d: int):
+    """Per position: ds, im, seg_lo, seg_hi, gpos, the parameter vector
+    -> the shard's survivors (values, global ids)."""
+    nested = _nest(flat, groups, 6)
+    return tuple(t for g in range(groups)
+                 for surv in _sh_stage1(nested[g], los, knob=knob,
+                                        width=width, kl=kl, block_p=block_p,
+                                        block_d=block_d)
+                 for t in surv)
+
+
+def _shs_allgather(*flat, groups: int):
+    """Per position: the survivors -> every shard's survivors of the
+    group, gathered (B, S*kl) on each shard's device."""
+    out, nested = [], _nest(flat, groups, 2)
+    for g in range(groups):
+        vflat, gflat = collectives.gather_local_topk(*zip(*nested[g]))
+        out += [t for pair in zip(vflat, gflat) for t in pair]
+    return tuple(out)
+
+
+def _shs_stage2(*flat, groups: int, los: tuple, width: int, n_docs: int,
+                n_terms: int):
+    """Per position: sd, s3, sterm, doc_len (a constant) and qids -> the
+    shard's (Q, shard_width) stage-2 scores."""
+    nested = _nest(flat, groups, 5)
+    return tuple(t for g in range(groups)
+                 for t in _sh_stage2(nested[g], los, width=width,
+                                     n_docs=n_docs, n_terms=n_terms))
+
+
+def _shs_merge(*flat, groups: int, depth: int, masked: bool):
+    """Per position: the gathered survivors (and the pool width vector
+    when ``masked``, the k knob) -> the merged pool."""
+    out, nested = [], _nest(flat, groups, 3 if masked else 2)
+    for g in range(groups):
+        cols = list(zip(*nested[g]))
+        out += _sh_merge(cols[0], cols[1], cols[2] if masked else None,
+                         depth=depth)
+    return tuple(out)
+
+
+def _shs_rerank(*flat, groups: int, los: tuple, width: int, depth: int,
+                dyn: bool):
+    """Per position: the stage-2 scores and the pool (and the reranking
+    depth vector when ``dyn``) -> the group's ranked lists, one tensor a
+    data group."""
+    out, nested = [], _nest(flat, groups, 3 if dyn else 2)
+    for g in range(groups):
+        cols = list(zip(*nested[g]))
+        out.append(_sh_rerank(cols[0], cols[1], cols[2] if dyn else None,
+                              los, width=width, depth=depth))
+    return tuple(out)
 
 
 class ShardedServingEngine(ServingEngine):
@@ -601,20 +716,27 @@ class ShardedServingEngine(ServingEngine):
     more raises ``RuntimeError`` naming the knob.  Outputs are the
     unsharded engine's bit for bit (the JAX package's promise).
 
-    ``serve`` runs six dispatches a batch, eagerly (``_spanned``; no
-    program cache, ``n_compiles`` stays 0), as the JAX engine: gather,
+    ``serve`` runs six dispatches a batch, as the JAX engine: gather,
     stage 1 (local, ending at each shard's survivors), the survivors'
-    all-gather, stage 2, the merge, the rerank.  The all-gather runs
-    inside stage 2's span (the JAX engine overlaps it with stage 2, and
-    its ``stage2_ms`` holds what stage 2 did not hide); ``merge_ms`` is
-    the merge's span.  Kernel routing is the unsharded engine's, per
-    shard: ``impact_scan`` on the local stream (local doc ids, local
-    segment bounds, rho through ``owned_prefix_len``) and
-    ``topk_select`` at ``kl = min(pool depth, shard_width)``.
+    all-gather, stage 2, the merge, the rerank.  Each goes through the
+    engine's program cache, as the JAX engine compiles the six (one
+    program a stage and padded shape, over every position: a CUDA graph
+    on the card; the placed index tensors and ``doc_len`` slices are its
+    constants), so ``n_compiles`` is the JAX engine's count.  The
+    all-gather runs inside stage 2's span (the JAX engine overlaps it
+    with stage 2, and its ``stage2_ms`` holds what stage 2 did not
+    hide); ``merge_ms`` is the merge's span.  Kernel routing is the
+    unsharded engine's, per shard: ``impact_scan`` on the local stream
+    (local doc ids, local segment bounds, rho through
+    ``owned_prefix_len``) and ``topk_select`` at ``kl = min(pool depth,
+    shard_width)``; their launches are captured in stage 1 and count at
+    each replay.
 
-    Every shard's tensors live on its own device; positions that share a
-    device share the gathered streams and the collectives' results, and
-    then each shard still runs its own kernels.
+    A program is captured on one device, so the positions of a mesh
+    must lie on one device (on the card, ``launch.mesh.
+    force_host_device_count`` lays them all on it): over several devices
+    a stage raises when it is built, naming the layout, and nothing runs
+    eagerly in its place.
     """
 
     def __init__(self, index, cfg, mesh, *, axis: str = "model"):
@@ -650,10 +772,57 @@ class ShardedServingEngine(ServingEngine):
                                dl[s * w:(s + 1) * w].to(dev))
                         for s, dev in enumerate(row)] for row in grid]
         self._devices = tuple(placed)
+        self._los = tuple(sh.lo for sh in self.groups[0])
+        # the stages' programs read every position's placed tensors in
+        # place
+        self._programs = ProgramCache(self.device, consts=tuple(
+            t for group in self.groups for sh in group
+            for t in sh.index + (sh.doc_len,)))
+        self._budget_grids: dict = {}    # length -> (widths, per shard)
 
     def _fence(self) -> None:
         for dev in self._devices:
             fence(dev)
+
+    def _compiled(self, name: str, fn, args, kwargs, consts=()):
+        """``ServingEngine._compiled``, for positions on one device: a
+        program is captured on one device's stream, so a mesh over
+        several devices raises here, naming its layout."""
+        if len(self._devices) > 1:
+            raise RuntimeError(
+                f"ShardedServingEngine: stage {name!r} cannot be built: "
+                f"the mesh {dict(self.mesh.shape)} lays its positions over "
+                f"{len(self._devices)} devices {list(map(str, self._devices))}"
+                ", and a program is captured on one device (lay the "
+                "positions on one device with launch.mesh."
+                "force_host_device_count)")
+        return super()._compiled(name, fn, args, kwargs, consts)
+
+    def budget_grid(self, widths: tuple) -> list:
+        """The sharded scheduler's budget grid on each shard's device,
+        made once an engine: its gather program reads the grid in place,
+        so every scheduler on this engine shares the tensors.  A grid of
+        the same length with other budgets would replay the program of
+        the first, and raises."""
+        widths = tuple(int(w) for w in widths)
+        got = self._budget_grids.get(len(widths))
+        if got is None:
+            grid = torch.tensor(widths, dtype=torch.int32)
+            got = self._budget_grids.setdefault(len(widths), (
+                widths, collectives.per_device(
+                    [sh.device for sh in self.groups[0]],
+                    lambda i: grid.to(self.groups[0][i].device))))
+        if got[0] != widths:
+            raise ValueError(
+                f"ShardedServingEngine: a scheduler's budget grid {widths} "
+                f"has the length of the grid {got[0]} its gather program "
+                "was built on; schedulers of one engine share that "
+                "program (use one set of extra widths per engine)")
+        return got[1]
+
+    def _column(self, attr: str) -> list:
+        """[group][shard] of a placed attribute of each position."""
+        return [[getattr(sh, attr) for sh in group] for group in self.groups]
 
     # ----------------------------------------------- continuous serving --
     @property
@@ -680,16 +849,11 @@ class ShardedServingEngine(ServingEngine):
         per = padded.shape[0] // self.dp_size
         out = []
         for g, group in enumerate(self.groups):
-            host = torch.from_numpy(padded[g * per:(g + 1) * per])
+            host = padded[g * per:(g + 1) * per]
             out.append(collectives.per_device(
-                [sh.device for sh in group], lambda i: host.to(group[i].device)))
+                [sh.device for sh in group],
+                lambda i: _h2d(host, group[i].device)))
         return out
-
-    def _each(self, fn, *per_group, **kwargs) -> list:
-        """``fn`` over every data group: its shards and its share of each
-        ``per_group`` list."""
-        return [fn(group, *(a[g] for a in per_group), **kwargs)
-                for g, group in enumerate(self.groups)]
 
     def check_overflow(self, worst: int) -> None:
         """Raise when a shard owned ``worst`` > 0 postings more than its
@@ -721,44 +885,48 @@ class ShardedServingEngine(ServingEngine):
         rho = cfg.knob == "rho"
         kl = min(cfg.rerank_depth if rho else width, self.shard_width)
         suffix = "" if rho or width == self.max_k else f":{width}"
-        sw = dict(width=self.shard_width)
+        groups = self.dp_size
+        geo = dict(groups=groups, los=self._los, width=self.shard_width)
         timings = {}
 
-        gathered = self._spanned(
-            timings, "gather_ms", "gather", self._each, _sh_gather, qt,
-            cap=cfg.stream_cap, shard_cap=self.shard_cap,
-            block_p=self.block_p, slack=cfg.partition_slack, **sw)
-        rows = [g[0] for g in gathered]
-        surv = self._spanned(
-            timings, "stage1_ms", "stage1" + suffix, self._each, _sh_stage1,
-            rows, pv, knob=cfg.knob, kl=kl, block_p=self.block_p,
-            block_d=self.block_d, **sw)
-
-        def allgather_stage2():
-            ag = [collectives.gather_local_topk(*zip(*s)) for s in surv]
-            s2 = self._each(
-                _sh_stage2, [[r[5] for r in g] for g in rows],
-                [[r[6] for r in g] for g in rows],
-                [[r[7] for r in g] for g in rows], qids, n_docs=self.n_docs,
-                n_terms=query_terms.shape[1], **sw)
-            return ag, s2
-
+        rows = _nest(self._timed(
+            timings, "gather_ms", "gather", _shs_gather,
+            *_flat(self._column("index"), qt), cap=cfg.stream_cap,
+            shard_cap=self.shard_cap, block_p=self.block_p,
+            slack=cfg.partition_slack, **geo), groups, 9)
+        surv = self._timed(
+            timings, "stage1_ms", "stage1" + suffix, _shs_stage1,
+            *_flat([[r[:5] for r in g] for g in rows], pv), knob=cfg.knob,
+            kl=kl, block_p=self.block_p, block_d=self.block_d, **geo)
+        # the all-gather is its own program, dispatched inside stage 2's
+        # span just before stage 2 (the JAX engine issues it, then
+        # stage 2, and times both in stage 2's span)
+        gather_prog = self._compiled("allgather", _shs_allgather, surv,
+                                     dict(groups=groups))
+        s2_args = _flat([[r[5:8] for r in g] for g in rows],
+                        self._column("doc_len"), qids)
+        s2_kw = dict(n_docs=self.n_docs, n_terms=query_terms.shape[1],
+                     **geo)
+        s2_prog = self._compiled("stage2", _shs_stage2, s2_args, s2_kw)
         self._m_dispatch.inc()         # the all-gather's dispatch
-        ag, stage2 = self._spanned(timings, "stage2_ms", "stage2",
-                                   allgather_stage2)
-        pools = self._spanned(
-            timings, "merge_ms", "merge", self._each, _sh_merge,
-            [a[0] for a in ag], [a[1] for a in ag],
-            [None] * self.dp_size if rho else pv,
-            depth=cfg.rerank_depth if rho else width)
-        ranked = self._spanned(
+        gathered, stage2 = self._spanned(
+            timings, "stage2_ms", "stage2",
+            lambda: (gather_prog(*surv), s2_prog(*s2_args)))
+        gathered = _nest(gathered, groups, 2)
+        pools = self._timed(
+            timings, "merge_ms", "merge" + suffix, _shs_merge,
+            *(_flat(gathered) if rho else _flat(gathered, pv)),
+            groups=groups, depth=cfg.rerank_depth if rho else width,
+            masked=not rho)
+        s2_pool = _flat(_nest(stage2, groups, 1), _nest(pools, groups, 1))
+        ranked = self._timed(
             timings, "rerank_ms", "rerank" if dv is None else "rerank_dyn",
-            self._each, _sh_rerank, stage2, pools,
-            [None] * self.dp_size if dv is None else dv,
-            depth=cfg.rerank_depth, **sw)
+            _shs_rerank, *(s2_pool if dv is None else _flat(
+                _nest(s2_pool, groups, 2), dv)),
+            depth=cfg.rerank_depth, dyn=dv is not None, **geo)
+        overs = [g[0][8] for g in rows]
         self.check_overflow(int(torch.stack(
-            [g[1].to(self.device).amax() for g in gathered])
-            .amax().cpu().numpy()))
+            [o.to(self.device).amax() for o in overs]).amax().cpu().numpy()))
         ranked = torch.cat([r.to(self.device) for r in ranked])
         return _pad_ranked(ranked[:n].cpu().numpy(), cfg.rerank_depth), timings
 
@@ -867,11 +1035,12 @@ class SchedPrograms:
         """Per-slot posting-stream width the chunk windows tile."""
         return engine.cfg.stream_cap
 
-    def _run(self, name: str, fn, *args, **kwargs):
+    def _run(self, name: str, fn, *args, consts=(), **kwargs):
         """One stage through the engine's program cache (built on a miss
-        before the span); the span covers the dispatch window only."""
+        before the span; ``consts``: tensors among ``args`` the program
+        reads in place); the span covers the dispatch window only."""
         e = self.engine
-        prog = e._compiled(name, fn, args, kwargs)
+        prog = e._compiled(name, fn, args, kwargs, consts)
         e._m_dispatch.inc()
         with e.trace.span("sched." + name):
             return prog(*args)
@@ -988,37 +1157,53 @@ class SchedPrograms:
 
 
 # --------------------------------------- sharded scheduler stage bodies --
-# The stage bodies of ``ShardedSchedPrograms``: the slot table over the
+# The four programs of ``ShardedSchedPrograms``: the slot table over the
 # doc-range-partitioned streams.  Each slot's posting stream is the
 # ``shard_cap``-wide local stream of ``partition_postings``; a chunk
 # window advances a local cursor, and the global rho budget applies
 # through the stored global stream positions, as on the batch-once
-# sharded path.
+# sharded path.  As the sharded engine's stages, each takes a flat
+# tuple of tensors, a fixed number a shard (one data group: the
+# scheduler runs on a model-only mesh), and its geometry by keyword.
 
-def _ssched_gather(shards, qts, wvecs, **gather_kw):
-    """Partitioned slot rows of a refill group, plus one host metadata
-    matrix (one read): column 0 the global stream length, column 1 the
-    partition overflow (max over shards), columns 2.. the worst shard's
-    local stream end ``max_s count(gpos_s < min(w, slen))`` for every
-    budget ``w`` of the static grid (``wvecs``: the grid on each shard's
-    device)."""
-    rows, over, slen = _sh_gather(shards, qts, **gather_kw)
+def _ssched_gather(*flat, los: tuple, cap: int, shard_cap: int,
+                   block_p: int, width: int, slack: float):
+    """Per shard: offsets, pdoc, pimp, pscore, the refill group's query
+    rows and the budget grid (the index and the grid are the program's
+    constants) -> the eight partitioned slot rows, then one host
+    metadata matrix (one read):
+    column 0 the global stream length, column 1 the partition overflow
+    (max over shards), columns 2.. the worst shard's local stream end
+    ``max_s count(gpos_s < min(w, slen))`` for every budget ``w`` of the
+    static grid."""
+    pos = _nest(flat, 1, 6)[0]
+    rows, over, slen = _sh_gather([p[:5] for p in pos], los, cap=cap,
+                                  shard_cap=shard_cap, block_p=block_p,
+                                  width=width, slack=slack)
     lend = []
-    for sh, r, wvec in zip(shards, rows, wvecs):
-        with device_scope(sh.device):
-            endw = torch.minimum(wvec[None, :], slen.to(sh.device)[:, None])
+    for r, p in zip(rows, pos):
+        wvec = p[5]
+        with device_scope(wvec.device):
+            endw = torch.minimum(wvec[None, :],
+                                 slen.to(wvec.device)[:, None])
             lend.append((r[4][:, None, :] < endw[:, :, None]).sum(dim=-1)
                         .to(torch.int32))
-    meta = torch.cat([slen[:, None], over[:, None],
+    meta = torch.cat([slen[:, None], over[0][:, None],
                       collectives.pmax(lend)[0]], dim=1)
-    return rows, meta
+    return tuple(t for r in rows for t in r) + (meta,)
 
 
-def _ssched_refill(bufs, acc, slot_idx, rows):
-    """``_sched_refill`` over one shard's buffers, out of place: the
-    gathered rows at ``slot_idx``, the accumulator rows zeroed."""
-    return (tuple(b.index_copy(0, slot_idx, r) for b, r in zip(bufs, rows))
-            + (acc.index_fill(0, slot_idx, 0.0),))
+def _ssched_refill(*flat):
+    """Per shard: the nine slot-table buffers (ds, im, seg_lo, seg_hi,
+    gpos, sdocs, s3, sterm, acc), the slot indices and the eight gathered
+    rows -> the nine new buffers (``_install``: padding entries
+    dropped)."""
+    out, shards = [], _nest(flat, 1, 18)[0]
+    for i in range(len(shards)):
+        p = shards[i]
+        with device_scope(p[0].device):
+            out += _install(p[:8], p[8], p[9], p[10:])
+    return tuple(out)
 
 
 def _ssched_chunk(ds_b, im_b, lo_b, hi_b, gp_b, acc, pos, end, *,
@@ -1049,11 +1234,53 @@ def _ssched_chunk(ds_b, im_b, lo_b, hi_b, gp_b, acc, pos, end, *,
     return acc + inc
 
 
+def _ssched_chunks(*flat, chunk_p: int, bounds_p: int, width: int,
+                   block_d: int):
+    """Per shard: ds, im, seg_lo, seg_hi, gpos, acc, the local cursors
+    and the global budgets -> the shard's new accumulator."""
+    out, shards = [], _nest(flat, 1, 8)[0]
+    for i in range(len(shards)):
+        with device_scope(shards[i][0].device):
+            out.append(_ssched_chunk(*shards[i], chunk_p=chunk_p,
+                                     bounds_p=bounds_p, width=width,
+                                     block_d=block_d))
+    return tuple(out)
+
+
+def _ssched_finalize(*flat, los: tuple, width: int, n_docs: int,
+                     n_terms: int, depth: int, pool_depth: int,
+                     masked: bool):
+    """The batch-once sharded tail on a retiring group's slot rows.  Per
+    shard: acc, sdocs, s3, sterm, the slot indices, the reranking depth
+    vector, qids, doc_len (a constant) and, when ``masked`` (the k
+    knob), the pool width vector -> (the group's ranked lists,): each
+    shard's survivors, the merge, stage 2 on the partitioned score rows,
+    the rerank."""
+    pos = _nest(flat, 1, 9 if masked else 8)[0]
+
+    def rows(j):
+        return [p[j].index_select(0, p[4]) for p in pos]
+
+    surv = _sh_survivors(rows(0), los, min(pool_depth, width))
+    vflat, gflat = collectives.gather_local_topk(*zip(*surv))
+    pools = _sh_merge(vflat, gflat, [p[8] for p in pos] if masked else None,
+                      depth=pool_depth)
+    stage2 = _sh_stage2([(sd, s3, st, p[7], p[6]) for sd, s3, st, p in zip(
+        rows(1), rows(2), rows(3), pos)], los, width=width, n_docs=n_docs,
+        n_terms=n_terms)
+    return (_sh_rerank(stage2, pools, [p[5] for p in pos], los, width=width,
+                       depth=depth),)
+
+
 class ShardedSchedPrograms(SchedPrograms):
     """``SchedPrograms`` over a ``ShardedServingEngine``'s partitioned
-    streams: the same four stages, every ``SchedState`` field a tuple
-    over the shards, chunk windows advancing over the ``shard_cap``-wide
-    local streams (a chunk reads ~1/n_shards of the postings).
+    streams: the same four stages through the engine's program cache
+    (as the JAX scheduler compiles its four shard_map programs), every
+    ``SchedState`` field a tuple over the shards, chunk windows
+    advancing over the ``shard_cap``-wide local streams (a chunk reads
+    ~1/n_shards of the postings).  The shards' index tensors, their
+    ``doc_len`` slices and the budget grids are the programs'
+    constants.
 
     Retirement needs one more host fact: the worst shard's local stream
     end for the slot's budget.  The gather computes it for every budget
@@ -1069,14 +1296,6 @@ class ShardedSchedPrograms(SchedPrograms):
     """
 
     sharded = True
-
-    def _eager(self, name: str, fn, *args, **kwargs):
-        """One stage run eagerly in its ``sched.<name>`` span: the
-        sharded bodies close over per-shard lists, which the program
-        cache's key of tensor shapes cannot hold."""
-        self.engine._m_dispatch.inc()
-        with self.engine.trace.span("sched." + name):
-            return fn(*args, **kwargs)
 
     def __init__(self, engine: ServingEngine, *, grain: int,
                  chunk_p: int | None = None, extra_widths=()):
@@ -1094,10 +1313,7 @@ class ShardedSchedPrograms(SchedPrograms):
         self.widths = tuple(sorted(ws))
         self.width_col = {w: i for i, w in enumerate(self.widths)}
         self.shards = engine.groups[0]
-        grid = torch.tensor(self.widths, dtype=torch.int32)
-        self._wvecs = collectives.per_device(
-            [sh.device for sh in self.shards],
-            lambda i: grid.to(self.shards[i].device))
+        self._wvecs = engine.budget_grid(self.widths)
         self._n_terms = 0              # the query width, set by init_state
 
     def _slot_cap(self, engine: ServingEngine) -> int:
@@ -1146,40 +1362,34 @@ class ShardedSchedPrograms(SchedPrograms):
 
     def gather(self, qt: np.ndarray):
         """Partitioned slot rows and the one host read of the metadata:
-        returns (per-shard rows, global stream lengths, (G, W) local-end
-        matrix indexed by ``lend_col``).  Raises on partition
+        returns (per-shard row tuples, global stream lengths, (G, W)
+        local-end matrix indexed by ``lend_col``).  Raises on partition
         overflow."""
         e = self.engine
-        rows, meta = self._eager(
-            "sgather", _ssched_gather, self.shards, self._devs(qt),
-            self._wvecs, cap=e.cfg.stream_cap, shard_cap=e.shard_cap,
-            block_p=self.bounds_p, width=e.shard_width,
-            slack=e.cfg.partition_slack)
+        *rows, meta = self._run(
+            "sgather", _ssched_gather, *_flat(
+                [[sh.index for sh in self.shards]], [self._devs(qt)],
+                [self._wvecs]),
+            consts=tuple(self._wvecs), los=e._los, cap=e.cfg.stream_cap,
+            shard_cap=e.shard_cap, block_p=self.bounds_p,
+            width=e.shard_width, slack=e.cfg.partition_slack)
         m = meta.cpu().numpy()
         e.check_overflow(int(m[:, 1].max()))
-        return rows, m[:, 0], m[:, 2:]
+        return [r for r in _nest(tuple(rows), 1, 8)[0]], m[:, 0], m[:, 2:]
 
     def refill(self, state: SchedState, slot_idx: np.ndarray,
                rows) -> SchedState:
-        """``SchedPrograms.refill`` on every shard (rows in the gather's
-        order: ds, im, seg_lo, seg_hi, gpos, sdocs, s3, sterm)."""
-        n = self._n_real(slot_idx, state.acc[0].shape[0])
-        idx = self._devs(slot_idx[:n].astype(np.int64))
-        bufs = list(zip(state.ds, state.im, state.seg_lo, state.seg_hi,
-                        state.gpos, state.sdocs, state.s3, state.sterm))
-
-        def refill_all():
-            out = []
-            for sh, b, acc, i, r in zip(self.shards, bufs, state.acc, idx,
-                                        rows):
-                with device_scope(sh.device):
-                    out.append(_ssched_refill(b, acc, i,
-                                              tuple(x[:n] for x in r)))
-            return out
-
-        cols = list(zip(*self._eager("refill", refill_all)))
+        """``SchedPrograms.refill`` on every shard, the group's whole
+        slot index at one shape (rows in the gather's order: ds, im,
+        seg_lo, seg_hi, gpos, sdocs, s3, sterm)."""
+        self._n_real(slot_idx, state.acc[0].shape[0])
         names = ("ds", "im", "seg_lo", "seg_hi", "gpos", "sdocs", "s3",
                  "sterm", "acc")
+        bufs = [tuple(getattr(state, k)[i] for k in names)
+                for i in range(len(self.shards))]
+        out = self._run("refill", _ssched_refill, *_flat(
+            [bufs], [self._devs(slot_idx.astype(np.int64))], [list(rows)]))
+        cols = zip(*_nest(out, 1, 9)[0])
         return SchedState(**dict(zip(names, cols)))
 
     def chunk(self, state: SchedState, pos: np.ndarray,
@@ -1187,52 +1397,31 @@ class ShardedSchedPrograms(SchedPrograms):
         """Advance every active slot by one local chunk window (``pos``
         the local cursor, ``end`` the global rho budget)."""
         e = self.engine
-        pos_d, end_d = self._devs(pos), self._devs(end)
-
-        def chunk_all():
-            out = []
-            for i, sh in enumerate(self.shards):
-                with device_scope(sh.device):
-                    out.append(_ssched_chunk(
-                        state.ds[i], state.im[i], state.seg_lo[i],
-                        state.seg_hi[i], state.gpos[i], state.acc[i],
-                        pos_d[i], end_d[i], chunk_p=self.chunk_p,
-                        bounds_p=self.bounds_p, width=e.shard_width,
-                        block_d=e.block_d))
-            return tuple(out)
-
-        return dataclasses.replace(state, acc=self._eager("chunk", chunk_all))
+        bufs = list(zip(state.ds, state.im, state.seg_lo, state.seg_hi,
+                        state.gpos, state.acc))
+        acc = self._run("chunk", _ssched_chunks, *_flat(
+            [bufs], [self._devs(pos)], [self._devs(end)]),
+            chunk_p=self.chunk_p, bounds_p=self.bounds_p,
+            width=e.shard_width, block_d=e.block_d)
+        return dataclasses.replace(state, acc=tuple(acc))
 
     def finalize(self, state: SchedState, slot_idx: np.ndarray,
                  pvec: np.ndarray, dvec: np.ndarray,
                  qids: np.ndarray) -> np.ndarray:
-        """The batch-once sharded tail on a retiring group's slot rows:
-        each shard's survivors, the merge, stage 2 on the partitioned
-        score rows, the rerank.  Returns host ranked lists (grain,
-        rerank_depth)."""
+        """The batch-once sharded tail on a retiring group's slot rows.
+        Returns host ranked lists (grain, rerank_depth)."""
         e = self.engine
         cfg = e.cfg
         rho = cfg.knob == "rho"
-        pool_depth = cfg.rerank_depth if rho else e.max_k
-        idx = self._devs(slot_idx.astype(np.int64))
-        shards = self.shards
-        sw = dict(width=e.shard_width)
-
-        def finalize_all():
-            def rows(field):
-                return [t.index_select(0, i) for t, i in zip(field, idx)]
-
-            surv = _sh_survivors(shards, rows(state.acc),
-                                 min(pool_depth, e.shard_width))
-            vflat, gflat = collectives.gather_local_topk(*zip(*surv))
-            pools = _sh_merge(shards, vflat, gflat,
-                              None if rho else self._devs(pvec),
-                              depth=pool_depth)
-            stage2 = _sh_stage2(shards, rows(state.sdocs), rows(state.s3),
-                                rows(state.sterm), self._devs(qids),
-                                n_docs=e.n_docs, n_terms=self._n_terms, **sw)
-            return _sh_rerank(shards, stage2, pools, self._devs(dvec),
-                              depth=cfg.rerank_depth, **sw)
-
-        r = self._eager("finalize", finalize_all)
+        cols = [list(zip(state.acc, state.sdocs, state.s3, state.sterm)),
+                self._devs(slot_idx.astype(np.int64)), self._devs(dvec),
+                self._devs(qids), [sh.doc_len for sh in self.shards]]
+        if not rho:
+            cols.append(self._devs(pvec))
+        r = self._run("finalize", _ssched_finalize,
+                      *_flat(*([c] for c in cols)), los=e._los,
+                      width=e.shard_width, n_docs=e.n_docs,
+                      n_terms=self._n_terms, depth=cfg.rerank_depth,
+                      pool_depth=cfg.rerank_depth if rho else e.max_k,
+                      masked=not rho)[0]
         return _pad_ranked(r.cpu().numpy(), cfg.rerank_depth)

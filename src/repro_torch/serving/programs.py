@@ -1,16 +1,17 @@
 """The program caches of the port: one program per stage and input shapes.
 
 The port of what the JAX package's compiled executables are to its
-serving path: the engine's AOT cache (``ServingEngine._compiled``) and
-the server's jitted predicts (``RetrievalServer._predict_fns``).  A
+serving path: the engine's AOT cache (``ServingEngine._compiled``), the
+server's jitted predicts (``RetrievalServer._predict_fns``) and the LM
+decode bundle's jitted ``serve_step`` (``serving/decode.py``).  A
 ``ProgramCache`` holds the programs of one owner -- the engine's stages,
-or the server's predict and margin -- each at one key: the stage's name
-and its tensor arguments' shapes and dtypes, with its static
-configuration bound by keyword.  The engine and the server each hold a
-cache of their own, so each counts its own builds (``n_compiles``), and
-on a card each has its own graph pools: a predict on the service's
-admission stream never waits for a pool lock that an engine stage on
-the execution thread holds.
+the server's predict and margin, or one parameter tree's decode steps
+-- each at one key: the stage's name and its tensor arguments' shapes
+and dtypes, with its static configuration bound by keyword.  Each
+owner holds a cache of its own, so each counts its own builds
+(``n_compiles``), and on a card each has its own graph pools: a
+predict on the service's admission stream never waits for a pool lock
+that an engine stage on the execution thread holds.
 
 * ``EagerProgram`` (the CPU): the stage function itself.  Nothing is
   captured; the cache's keys, counts, locks and warmup are the same.
@@ -137,8 +138,12 @@ class GraphProgram:
                         try:
                             graph.capture_end()
                         except RuntimeError:
-                            pass    # the stage's own error is the one raised
-                        raise
+                            # the capture was invalidated, and ending it
+                            # raised before the caching allocator let go
+                            # of the pool, which stays marked as recording:
+                            # this shape's later captures take a new one
+                            pool.handle = torch.cuda.graph_pool_handle()
+                        raise   # the stage's own error is the one raised
                     graph.capture_end()
             caller.wait_stream(side)
             pool.done.record(caller)
@@ -217,7 +222,8 @@ class ProgramCache:
     argument is a tensor and static configuration goes by keyword (fixed
     for a name: a hit with other keywords raises).  ``consts`` are the
     owner's tensors a captured program reads in place (the engine's
-    index, the server's term statistics).
+    index, the server's term statistics, a model's parameters); a build
+    may add its own (a decode program's cache).
 
     Thread-safe: the service's warmup thread builds beside the serving
     threads, so a miss installs a pending marker under ``_lock`` and
@@ -238,8 +244,11 @@ class ProgramCache:
         self.n_compiles = 0
         self.metric = obs_lib.NULL_METRIC
 
-    def compiled(self, name: str, fn, args, kwargs: dict):
-        """The program of ``name`` at ``args``' shapes; built on a miss."""
+    def compiled(self, name: str, fn, args, kwargs: dict, consts=()):
+        """The program of ``name`` at ``args``' shapes; built on a miss.
+        ``consts``: tensors among ``args`` that this program alone reads
+        in place besides the cache's own (a decode program's KV cache);
+        a later call must hand it the same tensors."""
         if not args or not all(isinstance(a, torch.Tensor) for a in args):
             raise TypeError(
                 f"stage {name!r}: the program cache keys on tensor "
@@ -254,10 +263,11 @@ class ProgramCache:
                 owner = True
         if isinstance(entry, _PendingCompile):
             if owner:
+                fixed = self.consts + tuple(consts)
                 try:
                     exe = build_program(name, fn, args, kwargs, self.device,
-                                        *self._place(args),
-                                        consts=self.consts)
+                                        *self._place(args, fixed),
+                                        consts=fixed)
                 except BaseException as e:
                     with self._lock:
                         self._programs.pop(key, None)
@@ -282,14 +292,14 @@ class ProgramCache:
                 "stage's name")
         return entry
 
-    def _place(self, args) -> tuple:
+    def _place(self, args, consts) -> tuple:
         """(pool, side stream) of a program built on a card: the pool of
         its padded batch size, and the building thread's side stream;
         (None, None) on the CPU."""
         if self.device.type != "cuda":
             return None, None
         b = next((a.shape[0] for a in args
-                  if not any(a is c for c in self.consts)), None)
+                  if not any(a is c for c in consts)), None)
         with self._lock:
             pool = self._pools.get(b)
             if pool is None:

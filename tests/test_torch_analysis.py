@@ -231,6 +231,15 @@ def _stage(x, v, *, depth):
         return x * v.sum().item()
     return x * v.sum()
 """),
+    ("captured-coercion", """
+def _stage(x, v, *, depth):
+    return x * v.sum().item()
+""", """
+def _stage(x, v, *, depth):
+    if is_dtensor(x):
+        return x * v.sum().item()
+    return x * v.sum()
+"""),
     ("host-tensor", """
 def _stage(x, v, *, depth):
     return x + torch.tensor([1.0, 2.0], device=x.device)
@@ -353,10 +362,11 @@ def test_recompile_rule_flags_its_case_and_spares_the_clean_twin(
 
 
 def test_recompile_finds_the_engines_captured_scopes(monkeypatch):
-    """The stages the engine and the scheduler hand to the cache, and
-    their callees across the package, are captured; the sharded bodies
-    (run eagerly) are not.  The pass runs in the CLI and the committed
-    baseline keeps it green."""
+    """The stages the engine and the scheduler hand to the cache, the
+    sharded engine's and scheduler's among them, and their callees
+    across the package, are captured; the host methods around them are
+    not.  The pass runs in the CLI and the committed baseline keeps it
+    green."""
     from repro_torch.analysis import astutil
     monkeypatch.chdir(REPO_ROOT)
     with open(ENGINE) as f:
@@ -367,13 +377,45 @@ def test_recompile_finds_the_engines_captured_scopes(monkeypatch):
             "_stage_rerank", "_stage_rerank_dyn", "_depth_mask",
             "_sched_gather", "_sched_refill", "_sched_chunk",
             "_sched_finalize_rho", "_sched_finalize_k"} <= names
-    assert not names & {"_sh_gather", "_sh_stage1", "_ssched_chunk",
-                        "_compiled", "serve"}
+    assert {"_shs_gather", "_shs_stage1", "_shs_allgather", "_shs_stage2",
+            "_shs_merge", "_shs_rerank", "_sh_gather", "_sh_stage1",
+            "_sh_survivors", "_sh_stage2", "_sh_merge", "_sh_rerank",
+            "_nest", "_ssched_gather", "_ssched_refill", "_ssched_chunks",
+            "_ssched_chunk", "_ssched_finalize", "_install"} <= names
+    assert not names & {"_compiled", "serve", "_split", "_flat",
+                        "check_overflow", "budget_grid", "gather",
+                        "refill"}
     jass = "src/repro_torch/retrieval/jass.py"
     with open(jass) as f:
         tree = __import__("ast").parse(f.read())
     assert "gather_streams" in {getattr(n, "name", None) for n in
                                 astutil.find_captured_scopes(tree, jass)}
+    assert analysis_main(["src/repro_torch", "--select", "recompile"]) == 0
+
+
+def test_recompile_finds_the_decode_scopes(monkeypatch):
+    """The decode stage ``DecodePrograms`` hands to its cache, and the
+    decode step's callees in ``models/`` (both attentions, the ring's
+    slot positions, the MoE's local dispatch), are captured; the
+    holder's host method and the MoE's DTensor arm (the dry run's) are
+    not.  The pass holds them green with the committed baseline."""
+    import ast
+    from repro_torch.analysis import astutil
+    monkeypatch.chdir(REPO_ROOT)
+    names = set()
+    for f in ("serving/decode.py", "models/transformer.py", "models/moe.py",
+              "models/attention.py"):
+        path = "src/repro_torch/" + f
+        with open(path) as fh:
+            tree = ast.parse(fh.read())
+        names |= {getattr(n, "name", None) for n in
+                  astutil.find_captured_scopes(tree, path)}
+    assert {"_stage_decode", "decode_step", "_decode_layers",
+            "_decode_attn_gqa", "_decode_attn_mla", "_slot_positions",
+            "decode_attention", "moe_ffn", "_local_dispatch",
+            "_combine"} <= names
+    assert not names & {"__call__", "_moe_sharded", "prefill",
+                        "train_loss"}
     assert analysis_main(["src/repro_torch", "--select", "recompile"]) == 0
 
 

@@ -62,10 +62,18 @@ Tolerances, with their reasons:
     equal eager calls of the same stage functions bit for bit (the same
     kernels on the same inputs); a live scheduler state is bit-unchanged
     by a warmup mid-flight; a replay counts the launches an eager run
-    does.
+    does.  The same holds for the sharded engine's six programs and the
+    sharded scheduler's four, over meshes laid on the card.
+  * the decode programs (CUDA graphs of ``decode_step``): tokens, logits
+    and the cache bit-equal to eager ``decode_step`` at each step, with
+    the program built in the middle of the generation (the same kernels
+    on the same inputs; the build's eager run writes the slot the replay
+    writes again).
 """
 
+import contextlib
 import dataclasses
+import functools
 import time
 
 import numpy as np
@@ -805,15 +813,16 @@ def test_sharded_stage2_is_deterministic_on_card(card_positions):
                          .astype(np.int32)).cuda()
     qids = torch.arange(q.shape[0], dtype=torch.int32, device=q.device)
     rows, over, _ = engine._sh_gather(
-        group, [q] * 4, cap=e.cfg.stream_cap, shard_cap=e.shard_cap,
-        block_p=e.block_p, width=e.shard_width, slack=e.cfg.partition_slack)
-    assert int(over.max()) == 0
+        [sh.index + (q,) for sh in group], e._los, cap=e.cfg.stream_cap,
+        shard_cap=e.shard_cap, block_p=e.block_p, width=e.shard_width,
+        slack=e.cfg.partition_slack)
+    assert int(over[0].max()) == 0
 
     def stage2():
         out = engine._sh_stage2(
-            group, [r[5] for r in rows], [r[6] for r in rows],
-            [r[7] for r in rows], [qids] * 4, width=e.shard_width,
-            n_docs=e.n_docs, n_terms=q.shape[1])
+            [r[5:8] + (sh.doc_len, qids) for r, sh in zip(rows, group)],
+            e._los, width=e.shard_width, n_docs=e.n_docs,
+            n_terms=q.shape[1])
         return torch.cat(out, dim=1)[:, :e.n_docs]
 
     a, b = stage2(), stage2()
@@ -1375,3 +1384,172 @@ def test_a_stage_that_cannot_be_captured_raises(cuda_device):
     pv = server.params_of(server.predict_classes(qt))
     np.testing.assert_array_equal(e.serve(qt, pv)[0],
                                   _eager_serve(e, qt, pv))
+
+
+# ------------------------------------------- sharded and decode programs --
+
+@contextlib.contextmanager
+def _stage_functions(engine):
+    """Within the block the engine's stages, and its scheduler's, run as
+    their functions called directly (the eager path the cache
+    captured), not as programs."""
+    engine._compiled = (lambda name, fn, args, kwargs, consts=():
+                        functools.partial(fn, **kwargs))
+    try:
+        yield
+    finally:
+        del engine._compiled
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
+def test_sharded_programs_replayed_equal_eager_on_card(card_positions, shape):
+    """The sharded engine's six programs on the card (model=2, and data
+    x model 2x2): each a CUDA graph, the lists of the warmed grid bit-
+    equal to the stage functions called eagerly and to the unsharded
+    engine, impact_scan and topk counted once a shard and data group at
+    each replay, and mixed batches on the warm grid building nothing
+    with no unvetted sync (``hot_path``); then on model=2 the sharded
+    scheduler's four programs, its lists equal to the batch-once
+    serve."""
+    from repro_torch.analysis import sanitizers
+    dev = torch.device("cuda")
+    data, model = shape
+    server, qt = _card_server(dev, "rho")
+    sharded, _ = _card_server(
+        dev, "rho", card_positions.make_serving_mesh(model, data, device=dev),
+        partition_slack=CARD_SLACK)
+    e = sharded.engine
+    built = e.warmup([8, 16, 40], qt.shape[1], with_depth=True)
+    stats = e.program_stats()
+    assert built == stats["programs"] == stats["graphs"] == 7 * 3
+    rng = np.random.default_rng(11)
+    plan = []
+    for n in (5, 16, 37, 11):
+        rows = qt[rng.permutation(qt.shape[0])[:n]]
+        plan.append((rows, sharded.params_of(sharded.predict_classes(rows)),
+                     rng.integers(1, 31, n)))
+    replayed, launches = [], []
+    with sanitizers.hot_path(e) as rec:
+        for rows, pv, dv in plan:
+            n0 = (is_kernel.n_launches, tk_kernel.n_launches)
+            replayed.append((e.serve(rows, pv)[0],
+                             e.serve(rows, pv, depth_vec=dv)[0]))
+            launches.append((is_kernel.n_launches - n0[0],
+                             tk_kernel.n_launches - n0[1]))
+    assert rec.new_compiles == 0 and rec.syncs.unvetted() == []
+    assert launches == [(2 * data * model,) * 2] * len(plan)
+    for (rows, pv, dv), (got, got_dv) in zip(plan, replayed):
+        with _stage_functions(e):
+            np.testing.assert_array_equal(got, e.serve(rows, pv)[0])
+        np.testing.assert_array_equal(got, server.engine.serve(rows, pv)[0])
+        np.testing.assert_array_equal(
+            got_dv, server.engine.serve(rows, pv, depth_vec=dv)[0])
+    if data == 1:
+        backend = service.ContinuousBackend(sharded, query_len=qt.shape[1],
+                                            slots=16, grain=4, window=8)
+        svc = service.RetrievalService(backend)
+        assert backend.warmup_shape(8) == 4
+        with sanitizers.compile_sentinel(e):
+            res = svc.serve_all(list(qt), deadline_ms=1e6)
+        ref, _ = server.engine.serve(
+            qt, server.params_of(server.predict_classes(qt)))
+        np.testing.assert_array_equal(np.stack([r["ranked"] for r in res]),
+                                      ref)
+    assert e.program_stats()["graphs"] == e.n_compiles
+
+
+def _decode_run(cfg, toks, params, step, start, steps=8):
+    """Prefill on the card, then ``steps`` greedy steps: eager before
+    ``start``, through ``step`` after.  Returns [(token, logits)] and the
+    cache."""
+    from repro_torch.models import transformer
+    logits, pre = transformer.prefill(params, cfg,
+                                      torch.from_numpy(toks).cuda())
+    b, s = toks.shape
+    cache = transformer.init_cache(cfg, b, s + steps, device="cuda")
+    for g in pre:
+        for x in pre[g]:
+            cache[g][x][:, :, :pre[g][x].shape[2]] = pre[g][x]
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    out = []
+    for i in range(steps):
+        pos = torch.full((b,), s + i, dtype=torch.int32, device="cuda")
+        if i < start:
+            tok, lg, cache = transformer.decode_step(params, cfg, cache, tok,
+                                                     pos)
+        else:
+            tok, lg, cache = step(params, cache, tok, pos)
+        out.append((tok.clone(), lg.clone()))
+    return out, cache
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,s", [("tinyllama-1.1b", 24), ("qwen2-0.5b", 24),
+                                    ("qwen3-4b", 24), ("mixtral-8x22b", 32),
+                                    ("deepseek-v3-671b", 24)])
+def test_replayed_decode_equals_eager_on_card(cuda_device, arch, s):
+    """Each LM arch's smoke config (float32): greedy steps through the
+    decode programs, the program built at step 3 of 8 on that step's own
+    inputs, bit-equal to eager steps in tokens, logits and the cache; one
+    CUDA graph, replayed for each later step, which launches no kernel
+    of the port's (the decode attention is torch ops)."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.data import lm_pipeline
+    from repro_torch.models import transformer
+    from repro_torch.serving.decode import DecodePrograms
+    from repro_torch.tree import leaves
+    cfg = cfgbase.get(arch).smoke_config()
+    toks = lm_pipeline.LMPipeline(lm_pipeline.LMDataConfig(
+        vocab=cfg.vocab, batch=2, seq_len=s, seed=1)).batch(0)["tokens"]
+    params = transformer.init_params(cfg, seed=0, device=cuda_device)
+    progs = DecodePrograms(params, cfg)
+    want, want_cache = _decode_run(cfg, toks, params, None, start=8)
+    kernels = (is_kernel, tk_kernel, fa_kernel, eb_kernel)
+    n0 = [k.n_launches for k in kernels]
+    got, cache = _decode_run(cfg, toks, params, progs, start=3)
+    assert [k.n_launches for k in kernels] == [
+        n + (cfg.n_layers if k is fa_kernel and cfg.attn_type != "mla"
+             else 0) for k, n in zip(kernels, n0)]   # the prefill's flash
+    for (gt, gl), (wt, wl) in zip(got, want):
+        assert torch.equal(gt, wt) and torch.equal(gl, wl)
+    for a, b in zip(leaves(cache), leaves(want_cache)):
+        assert torch.equal(a, b)
+    stats = progs.stats()
+    assert (progs.n_compiles, stats["graphs"], stats["replays"]) == (1, 1, 5)
+
+
+def _syncing_decode(params, cfg, cache, token, pos):
+    return token * int(pos.sum()), params["lm_head"][:1].float(), cache
+
+
+@pytest.mark.gpu
+def test_a_sharded_or_decode_program_that_cannot_be_captured_raises(
+        card_positions, monkeypatch):
+    """No fallback: a sharded stage or a decode step that syncs inside its
+    capture raises, its cache keeps no entry, and serving goes on."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models import transformer
+    from repro_torch.serving.decode import DecodePrograms
+    dev = torch.device("cuda")
+    server, qt = _card_server(
+        dev, "rho", card_positions.make_serving_mesh(2, device=dev),
+        partition_slack=CARD_SLACK)
+    e = server.engine
+    x = e.doc_len[:8].to(torch.float32)
+    with pytest.raises(RuntimeError):
+        e._compiled("syncing", _syncing_stage, (x,), {})
+    assert e.n_compiles == 0 and e.program_stats()["programs"] == 0
+    assert server.serve_batch(qt)["ranked"].shape == (37, 30)
+    cfg = cfgbase.get("tinyllama-1.1b").smoke_config()
+    params = transformer.init_params(cfg, seed=0, device=dev)
+    cache = transformer.init_cache(cfg, 2, 16, device=dev)
+    progs = DecodePrograms(params, cfg)
+    tok = torch.zeros(2, dtype=torch.int32, device=dev)
+    monkeypatch.setattr(transformer, "decode_step", _syncing_decode)
+    with pytest.raises(RuntimeError):
+        progs(params, cache, tok, tok)
+    assert progs.n_compiles == 0 and progs.programs.keys() == []
+    monkeypatch.undo()
+    assert progs(params, cache, tok, tok)[2] is cache
+    assert progs.n_compiles == 1

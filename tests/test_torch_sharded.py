@@ -17,6 +17,7 @@ the port's unsharded engine equals the JAX one (``test_torch_serving``).
 """
 
 import os
+import re
 import subprocess
 import sys
 import types
@@ -27,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_sharded_counts as sharded_counts
 from _torch_carry import carry_index
 from repro.core import experiment as j_exp
 from repro.kernels.impact_scan import ops as j_is_ops
@@ -35,6 +37,7 @@ from repro.retrieval import jass as j_jass
 from repro.serving import engine as j_engine
 from repro.serving import pipeline as j_pipeline
 from repro_torch import obs as t_obs
+from repro_torch.analysis import sanitizers as S
 from repro_torch.core import knobs as t_knobs
 from repro_torch.distrib import collectives
 from repro_torch.distrib.sharding import DeviceMesh, MeshInfo, dp_axis_spec
@@ -46,7 +49,7 @@ from repro_torch.serving import pipeline as t_pipeline
 from repro_torch.serving import service as t_service
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-MESHES = [(1, 1), (1, 2), (1, 4), (2, 2), (2, 2, 2)]
+MESHES = sharded_counts.MESHES
 #: the JAX partitions, traced once a shape (``lo`` is an operand there)
 J_PARTITION = jax.jit(j_index.partition_postings,
                       static_argnames=("width", "cap"))
@@ -60,6 +63,22 @@ def positions():
     mesh_lib.force_host_device_count(8)
     yield
     mesh_lib.force_host_device_count(0)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_side():
+    """The JAX sharded engine's program counts, compiled in a subprocess
+    over forced host devices while the port's cases run."""
+    proc = sharded_counts.start("engine")
+    yield proc
+    if proc.poll() is None:             # no case read it: stop it
+        proc.kill()
+        proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def jax_counts(_jax_side):
+    return sharded_counts.result(_jax_side)
 
 
 def _mesh(shape):
@@ -322,10 +341,12 @@ def reference(system, carried):
 @pytest.mark.parametrize("knob", ["k", "rho"])
 @pytest.mark.parametrize("shape", MESHES)
 def test_sharded_engine_equals_unsharded_and_jax(system, carried, reference,
-                                                 shape, knob, n):
+                                                 jax_counts, shape, knob, n):
     """Every class bucket (the stub cycles through them), on 1, 2 and 4
     shards and over data and pod axes: the lists equal the port's and
-    the JAX package's unsharded servers', in 6 dispatches a batch."""
+    the JAX package's unsharded servers', in 6 dispatches a batch, and
+    the engine builds as many programs as the JAX sharded engine
+    compiles on the same call and mesh."""
     srv = _port_server(system, carried, knob, _mesh(shape))
     o = t_obs.Observability.create()
     srv.engine.bind_obs(o)
@@ -333,20 +354,26 @@ def test_sharded_engine_equals_unsharded_and_jax(system, carried, reference,
     np.testing.assert_array_equal(out["ranked"], reference[knob, n])
     np.testing.assert_array_equal(out["ranked"], reference["port", knob, n])
     assert o.metrics.counters()["engine.dispatches"] == 6
-    assert srv.engine.n_compiles == 0
+    assert srv.engine.n_compiles == jax_counts[
+        f"engine/{shape}/{knob}/{n}"] > 0
     assert set(out["timings"]) >= {"gather_ms", "stage1_ms", "stage2_ms",
                                    "merge_ms", "rerank_ms"}
 
 
 @pytest.mark.parametrize("shape", MESHES)
 def test_sharded_serve_fixed_wider_than_every_shard(system, carried,
-                                                    reference, shape):
-    """k == n_docs: a pool wider than every shard (301 > 76 on 4)."""
+                                                    reference, jax_counts,
+                                                    shape):
+    """k == n_docs: a pool wider than every shard (301 > 76 on 4), its
+    stage 1 and merge programs named by the width, as the JAX engine's."""
     srv = _port_server(system, carried, "k", _mesh(shape))
     out = srv.serve_fixed(system.queries.terms[:37],
                           system.index.corpus.n_docs)
     np.testing.assert_array_equal(out["ranked"], reference["fixed"])
     np.testing.assert_array_equal(out["ranked"], reference["port", "fixed"])
+    assert srv.engine.n_compiles == jax_counts[f"fixed/{shape}"]
+    names = {k[0] for k in srv.engine._programs.keys()}
+    assert {"stage1:301", "merge:301"} <= names
 
 
 @pytest.mark.parametrize("shards,knob", [(2, "k"), (2, "rho"), (4, "k")])
@@ -409,6 +436,44 @@ def test_sharded_backend_inline_equals_serve_batch(system, carried):
                                   srv.serve_batch(qt)["ranked"])
 
 
+def test_sharded_traffic_on_a_warm_grid_builds_nothing(system, carried,
+                                                      jax_counts):
+    """The JAX package's mesh case: ``warmup_now([8, 16])`` over a
+    ``ShardedEngineBackend`` on the data x model mesh builds the programs
+    the JAX engine compiles there, and mixed batch sizes that snap to the
+    warmed shapes build nothing (``hot_path``), their lists equal to
+    ``serve_batch``."""
+    srv = _port_server(system, carried, "k", _mesh((2, 2)))
+    backend = t_service.ShardedEngineBackend(
+        srv, query_len=system.queries.terms.shape[1])
+    svc = t_service.RetrievalService(backend, t_admission.AdmissionConfig(
+        max_batch=16, pad_multiple=backend.pad_multiple))
+    warmed = svc.warmup_now([8, 16])
+    assert [warmed, srv.engine.n_compiles] == jax_counts["warm/(2, 2)"]
+    assert srv.engine.n_compiles > 0
+    with S.hot_path(srv.engine) as rec:
+        for n in (3, 5, 8, 11, 16, 13, 4):
+            qt = system.queries.terms[:n]
+            res = svc.serve_all(list(qt))
+            np.testing.assert_array_equal(
+                np.stack([r["ranked"] for r in res]),
+                srv.serve_batch(qt)["ranked"])
+    assert rec.new_compiles == 0
+
+
+def test_a_mesh_over_several_devices_raises_when_a_stage_is_built(
+        system, carried):
+    """A program is captured on one device: with the positions on two
+    devices the first stage raises, naming the layout, and nothing is
+    built or run in its place."""
+    srv = _port_server(system, carried, "rho", _mesh((1, 2)))
+    e = srv.engine
+    e._devices = (torch.device("cuda", 0), torch.device("cuda", 1))
+    with pytest.raises(RuntimeError, match="over 2 devices"):
+        srv.serve_batch(system.queries.terms[:16])
+    assert e.n_compiles == 0 and e.program_stats()["programs"] == 0
+
+
 def test_sharded_backend_requires_sharded_engine(system, carried):
     with pytest.raises(TypeError, match="mesh"):
         t_service.ShardedEngineBackend(_port_server(system, carried, "k"))
@@ -453,9 +518,11 @@ def test_data_mesh_refused_for_continuous_with_the_jax_reason(system,
 
 # ------------------------------------------------------------------- CLI --
 
-def test_serve_cli_sharded_on_the_cpu(tmp_path):
+def test_serve_cli_sharded_on_the_cpu(tmp_path, jax_counts):
     """``--shards 2 --force-host-devices 2`` at the verify sizes, in a
-    process of its own (the forced positions are process-wide)."""
+    process of its own (the forced positions are process-wide): the
+    programs of its one warmed shape, as many as the JAX sharded engine
+    compiles for one padded shape on that mesh."""
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
          "--knob", "rho", "--batch", "30", "--batches", "3", "--n-docs",
@@ -466,4 +533,7 @@ def test_serve_cli_sharded_on_the_cpu(tmp_path):
     assert r.returncode == 0, r.stderr
     assert ("mesh: {'data': 1, 'model': 2} — candidates over 'model', "
             "batches over data axes (pad grid 8)") in r.stdout
-    assert "compiles=0" in r.stdout and "merge=" in r.stdout
+    want = jax_counts["engine/(1, 2)/rho/16"]
+    assert int(re.search(r"compiles=(\d+)", r.stdout).group(1)) == want
+    assert "merge=" in r.stdout
+    assert "warmed shapes: [32]" in r.stdout

@@ -18,8 +18,10 @@ chunked sums are exact, and the sharded arithmetic is the unsharded one
 import numpy as np
 import pytest
 
+import _torch_sharded_counts as sharded_counts
 from _torch_carry import carry_index
 from repro.core import experiment as j_exp
+from repro_torch.analysis import sanitizers as S
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.serving import engine as t_engine
 from repro_torch.serving import pipeline as t_pipeline
@@ -32,6 +34,22 @@ def positions():
     mesh_lib.force_host_device_count(4)
     yield
     mesh_lib.force_host_device_count(0)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_side():
+    """The JAX sharded scheduler's warmup counts, compiled in a
+    subprocess over forced host devices while the port's cases run."""
+    proc = sharded_counts.start("sched")
+    yield proc
+    if proc.poll() is None:             # no case read it: stop it
+        proc.kill()
+        proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def jax_counts(_jax_side):
+    return sharded_counts.result(_jax_side)
 
 
 @pytest.fixture(scope="module")
@@ -93,6 +111,49 @@ def test_sharded_continuous_equals_one_engine_serve(system, shards, knob,
     assert sum(st["retire_reasons"].values()) == 24
     assert st["chunks_max"] == sh.engine.shard_cap // backend.scheduler.prog.chunk_p
     assert backend.warmup_shape(8) == 0
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_scheduler_warmup_and_churn_build_as_the_jax_one(
+        system, jax_counts, shards):
+    """The warmup builds the four programs the JAX scheduler compiles on
+    the same model-only mesh; ragged waves of admits and retires after
+    it build nothing (``hot_path``), every list equal to the unsharded
+    scheduler's on the same waves."""
+    L = system[0].queries.terms.shape[1]
+    svcs = []
+    for srv in (_server(system, "rho", shards), _server(system, "rho")):
+        backend = t_service.ContinuousBackend(srv, query_len=L, slots=8,
+                                              grain=4)
+        svcs.append(t_service.RetrievalService(backend))
+    sh = svcs[0].backend
+    assert sh.warmup_shape(8) == jax_counts[f"sched/{shards}"] > 0
+    assert sh.n_compiles == jax_counts[f"sched/{shards}"]
+    terms = system[0].queries.terms
+    with S.hot_path(sh.server.engine) as rec:
+        for i, n in enumerate((3, 11, 7, 16, 5)):
+            qt = terms[i:i + n]
+            got, want = (s.serve_all(list(qt), deadline_ms=1e6)
+                         for s in svcs)
+            np.testing.assert_array_equal(
+                np.stack([r["ranked"] for r in got]),
+                np.stack([r["ranked"] for r in want]))
+    assert rec.new_compiles == 0
+
+
+def test_a_second_budget_grid_of_one_length_is_refused(system):
+    """The schedulers of one engine share its gather program and the
+    budget grid it reads in place: a grid of the same length with other
+    budgets raises instead of replaying the first one's."""
+    sh = _server(system, "rho", 2)
+    a = t_engine.SchedPrograms.for_engine(sh.engine, grain=4,
+                                          extra_widths=(77,))
+    b = t_engine.SchedPrograms.for_engine(sh.engine, grain=4,
+                                          extra_widths=(77,))
+    assert a._wvecs is b._wvecs
+    with pytest.raises(ValueError, match="budget grid"):
+        t_engine.SchedPrograms.for_engine(sh.engine, grain=4,
+                                          extra_widths=(99,))
 
 
 def test_sharded_programs_pick_and_refuse(system):
