@@ -80,14 +80,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      over 1 M candidates, pool 1000): label 1024 synthetic requests on
      the card in batches of 128 (gold and per-cutoff runs, MED_RBP,
      envelope labels; the flash_attention launches of labelling are
-     counted, one per batch), train the forest cascade on the host, and
-     serve 4 held-out batches of 128 through ``Funnel(device="cuda").serve``
-     with the launch counters zeroed just before and read just after; a
-     few requests of one batch are held against the same funnel on the
-     CPU.  Then one more held-out batch, its classes spread over every
-     cutoff (k from 10 to the pool of 1000), is executed on the card and
-     held against each of its requests executed alone on the card and
-     against the same batch executed on the CPU.
+     counted, one per batch), train the forest cascade on the host.
+     Then the funnel's programs are warmed as the service warms a shape
+     (``FunnelBackend.warmup_shape``): one CUDA graph a cutoff at 128
+     (7; a fresh backend's second warmup builds 0), then 7 more at 64,
+     all in the funnel's one graph pool.  Then the counted window: 4
+     held-out batches of 128 through ``Funnel(device="cuda").serve`` and
+     one more batch, its classes spread over every cutoff (k from 10 to
+     the pool of 1000), through ``Funnel.execute``, each a replay of its
+     program, with the launch counters zeroed just before and read just
+     after (one flash_attention launch a batch, nothing else, no program
+     built).  After it, each list is held bit for bit against the stage
+     function called eagerly on the same inputs; a few requests of one
+     batch against the same funnel on the CPU; the mixed batch against
+     each of its requests run alone and against the same batch executed
+     on the CPU.  ``phase 3: funnel`` gives the replayed ``serve``'s ms
+     and requests/s, and the eager stage's three parts (stage 1, stage
+     2, the rank) timed apart, each fenced.  ``phase 3: funnel
+     programs``: the build s and the ``memory_reserved`` the pool holds
+     after 128 and after 128 and 64, ``serve``'s ms replayed beside
+     eager, and the stage at the mixed batch's width: one call's wall,
+     device and host ms replayed beside eager.  Last
+     (``phase 3: funnel top_k``) stage 1 at batch 128, device ms: the
+     scores, then at k 50 and 1000 ``top_k`` beside its earlier form (a
+     flag read from the card) and the keyed form, all selecting the same
+     ids.
   4. the service layer (``RetrievalService``) on the card.  Over phase
      2's servers, per knob, three fresh services (no census, shape 128
      warmed, launch counters zeroed after the warmup): inline
@@ -99,7 +116,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      CLI serves (workers running, 100 ms deadlines) must give
      well-formed lists and ``predict_classes``' classes.  Over phase 3's
      funnel and batches, inline and FIFO-threaded must equal
-     ``Funnel.serve`` bit for bit, one flash_attention launch a batch.
+     ``Funnel.serve`` bit for bit through the funnel's programs, one
+     flash_attention launch a batch and no program built.
      Every trace must balance and validate.  One ``phase 4:`` line per
      knob and for the funnel: p50/p99 of ``total_ms``, ``queue_ms``,
      ``predict_ms`` and ``service_ms``, q/s, ``deadline_met``, per-stage
@@ -281,10 +299,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ``analysis.sanitizers.no_syncs`` armed around one ρ and one k
      batch through the engine's stages (phase 2's servers, batch 2,
      ranked lists equal to phase 2's), one continuous-scheduler chunk
-     step with its slots filled, and one tinyllama-1.1b ``decode_step``
+     step with its slots filled, one tinyllama-1.1b ``decode_step``
      at full width (phase 13's parameters and cache), eagerly and
-     replayed through its decode program.  One ``phase 16:``
-     line per scope gives its syncs by frame, each ``vetted``,
+     replayed through its decode program, and one funnel batch at phase
+     3's classes, as the stage function called eagerly and replayed
+     through ``Funnel.execute``, its lists equal to phase 3's.  One
+     ``phase 16:`` line per scope gives its syncs by frame, each ``vetted``,
      ``allowed`` (a fault ROADMAP section 4 lists, ``SYNC_FAULTS``) or
      ``unvetted``; an unvetted sync fails the phase.
   18. (after phase 16) the engine's program cache on the card, over
@@ -351,7 +371,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      collected after phase 14: 80 records, 72 ``ok`` and 8 ``skipped``,
      none ``error``, no kernel launched in any trace; one ``phase 17:
      dryrun`` line a cell (peak GiB, fits in 80 GiB, dominant roofline
-     term, collective GB a device, ops run replicated, trace s).  After
+     term, collective GB a device, ops run replicated, trace s); then
+     MIND's ``retrieval_cand`` (single pod) again with
+     ``REPRO_SHARDED_TOPK=1`` into ``sharded_topk/``: status ``ok``, its
+     all-gather bytes a device the default record's less the (1, 1 M)
+     float32 scores plus the 16 shards' (1, 1000) values and ids.  After
      phase 16, on the card: (b) the dry run's peak estimate over fake
      CUDA tensors against ``torch.cuda.max_memory_allocated()`` (peak
      stats reset before the step, both above what was allocated before
@@ -1846,6 +1870,17 @@ def _check_funnel_ranked(out, cfg):
 
 
 def funnel_path(funnel, batches, mixed):
+    """Phase 3's served funnel.  Its programs are warmed first
+    (``funnel_warmup``).  Then the counted window: the 4 held-out
+    batches through ``Funnel.serve`` and the mixed-k batch (classes over
+    every cutoff) through ``Funnel.execute``, each a replay of the
+    program of its width, with every launch counter zeroed just before
+    and read just after; no program is built in it.  After the window,
+    each list is held bit for bit against the stage function called
+    eagerly on the same inputs, a few requests against the same funnel
+    on the CPU, and the mixed batch against each request alone and the
+    CPU (``funnel_mixed_k``).  Returns (the window's launches, the
+    report, the served batches)."""
     import numpy as np
     from repro_torch.kernels.embedding_bag import kernel as eb_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -1854,29 +1889,54 @@ def funnel_path(funnel, batches, mixed):
     from repro_torch.serving import funnel as F
 
     cfg = funnel.cfg
+    if funnel.has_depth_knob:
+        raise AssertionError("phase 3 serves the funnel's k knob alone")
+    warm = funnel_warmup(funnel)
+    built = funnel.n_compiles
+    muf, mhist = mixed
+    mclasses = (np.arange(len(muf)) % (len(cfg.cutoffs) + 1)).astype(
+        np.int32)
     served = []
-    # ---- the counted window: nothing but the funnel runs in it ----
-    fa_kernel.n_launches = eb_kernel.n_launches = 0
-    is_kernel.n_launches = tk_kernel.n_launches = 0
+    # ---- the counted window: the funnel's programs, nothing else ----
+    counters = (fa_kernel, eb_kernel, is_kernel, tk_kernel)
+    for mod in counters:
+        mod.n_launches = 0
     for uf, hist in batches:
         before = fa_kernel.n_launches
         out = funnel.serve(uf, hist)
         out["launches"] = fa_kernel.n_launches - before
         served.append(out)
-    launches = {"flash_attention": fa_kernel.n_launches,
-                "embedding_bag": eb_kernel.n_launches,
-                "impact_scan": is_kernel.n_launches,
-                "topk": tk_kernel.n_launches}
+    before = fa_kernel.n_launches
+    mixed_out = funnel.execute(muf, mhist, mclasses)
+    mixed_out["launches"] = fa_kernel.n_launches - before
+    launches = {mod.__name__.split(".")[-2]: mod.n_launches
+                for mod in counters}
     # ---- end of the counted window ----
-    if launches["impact_scan"] or launches["topk"]:
-        raise AssertionError(f"the funnel launched serving kernels: "
-                             f"{launches}")
-
-    for b, out in enumerate(served):
-        if out["launches"] != cfg.bst.n_blocks:
-            raise AssertionError(f"funnel batch {b}: {out['launches']} "
-                                 "flash_attention launches")
+    per_batch = [o["launches"] for o in served + [mixed_out]]
+    if (per_batch != [cfg.bst.n_blocks] * len(per_batch)
+            or launches["flash_attention"] != sum(per_batch)
+            or sum(launches.values()) != launches["flash_attention"]):
+        raise AssertionError(f"the funnel's window launched {launches}, "
+                             f"flash_attention {per_batch} a batch")
+    if funnel.n_compiles != built:
+        raise AssertionError(f"serving built {funnel.n_compiles - built} "
+                             "funnel programs on a warm shape")
+    for out in served:
         _check_funnel_ranked(out, cfg)
+    # the stage function called eagerly on the same inputs, bit for bit
+    eager_walls = []
+    for b, ((uf, hist), out) in enumerate(zip(batches, served)):
+        classes, ranked, wall = _eager_serve(funnel, uf, hist)
+        eager_walls.append(wall)
+        if not (np.array_equal(classes, out["classes"])
+                and np.array_equal(ranked, out["ranked"])):
+            raise AssertionError(f"funnel batch {b}: the replayed lists "
+                                 "differ from the eager stage function's")
+    if not np.array_equal(
+            _funnel_eager_lists(funnel, muf, mhist, mclasses),
+            mixed_out["ranked"]):
+        raise AssertionError("the replayed mixed-k batch differs from the "
+                             "eager stage function's")
     # the same funnel on the CPU, for a few requests of one batch
     uf, hist = (x[:FUNNEL_CPU] for x in batches[1])
     got = {k: v[:FUNNEL_CPU] for k, v in served[1].items()
@@ -1896,41 +1956,249 @@ def funnel_path(funnel, batches, mixed):
     steady = served[1:]
     stages = {k: statistics.mean(o["timings"][k] for o in steady)
               for k in steady[0]["timings"]}
+    split = [_funnel_stage_ms(funnel, *batches[1 + i], o["k"])
+             for i, o in enumerate(steady)]
     report = dict(
         stage_ms=stages, requests_per_s=BATCH / (stages["total_ms"] / 1e3),
+        eager_stage_parts_ms={k: statistics.mean(t[k] for t in split)
+                              for k in split[0]},
         mean_k=statistics.mean(o["mean_k"] for o in steady),
         mean_k_per_batch=[o["mean_k"] for o in served],
         launches_per_batch=[o["launches"] for o in served],
+        lists_equal_eager=True,
         cpu_requests=FUNNEL_CPU, cpu_positions_differing=n_cpu,
         cpu_largest_gap_allowed=worst,
         cpu_card_stage2_max_abs_diff=max(common),
         cpu_stage_ms=want["timings"])
     log("phase 3: funnel: " + json.dumps(report))
-    log("phase 3: funnel mixed k: " + json.dumps(
-        funnel_mixed_k(funnel, cpu, *mixed)))
+    log("phase 3: funnel mixed k: " + json.dumps(funnel_mixed_k(
+        funnel, cpu, muf, mhist, mixed_out)))
+    stats = funnel.programs.stats()
+    log("phase 3: funnel programs: " + json.dumps(dict(
+        warm, static_gb=stats["static_bytes"] / 1e9,
+        serving_built=funnel.n_compiles - built, lists_equal_eager=True,
+        flash_launches_per_batch=per_batch, launches=launches,
+        serve_total_ms_replayed=[o["timings"]["total_ms"] for o in served],
+        serve_total_ms_eager=eager_walls,
+        **_stage_replay_vs_eager(funnel, muf, mhist, mixed_out["k"]))))
+    log("phase 3: funnel top_k: " + json.dumps(funnel_top_k(
+        funnel, batches[1][0])))
     return launches, report, served
 
 
-def funnel_mixed_k(funnel, cpu, uf, hist):
-    """One batch with its classes spread over every cutoff and the
-    no-envelope class, executed on the card: held against each request
-    executed alone on the card (the prefix mask and the per-request
-    normalisation width must hide the wider pools) and against the same
-    batch executed on the CPU."""
+def _release_programs(funnel) -> None:
+    """Drop the funnel's programs and their graph pool (gigabytes at
+    128): the training runs of phase 12 need the card's memory beside
+    this process.  A later call at a key builds its program again."""
+    import torch
+    funnel.programs.clear()
+    torch.cuda.empty_cache()
+
+
+def _funnel_eager_lists(funnel, uf, hist, classes):
+    """The ranked lists ``Funnel.execute`` gives at ``classes``, with its
+    stage run as the stage function called directly (the eager run its
+    program captures) and copied to the host after."""
     import numpy as np
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.serving import funnel as F
     cfg = funnel.cfg
-    classes = (np.arange(len(uf)) % (len(cfg.cutoffs) + 1)).astype(np.int32)
-    before = fa_kernel.n_launches
-    out = funnel.execute(uf, hist, classes)
-    if fa_kernel.n_launches - before != cfg.bst.n_blocks:
-        raise AssertionError("mixed-k batch: flash_attention launches")
+    ks = funnel.params_of(classes)
+    _, args, kw = funnel.stage_call(uf, hist, ks,
+                                    np.full_like(ks, max(cfg.cutoffs)))
+    ranked = F._stage_funnel(*args, **kw).cpu().numpy()
+    out = np.full((len(ks), cfg.eval_depth), -1, np.int32)
+    out[:, :ranked.shape[1]] = ranked
+    return out
+
+
+def _eager_serve(funnel, uf, hist):
+    """``Funnel.serve`` with its stage run eagerly
+    (``_funnel_eager_lists``): (classes, ranked lists, total ms on the
+    host's clock, fenced)."""
+    from repro_torch.device import fence
+    fence(funnel.device)
+    t0 = time.perf_counter()
+    classes = funnel.predict(uf, hist)
+    ranked = _funnel_eager_lists(funnel, uf, hist, classes)
+    return classes, ranked, (time.perf_counter() - t0) * 1e3
+
+
+def _funnel_stage_ms(funnel, uf, hist, ks) -> dict:
+    """The stage function's three parts run eagerly on one batch at
+    cutoffs ``ks``, each fenced and timed on the host's clock: stage 1
+    (the towers and the top-k of max(ks)), stage 2 (BST over the pool)
+    and the rank (mask, sort, copy of the lists to the host)."""
+    import numpy as np
+    import torch
+    from repro_torch.device import fence
+    from repro_torch.models.recsys import retrieval_tower as RT
+    from repro_torch.serving import funnel as F
+    dev, cfg = funnel.device, funnel.cfg
+    _, args, kw = funnel.stage_call(uf, hist, ks,
+                                    np.full_like(ks, max(cfg.cutoffs)))
+    u, h, kv, dv = args[:4]
+    fence(dev)
+    t0 = time.perf_counter()
+    eff = torch.minimum(kv, dv)
+    ids, vals = RT.retrieve_topk(funnel.tower_params, cfg.tower, u,
+                                 kw["max_k"])
+    fence(dev)
+    t1 = time.perf_counter()
+    s2 = F._bst_scores(funnel.bst_params, cfg.bst, h, ids, vals,
+                       norm_width=eff)
+    fence(dev)
+    t2 = time.perf_counter()
+    F._served_rank(ids, s2, eff, cfg.eval_depth).cpu().numpy()
+    t3 = time.perf_counter()
+    return dict(stage1_ms=(t1 - t0) * 1e3, stage2_ms=(t2 - t1) * 1e3,
+                rank_ms=(t3 - t2) * 1e3)
+
+
+def funnel_warmup(funnel) -> dict:
+    """The funnel's programs warmed as the service warms a shape
+    (``FunnelBackend.warmup_shape``, one CUDA graph a cutoff): at 128
+    (a second warmup, by a fresh backend, builds none), then at 64, all
+    in the cache's one graph pool.  The ``memory_reserved`` each added, after
+    ``empty_cache`` (what the pool holds) and, at 128, also with the
+    blocks the builds' eager runs left cached."""
+    import torch
+    from repro_torch.serving.service import FunnelBackend
+    cfg = funnel.cfg
+    backend = FunnelBackend(funnel, pad_multiple=8)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    warmed = backend.warmup_shape(BATCH)
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cached = torch.cuda.memory_reserved() - reserved0
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved() - reserved0
+    built = funnel.n_compiles
+    if warmed != len(cfg.cutoffs) or built != warmed:
+        raise AssertionError(f"funnel warmup: {warmed} cutoffs, {built} "
+                             "programs")
+    # the same backend skips a warm shape; a fresh one runs it, on the
+    # programs built
+    if backend.warmup_shape(BATCH):
+        raise AssertionError("a warm funnel shape was warmed again")
+    FunnelBackend(funnel, pad_multiple=8).warmup_shape(BATCH)
+    again = funnel.n_compiles - built
+    if again:
+        raise AssertionError(f"a second funnel warmup built {again}")
+    t0 = time.perf_counter()
+    warmed_64 = backend.warmup_shape(BATCH // 2)
+    build_64_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved_two = torch.cuda.memory_reserved() - reserved0
+    if warmed_64 != len(cfg.cutoffs):
+        raise AssertionError(f"funnel warmup at {BATCH // 2}: {warmed_64}")
+    stats = funnel.programs.stats()
+    return dict(
+        programs=built, build_s=build_s, memory_reserved_gb=reserved / 1e9,
+        memory_reserved_with_cache_gb=cached / 1e9,
+        second_warmup_built=again, second_size=BATCH // 2,
+        second_size_programs=warmed_64, second_size_build_s=build_64_s,
+        memory_reserved_two_sizes_gb=reserved_two / 1e9,
+        graphs=stats["graphs"], pool_sizes=funnel.programs.pool_sizes())
+
+
+def _stage_replay_vs_eager(funnel, uf, hist, ks) -> dict:
+    """The stage at cutoffs ``ks`` (the mixed batch's width), replayed
+    and called eagerly: one call's wall on an idle card, its device time
+    alone and its host time alone (``time_ms``, ``host_ms``)."""
+    import numpy as np
+    from repro_torch.serving import funnel as F
+    name, args, kw = funnel.stage_call(
+        uf, hist, ks, np.full_like(ks, max(funnel.cfg.cutoffs)))
+    prog = funnel.programs.compiled(name, F._stage_funnel, args, kw)
+
+    def eager():
+        return F._stage_funnel(*args, **kw)
+
+    def replay():
+        return prog(*args)
+
+    return dict(
+        stage_max_k=int(ks.max()),
+        stage_ms_replayed=time_ms(replay), stage_ms_eager=time_ms(eager),
+        stage_device_ms_replayed=time_ms(replay, hold=True),
+        stage_device_ms_eager=time_ms(eager, hold=True),
+        stage_host_ms_replayed=host_ms(replay),
+        stage_host_ms_eager=host_ms(eager))
+
+
+def _flag_top_k(scores, k):
+    """The port's top-k before the funnel's programs were captured, for
+    its time: a float32 ``torch.topk`` of k + 1, a read of one tie flag
+    from the card, and the keyed selection where the k-th score ties."""
+    import torch
+    from repro_torch.models.recsys import retrieval_tower as RT
+    n = scores.shape[1]
+    vals, idx = torch.topk(scores, min(k + 1, n), dim=1)
+    if 0 < k < n and bool((vals[:, k] == vals[:, k - 1]).any()):
+        idx = RT._top_k_keyed(scores, k)
+    else:
+        idx = idx[:, :k]
+        idx = idx.gather(1, torch.sort(idx, dim=1, stable=True).indices)
+        order = torch.sort(RT._keys(scores.gather(1, idx)), dim=1,
+                           descending=True, stable=True).indices
+        idx = idx.gather(1, order)
+    return idx, scores.gather(1, idx)
+
+
+def funnel_top_k(funnel, uf) -> dict:
+    """Stage 1 at batch 128 on the card, device ms (CUDA events, the card
+    held while the host enqueues; the flag form's read of the card
+    stalls the stream inside its window): the scores, and at k 50 and
+    1000 the selection by ``top_k`` (branch-free), by the earlier flag form
+    and by the keyed form alone, each on the same scores and each
+    selecting the same ids; the whole stage (``retrieve_topk``) beside
+    the scores plus the flag form."""
+    import torch
+    from repro_torch.models.recsys import retrieval_tower as RT
+    tower, cfg = funnel.tower_params, funnel.cfg.tower
+    u = torch.from_numpy(uf).to(funnel.device)
+    scores = RT.score_candidates(tower, cfg, u)
+    row = dict(batch=len(uf), n=cfg.n_candidates,
+               scores_ms=time_ms(lambda: RT.score_candidates(tower, cfg, u),
+                                 hold=True))
+    for k in (50, 1000):
+        got = RT.top_k(scores, k)[0]
+        if not (torch.equal(got, _flag_top_k(scores, k)[0])
+                and torch.equal(got, RT._top_k_keyed(scores, k))):
+            raise AssertionError(f"top_k at k {k} differs from the flag or "
+                                 "keyed selection")
+        row[f"k{k}"] = dict(
+            top_k_ms=time_ms(lambda: RT.top_k(scores, k), hold=True),
+            flag_ms=time_ms(lambda: _flag_top_k(scores, k), hold=True),
+            keyed_ms=time_ms(lambda: RT._top_k_keyed(scores, k),
+                             hold=True),
+            stage1_ms=time_ms(lambda: RT.retrieve_topk(tower, cfg, u, k),
+                              hold=True),
+            stage1_flag_ms=time_ms(lambda: _flag_top_k(
+                RT.score_candidates(tower, cfg, u), k), hold=True))
+    return row
+
+
+def funnel_mixed_k(funnel, cpu, uf, hist, out) -> dict:
+    """The mixed-k batch as the counted window served it (``out``: its
+    classes spread over every cutoff and the no-envelope class): held
+    against each request alone, the stage function called eagerly (the
+    prefix mask and the per-request normalisation width must hide the
+    wider pools), and against the same batch executed on the CPU."""
+    import numpy as np
+    cfg = funnel.cfg
+    classes = out["classes"]
     if set(out["k"].tolist()) != set(cfg.cutoffs):
         raise AssertionError(f"mixed-k batch serves k {set(out['k'])}")
     _check_funnel_ranked(out, cfg)
     card = _funnel_scores(funnel, uf, hist, out["k"])
     alone = np.concatenate([
-        funnel.execute(uf[q:q + 1], hist[q:q + 1], classes[q:q + 1])["ranked"]
+        _funnel_eager_lists(funnel, uf[q:q + 1], hist[q:q + 1],
+                            classes[q:q + 1])
         for q in range(len(uf))])
     n_alone, gap_alone = _compare_funnel("mixed-k alone", out["ranked"],
                                          alone, card)
@@ -1945,6 +2213,7 @@ def funnel_mixed_k(funnel, cpu, uf, hist):
         requests_per_k={int(k): int((out["k"] == k).sum())
                         for k in cfg.cutoffs},
         stage_ms=out["timings"],
+        eager_stage_parts_ms=_funnel_stage_ms(funnel, uf, hist, out["k"]),
         alone_positions_differing=n_alone, alone_largest_gap_allowed=gap_alone,
         cpu_positions_differing=n_cpu, cpu_largest_gap_allowed=gap_cpu,
         cpu_card_stage2_max_abs_diff=diff, cpu_stage_ms=want["timings"])
@@ -2107,6 +2376,7 @@ def service_path(sys_, servers, batches, served, funnel, fbatches,
 
     backend = FunnelBackend(funnel, pad_multiple=8)
     payloads = [list(zip(uf, hist)) for uf, hist in fbatches]
+    built = funnel.n_compiles               # phase 3 warmed shape 128
     line = {"direct": _direct(funnel.serve, fbatches)}
     for mode in ("inline", "fifo"):
         results, summary, got = _service_run(
@@ -2127,6 +2397,10 @@ def service_path(sys_, servers, batches, served, funnel, fbatches,
         launches["flash_attention"] += got[0]
         summary["launches"] = dict(flash_attention=got[0])
         line[mode] = summary
+    line["programs_built"] = funnel.n_compiles - built
+    if line["programs_built"]:
+        raise AssertionError(f"service funnel built {line['programs_built']} "
+                             "programs on a warm shape")
     line["fifo_qps_over_inline"] = line["fifo"]["qps"] / line["inline"]["qps"]
     line["inline_qps_over_direct"] = (line["inline"]["qps"]
                                       / line["direct"]["qps"])
@@ -4342,10 +4616,12 @@ def _no_syncs_scope(name: str, fn):
     return out
 
 
-def sync_path(servers, batches, served, decode_step, replayed_step) -> None:
+def sync_path(servers, batches, served, decode_step, replayed_step,
+              funnel, fbatch, fout) -> None:
     """Phase 16: the sync sanitizer around the engine's stages (one ρ and
-    one k batch), one continuous chunk step and one full-width decode
-    step, eager and replayed (``DecodePrograms``)."""
+    one k batch), one continuous chunk step, one full-width decode step
+    and one funnel batch (``Funnel.execute`` at phase 3's classes), each
+    eager and replayed (``DecodePrograms``, the funnel's programs)."""
     import numpy as np
     import torch
     from repro_torch.obs import Observability
@@ -4384,7 +4660,23 @@ def sync_path(servers, batches, served, decode_step, replayed_step) -> None:
     svc.stop()
     _no_syncs_scope("tinyllama-1.1b decode_step", decode_step)
     _no_syncs_scope("tinyllama-1.1b decode_step replayed", replayed_step)
-    torch.cuda.empty_cache()
+    from repro_torch.serving import funnel as F
+    ks = funnel.params_of(fout["classes"])
+    name, args, kw = funnel.stage_call(
+        *fbatch, ks, np.full_like(ks, max(funnel.cfg.cutoffs)))
+    # the stage function called eagerly, its lists copied out after the
+    # scope; then the program, through ``execute`` (built outside)
+    ranked = _no_syncs_scope("funnel batch eager (the stage function)",
+                             lambda: F._stage_funnel(*args, **kw))
+    funnel.execute(*fbatch, fout["classes"])
+    out = _no_syncs_scope("funnel batch replayed",
+                          lambda: funnel.execute(*fbatch, fout["classes"]))
+    for mode, got in (("eager", ranked.cpu().numpy()),
+                      ("replayed", out["ranked"][:, :ranked.shape[1]])):
+        if not np.array_equal(got, fout["ranked"][:, :ranked.shape[1]]):
+            raise AssertionError(f"phase 16: funnel {mode} ranked differs "
+                                 "from phase 3's")
+    _release_programs(funnel)
 
 
 # ------------------------------------------------------------ phase 18 --
@@ -4901,7 +5193,48 @@ def dryrun_finish(started) -> list[dict]:
     log(f"phase 17: dry run {len(recs)} records, {status.count('ok')} ok, "
         f"{status.count('skipped')} skipped, in "
         f"{time.perf_counter() - t0:.1f} s (beside the card's phases)")
+    sharded_topk_record(next(r for r in recs if (
+        r["arch"], r["shape"], r["mesh"]) == ("mind", "retrieval_cand",
+                                              "single")))
     return recs
+
+
+def sharded_topk_record(base) -> None:
+    """Phase 17 (a): MIND's ``retrieval_cand`` on the single-pod mesh
+    traced again with ``REPRO_SHARDED_TOPK=1`` (into a directory of its
+    own): status ``ok``, and its all-gather bytes a device those of the
+    default record less the (B, N) float32 scores plus each ``model``
+    shard's (B, k) values and int32 ids."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.configs import recsys_common as RC
+    from repro_torch.launch.mesh import make_production_mesh
+    out = os.path.join(DRYRUN_DIR, "sharded_topk")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           "mind", "--shape", "retrieval_cand", "--mesh", "single",
+           "--out", out]
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               CUDA_VISIBLE_DEVICES="", REPRO_SHARDED_TOPK="1")
+    t0 = time.perf_counter()
+    subprocess.run(cmd, cwd=HERE, env=env, check=True, capture_output=True,
+                   timeout=600)
+    rec = json.load(open(os.path.join(
+        out, "mind__retrieval_cand__single.json")))
+    sh = RC.RECSYS_SHAPES["retrieval_cand"]
+    b, k = sh["batch"], sh["k"]
+    n = cfgbase.get("mind").model_config().item_vocab
+    shards = make_production_mesh().shape["model"]
+    scores, survivors = b * n * 4, shards * b * k * (4 + 4)
+    got, want = (rec.get("collectives", {}).get("all-gather"),
+                 base["collectives"]["all-gather"])
+    row = dict(cell="mind retrieval_cand single REPRO_SHARDED_TOPK=1",
+               status=rec["status"], all_gather_bytes=got,
+               default_all_gather_bytes=want, scores_bytes=scores,
+               survivors_bytes=survivors,
+               collective_gb=rec.get("collective_bytes_per_device", 0) / 1e9,
+               trace_s=time.perf_counter() - t0)
+    log("phase 17: dryrun " + json.dumps(row))
+    if rec["status"] != "ok" or got != want - scores + survivors:
+        raise AssertionError(f"phase 17: the sharded top-k record: {row}")
 
 
 def _random_like(fake, dev):
@@ -5310,6 +5643,7 @@ def main() -> int:
     t0 = time.perf_counter()
     service_launches = service_path(sys_, servers, batches, served, funnel,
                                     fbatches, fserved, seen)
+    _release_programs(funnel)
     serve_cli()
     drivers_cli()
     log(f"phase 4: {time.perf_counter() - t0:.1f} s")
@@ -5339,7 +5673,8 @@ def main() -> int:
     gnn_path(dev)
     log(f"phase 15: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    sync_path(servers, batches, served, decode_step, replayed_step)
+    sync_path(servers, batches, served, decode_step, replayed_step, funnel,
+              fbatches[1], fserved[1])
     del decode_step, replayed_step
     torch.cuda.empty_cache()
     log(f"phase 16: {time.perf_counter() - t0:.1f} s")

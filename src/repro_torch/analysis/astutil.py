@@ -130,8 +130,13 @@ def qualname_map(tree: ast.Module) -> dict[ast.AST, str]:
 def _uncaptured_branch(test: ast.AST) -> str | None:
     """Which arm of an ``if`` no graph captures: ``"body"`` for
     ``<x>.type == "cpu"`` (or ``!= "cuda"``) and for ``is_dtensor(..)``
-    or ``is_fake(..)``, ``"orelse"`` for ``<x>.type == "cuda"`` (or
-    ``!= "cpu"``) and for ``not is_dtensor(..)``, else None."""
+    or ``is_fake(..)``, or a conjunction holding one of them,
+    ``"orelse"`` for ``<x>.type == "cuda"`` (or ``!= "cpu"``) and for
+    ``not is_dtensor(..)``, else None."""
+    if isinstance(test, ast.BoolOp) and isinstance(test.op, ast.And):
+        # the body runs only where every conjunct holds
+        return ("body" if any(_uncaptured_branch(v) == "body"
+                              for v in test.values) else None)
     negated = (isinstance(test, ast.UnaryOp)
                and isinstance(test.op, ast.Not))
     call = test.operand if negated else test

@@ -30,8 +30,9 @@ Hot scopes: the engine outside construction and warmup, its captured
 programs (``serving/programs.py``: a build runs on the serving path
 when a shape is first served), the server's predict (``predict_classes``,
 ``predict_versioned``, ``predict_margin``, their ``_operands`` and
-``_host`` and the stage functions its cache captures), the service's
-``_exec_loop`` and ``_run_batch``, the scheduler's ``_chunk_step``,
+``_host`` and the stage functions its cache captures), the funnel's
+``execute`` (its inputs' copies, its program and the ranked-list
+boundary), the service's ``_exec_loop`` and ``_run_batch``, the scheduler's ``_chunk_step``,
 ``kernels/``, ``obs/trace.py`` and ``obs/metrics.py`` (the reference's),
 plus the LM decode path: ``decode_step`` and its decode-only helpers in
 ``models/transformer.py``, ``decode_attention``, and the per-token
@@ -56,6 +57,8 @@ HOT_PATHS: tuple[tuple[str, tuple[str, ...] | None, tuple[str, ...]], ...] = (
      ("predict_classes", "predict_versioned", "predict_margin", "_operands",
       "_host", "_stage_proba0", "_stage_predict", "_stage_margin"), ()),
     ("serving/service.py", ("_exec_loop", "_run_batch"), ()),
+    ("serving/funnel.py", ("execute", "stage_call", "_as_tensor",
+                            "_stage_funnel"), ()),
     ("serving/sched/scheduler.py", ("_chunk_step",), ()),
     ("kernels/", None, ()),
     ("obs/trace.py", None, ()),

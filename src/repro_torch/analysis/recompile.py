@@ -80,6 +80,19 @@ def _is_container(e: ast.AST) -> bool:
                 and astutil.tail(e.func) in _CONTAINER_CALLS))
 
 
+def _iterates_dicts(loop: ast.For) -> bool:
+    """A loop whose element is read by string key in its body (``for lyr
+    in params["mlp"]: .. lyr["w"] ..``): it iterates a list of parameter
+    dicts, a static unroll, since a tensor's rows take no string key."""
+    if not isinstance(loop.target, ast.Name):
+        return False
+    name = loop.target.id
+    return any(isinstance(n, ast.Subscript) and isinstance(n.value, ast.Name)
+               and n.value.id == name and isinstance(n.slice, ast.Constant)
+               and isinstance(n.slice.value, str)
+               for stmt in loop.body for n in ast.walk(stmt))
+
+
 def _is_mask(e: ast.AST, masks: set[str]) -> bool:
     """An expression that yields a boolean tensor: a comparison, its
     negation or a conjunction of them, or a name bound to one."""
@@ -224,6 +237,7 @@ def run(tree: ast.Module, path: str) -> list[Finding]:
                      "into a static keyword of the stage", expr=cond)
             elif (isinstance(node, ast.For) and taint.is_tainted(node.iter)
                   and not _is_container(node.iter)
+                  and not _iterates_dicts(node)
                   and not (isinstance(node.iter, ast.Name)
                            and node.iter.id in containers)):
                 emit(node, "recompile/captured-iteration",

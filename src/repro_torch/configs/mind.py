@@ -5,11 +5,12 @@ reference's switch does.
 
 MIND is natively a *retrieval* model, so its retrieval_cand cell scores
 the 1M candidates with its own multi-interest user representation (max
-over interests) instead of the generic two-tower.  The reference's
-``REPRO_SHARDED_TOPK`` switch (the top-k through
-``distrib.collectives.sharded_topk`` inside its jit) has no counterpart:
-the port's ``sharded_topk`` works over lists of per-shard tensors, and
-the bundle's top-k is the plain one."""
+over interests) instead of the generic two-tower.  Its top-k is
+``retrieval_tower.top_k`` (which gathers the scores whole), or with
+``REPRO_SHARDED_TOPK=1``, as the reference's switch selects,
+``distrib.collectives.sharded_topk`` over the ``model`` axis: a local
+top-k of each device's column block and an all-gather of the survivors
+alone."""
 
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 
 from repro_torch.configs import recsys_common as RC
 from repro_torch.configs.base import Bundle, abstract_tree, fake_mode
+from repro_torch.distrib import collectives as C
 from repro_torch.distrib import sharding as S
 from repro_torch.distrib.sharding import P
 from repro_torch.models.layers import gather_rows
@@ -66,11 +68,14 @@ def _retrieval_bundle(cfg, shape: str, mesh) -> Bundle:
     with fake_mode():
         hist_abs = torch.empty((sh["batch"], cfg.seq_len), dtype=torch.int32)
     k = sh["k"]
+    use_sharded = os.environ.get("REPRO_SHARDED_TOPK", "0") == "1"
 
     def retrieve(params, hist):
         v = MD.mind_interests(params, cfg, hist)              # (B, K, D)
         scores = torch.einsum("bkd,nd->bkn", v, params["item_table"])
         best = scores.amax(dim=1).to(torch.float32)           # (B, N)
+        if use_sharded:
+            return C.sharded_topk(mesh, best, k, axis="model")
         idx, vals = RT.top_k(best, k)
         return vals, idx.to(torch.int32)
 

@@ -29,13 +29,20 @@ lowest index:
   ``torch.topk`` does not give).  ``+0.0`` and ``-0.0`` compare equal
   in that sort, as in the ``topk`` kernel; the engine's scores are
   never ``-0.0``.
+
+On a DTensor (the dry run's, its columns sharded over ``axis``),
+``sharded_topk`` runs the same steps as one device's program, as the
+reference's ``shard_map`` body does: its local block (sentinel-padded to
+the shard width), a local top-k, global ids from its coordinate on
+``axis``, the survivors all-gathered over ``axis`` as a functional
+collective (the dry run's tracker counts it), and the merge.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.device import device_scope
+from repro_torch.device import device_scope, is_dtensor
 
 __all__ = ["sharded_topk", "merge_local_topk", "gather_local_topk",
            "merge_gathered_topk", "require_axis", "all_gather", "pmax",
@@ -161,12 +168,14 @@ def sharded_topk(mesh, scores: torch.Tensor, k: int, axis: str = "model"):
     if not 1 <= k <= n:
         raise ValueError(f"sharded_topk: k={k} outside [1, N={n}]")
     pad = (-n) % n_shards
-    if pad:
-        sentinel = (float("-inf") if scores.dtype.is_floating_point
-                    else torch.iinfo(scores.dtype).min)
-        scores = torch.nn.functional.pad(scores, (0, pad), value=sentinel)
+    sentinel = (float("-inf") if scores.dtype.is_floating_point
+                else torch.iinfo(scores.dtype).min)
     width = (n + pad) // n_shards
     kl = min(k, width)
+    if is_dtensor(scores):
+        return _sharded_topk_dtensor(scores, k, axis, width, kl, sentinel)
+    if pad:
+        scores = torch.nn.functional.pad(scores, (0, pad), value=sentinel)
     vs, gis = [], []
     for s, dev in enumerate(mesh.grid(axis)[0]):
         with device_scope(dev):
@@ -176,3 +185,32 @@ def sharded_topk(mesh, scores: torch.Tensor, k: int, axis: str = "model"):
             gis.append((i + s * width).to(torch.int32))
     v, g = merge_local_topk(vs, gis, k)[0]
     return v.to(scores.device), g.to(scores.device)
+
+
+def _sharded_topk_dtensor(scores, k: int, axis: str, width: int, kl: int,
+                          sentinel):
+    """``sharded_topk`` of a DTensor (B, N): one device's program.  Its
+    block of ``width`` columns (the last one's short block padded with
+    ``sentinel``, as the reference pads N), a stable local top-``kl``,
+    global ids, an all-gather of the (B, kl) survivors over ``axis`` in
+    coordinate order, and ``merge_gathered_topk``; the results come back
+    replicated."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    tm = scores.device_mesh
+    dim = tm.mesh_dim_names.index(axis)
+    pl = [Shard(1) if i == dim else Replicate() for i in range(tm.ndim)]
+    local = scores.redistribute(tm, pl).to_local()
+    if local.shape[1] < width:
+        local = torch.nn.functional.pad(
+            local, (0, width - local.shape[1]), value=sentinel)
+    i = _stable_top(local, kl)
+    base = tm.get_local_rank(dim) * width
+    v = local.gather(1, i)
+    gi = (i + base).to(torch.int32)
+    vflat = funcol.all_gather_tensor(v, 1, (tm, dim))
+    gflat = funcol.all_gather_tensor(gi, 1, (tm, dim))
+    mv, mg = merge_gathered_topk(vflat, gflat, k)
+    rep = [Replicate()] * tm.ndim
+    return (DTensor.from_local(mv, tm, rep, run_check=False),
+            DTensor.from_local(mg, tm, rep, run_check=False))

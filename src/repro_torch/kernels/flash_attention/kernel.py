@@ -101,7 +101,7 @@ def _check_window(window) -> None:
         raise ValueError(f"window must be >= 1 or None, got {window}")
 
 
-def _check_bshd(q, k, v, window):
+def _check_bshd(q, k, v, window) -> None:
     """q's and k's shapes, checked."""
     qsh, ksh = q.shape, k.shape
     if len(qsh) != 4 or len(ksh) != 4 or ksh != v.shape:
@@ -115,7 +115,6 @@ def _check_bshd(q, k, v, window):
         raise ValueError(f"query heads {qsh[2]} must be a multiple of the "
                          f"key/value heads {ksh[2]}")
     _check_window(window)
-    return qsh, ksh
 
 
 def flash_flops(q_shape, k_shape) -> int:
@@ -160,7 +159,7 @@ def _fake_out(q, k, v):
 
 def _on_card(q, k, v, hd: int):
     """q, k, v checked for the kernel, each with a head dim of stride 1
-    (a copy only where it has another), and their strides."""
+    (a copy only where it has another)."""
     if not q.is_cuda:
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
@@ -174,12 +173,8 @@ def _on_card(q, k, v, hd: int):
                          f"{v.dtype}")
     if k.device != dev or v.device != dev:
         raise ValueError("q, k and v must be on one device")
-    qs, ks, vs = q.stride(), k.stride(), v.stride()
-    if qs[-1] != 1 or ks[-1] != 1 or vs[-1] != 1:
-        q, k, v = (x if x.stride(-1) == 1 else x.contiguous()
-                   for x in (q, k, v))
-        qs, ks, vs = q.stride(), k.stride(), v.stride()
-    return q, k, v, qs, ks, vs
+    return tuple(x if x.stride(-1) == 1 else x.contiguous()
+                 for x in (q, k, v))
 
 
 def _launch(q, k, v, out, strides, b, s, hq, g, hd, causal, window):
@@ -204,20 +199,22 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          window: int | None = None) -> torch.Tensor:
     """q: (B, S, Hq, hd); k, v: (B, S, Hkv, hd) -> a contiguous
     (B, S, Hq, hd) in q's dtype, read through the operands' strides."""
-    (b, s, hq, hd), ksh = _check_bshd(q, k, v, window)
+    _check_bshd(q, k, v, window)
+    b, s, hq, hd = q.shape
     _build.check_no_grad("flash_attention", q, k, v)
     if is_fake(q):
         return _fake_out(q, k, v)
     if not q.is_cuda and q.device.type == "cpu":
         return attention_ref_bshd(q, k, v, causal=causal, window=window)
-    q, k, v, qs, ks, vs = _on_card(q, k, v, hd)
+    q, k, v = _on_card(q, k, v, hd)
+    qs, ks, vs = q.stride(), k.stride(), v.stride()
     out = torch.empty((b, s, hq, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     return _launch(q, k, v, out, (qs[0], qs[1], qs[2], ks[0], ks[1], ks[2],
                                   vs[0], vs[1], vs[2], s * hq * hd, hq * hd,
                                   hd),
-                   b, s, hq, hq // ksh[2], hd, causal, window)
+                   b, s, hq, hq // k.shape[2], hd, causal, window)
 
 
 def flash_attention_shard(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -251,7 +248,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda and q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
     bh, s, hd = q.shape
-    q, k, v, qs, ks, vs = _on_card(q, k, v, hd)
+    q, k, v = _on_card(q, k, v, hd)
+    qs, ks, vs = q.stride(), k.stride(), v.stride()
     out = torch.empty((bh, s, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out

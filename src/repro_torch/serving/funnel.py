@@ -31,6 +31,8 @@ from repro_torch.device import fence, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.recsys import bst as BS
 from repro_torch.models.recsys import retrieval_tower as RT
+from repro_torch.serving.programs import ProgramCache
+from repro_torch.tree import leaves, map_tree, unflatten
 
 __all__ = ["FunnelConfig", "request_features", "funnel_gold_runs",
            "label_requests", "Funnel", "K_CUTOFFS_FUNNEL"]
@@ -64,9 +66,15 @@ class FunnelConfig:
 
 
 def _as_tensor(x, dtype, device) -> torch.Tensor:
+    """``x`` (a tensor or an array) on ``device`` as ``dtype``.  An array
+    reaches a card through pinned memory, without waiting on the stream
+    (a copy from pageable memory would)."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
-    return torch.from_numpy(np.asarray(x)).to(device=device, dtype=dtype)
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t.to(dtype=dtype)
 
 
 def request_features(user_feats: torch.Tensor,
@@ -175,35 +183,34 @@ def label_requests(cfg: FunnelConfig, gold, runs, cutoffs=None):
     return labels.cpu().numpy(), table.cpu().numpy()
 
 
-def _serve_single_dispatch(tower_params, bst_params, user_feats, hist_items,
-                           k_vec, depth_vec, tower_cfg, bst_cfg, max_k: int,
-                           eval_depth: int, timings: dict):
-    """Batch-once funnel serving: the towers and the stage-2 model run
-    once at a shared pool width ``max_k`` (the largest predicted cutoff
-    of the batch); each request's served prefix min(k, depth) is a mask
-    over that pool, and its stage-1 normalisation spans only that
-    prefix, so its ranking does not depend on the rest of the batch.
-    Records stage1_ms, stage2_ms and rank_ms (device-fenced) in
-    ``timings``."""
-    dev = user_feats.device
-    fence(dev)
-    t0 = time.perf_counter()
+def _stage_funnel(user_feats, hist_items, k_vec, depth_vec, *params,
+                  tower_like, bst_like, tower_cfg: RT.TowerConfig,
+                  bst_cfg: BS.BSTConfig, max_k: int, eval_depth: int):
+    """Batch-once funnel serving, the stage the funnel's program cache
+    captures: the towers and the stage-2 model run once at a shared pool
+    width ``max_k`` (the largest predicted cutoff of the batch); each
+    request's served prefix min(k, depth) is a mask over that pool, and
+    its stage-1 normalisation spans only that prefix, so its ranking
+    does not depend on the rest of the batch.  ``params`` are the tower's
+    leaves, then the BST's (``tree.leaves`` order; ``tower_like`` and
+    ``bst_like`` give the trees).  Returns the ranked (B, min(max_k,
+    eval_depth)) int32 ids, -1 past a request's prefix."""
+    n = len(leaves(tower_like))
+    tower = unflatten(tower_like, list(params[:n]))
+    bst = unflatten(bst_like, list(params[n:]))
     eff = torch.minimum(k_vec, depth_vec)
-    ids, vals = RT.retrieve_topk(tower_params, tower_cfg, user_feats, max_k)
-    fence(dev)
-    t1 = time.perf_counter()
-    s2 = _bst_scores(bst_params, bst_cfg, hist_items, ids, vals,
-                     norm_width=eff)
-    fence(dev)
-    t2 = time.perf_counter()
+    ids, vals = RT.retrieve_topk(tower, tower_cfg, user_feats, max_k)
+    s2 = _bst_scores(bst, bst_cfg, hist_items, ids, vals, norm_width=eff)
+    return _served_rank(ids, s2, eff, eval_depth)
+
+
+def _served_rank(ids, s2, eff, eval_depth: int):
+    """The ranked lists of a shared pool ``ids`` (B, P): each request's
+    prefix of ``eff`` items ranked by ``s2``, -1 past it."""
     masked = torch.where(
-        torch.arange(max_k, device=dev)[None, :] < eff[:, None], s2,
-        torch.full((), float("-inf"), device=dev))
-    ranked = _rank(ids, masked, eval_depth).cpu().numpy()
-    t3 = time.perf_counter()
-    timings.update(stage1_ms=(t1 - t0) * 1e3, stage2_ms=(t2 - t1) * 1e3,
-                   rank_ms=(t3 - t2) * 1e3)
-    return ranked
+        torch.arange(ids.shape[1], device=ids.device)[None, :]
+        < eff[:, None], s2, torch.full((), float("-inf"), device=ids.device))
+    return _rank(ids, masked, eval_depth)
 
 
 @dataclasses.dataclass
@@ -211,7 +218,18 @@ class Funnel:
     """The served funnel.  Parameters and cascades move to ``device``
     (default ``"cuda"``) when the funnel is built.  On the card, float32
     products must run in full float32 (``layers.full_fp32_matmul``, set
-    once by the program): building the funnel raises otherwise."""
+    once by the program): building the funnel raises otherwise.
+
+    ``execute`` runs ``_stage_funnel`` as a program of the funnel's
+    ``ProgramCache`` (``programs``): one a padded batch and pool width
+    ``max_k``, as the JAX package's jitted ``_serve_single_dispatch``
+    compiles one executable a batch shape and ``max_k``.  On a card each
+    is a CUDA graph, built by the first call at its key and replayed
+    after that; the parameters are its constants, read in place.  All
+    of them share one graph pool (``one_pool``): the intermediates of
+    the widest program (gigabytes at batch 128 and ``max_k`` 1000 at
+    the served width) are held once, not once a padded batch.
+    ``programs.clear()`` drops them.  A failed build or replay raises."""
 
     cfg: FunnelConfig
     tower_params: dict
@@ -233,6 +251,15 @@ class Funnel:
         self.cascade = self.cascade.to(self.device)
         if self.depth_cascade is not None:
             self.depth_cascade = self.depth_cascade.to(self.device)
+        self._params = (tuple(leaves(self.tower_params))
+                        + tuple(leaves(self.bst_params)))
+        self.programs = ProgramCache(self.device, consts=self._params,
+                                     one_pool=True)
+        self._static = dict(
+            tower_like=map_tree(lambda _: None, self.tower_params),
+            bst_like=map_tree(lambda _: None, self.bst_params),
+            tower_cfg=self.cfg.tower, bst_cfg=self.cfg.bst,
+            eval_depth=self.cfg.eval_depth)
 
     # ``predict`` is the admission-side cascade, ``execute`` the stage-1/2
     # funnel proper.
@@ -240,6 +267,12 @@ class Funnel:
     @property
     def has_depth_knob(self) -> bool:
         return self.cfg.depth_cutoffs is not None
+
+    @property
+    def n_compiles(self) -> int:
+        """Programs built: one a padded batch and ``max_k`` (the JAX
+        ``_serve_single_dispatch._cache_size()`` on the same calls)."""
+        return self.programs.built()
 
     def predict(self, user_feats, hist_items, knob: str = "k") -> np.ndarray:
         """Pre-retrieval features -> predicted class per request, for the
@@ -260,26 +293,38 @@ class Funnel:
                 else self.cfg.depth_cutoffs)
         return knobs_lib.KnobSpec(knob, tuple(cuts)).params_of(classes)
 
+    def stage_call(self, user_feats, hist_items, ks: np.ndarray,
+                   depths: np.ndarray) -> tuple:
+        """(program name, tensor arguments, static keywords) of
+        ``_stage_funnel`` for one batch at pool cutoffs ``ks`` and
+        reranking depths ``depths``: ``_stage_funnel(*args, **kwargs)``
+        is the program's eager run."""
+        dev = self.device
+        args = (_as_tensor(user_feats, torch.float32, dev),
+                _as_tensor(hist_items, torch.int32, dev),
+                _as_tensor(ks, torch.int64, dev),
+                _as_tensor(depths, torch.int64, dev)) + self._params
+        max_k = int(ks.max())
+        return (f"funnel:{max_k}", args, dict(self._static, max_k=max_k))
+
     def execute(self, user_feats, hist_items, classes: np.ndarray,
                 depth_classes: np.ndarray | None = None) -> dict:
         """Run the funnel at the predicted per-request pool cutoffs and
-        (when the depth knob is live) reranking depths."""
+        (when the depth knob is live) reranking depths: the program of
+        the batch's size and largest k, and the one copy of its ranked
+        lists to the host (``timings``: ``execute_ms``, host clock)."""
         ks = self.params_of(np.asarray(classes))
         if depth_classes is not None:
             depths = self.params_of(np.asarray(depth_classes), knob="depth")
         else:
             # depth knob off: every request at the full pool (no-op mask)
             depths = np.full_like(ks, max(self.cfg.cutoffs))
-        timings = {}
-        dev = self.device
-        ranked = _serve_single_dispatch(
-            self.tower_params, self.bst_params,
-            _as_tensor(user_feats, torch.float32, dev),
-            _as_tensor(hist_items, torch.int32, dev),
-            torch.from_numpy(ks.astype(np.int64)).to(dev),
-            torch.from_numpy(depths.astype(np.int64)).to(dev),
-            self.cfg.tower, self.cfg.bst, int(ks.max()),
-            self.cfg.eval_depth, timings)
+        t0 = time.perf_counter()
+        name, args, kwargs = self.stage_call(user_feats, hist_items, ks,
+                                             depths)
+        prog = self.programs.compiled(name, _stage_funnel, args, kwargs)
+        ranked = prog(*args).cpu().numpy()
+        timings = {"execute_ms": (time.perf_counter() - t0) * 1e3}
         out = np.full((len(ks), self.cfg.eval_depth), -1, np.int32)
         out[:, :ranked.shape[1]] = ranked
         res = {"ranked": out, "k": ks, "classes": np.asarray(classes),

@@ -37,7 +37,8 @@ A call copies its arguments into the static inputs, replays, and returns
 clones of the static outputs: nothing handed back is storage that a
 later replay writes, so a ``SchedState`` stays a value and a warmup
 mid-flight cannot touch live rows.  The programs of one padded shape
-share a ``GraphPool``: one memory pool (a later capture reuses what an
+(of a whole cache built with ``one_pool``, the funnel's) share a
+``GraphPool``: one memory pool (a later capture reuses what an
 earlier one freed, its intermediates; the outputs stay held), one lock
 and one last-use event.  ``_lock`` (the pool's) covers a build, and a
 call from the copy-in to the copy-out, and a call's stream first waits
@@ -232,11 +233,16 @@ class ProgramCache:
     card a program is captured into the ``GraphPool`` of its padded
     batch size (the leading size of its first argument that is not a
     constant) on the building thread's side stream (one a thread and
-    cache).  ``metric`` (a counter, ``obs``) counts each build."""
+    cache).  ``one_pool``: every program of the cache shares one
+    ``GraphPool`` whatever its padded size, so the cache holds the
+    intermediates of its largest program once, not once a padded size.
+    ``metric`` (a counter, ``obs``) counts each build."""
 
-    def __init__(self, device: torch.device, consts=()):
+    def __init__(self, device: torch.device, consts=(),
+                 one_pool: bool = False):
         self.device = device
         self.consts = tuple(consts)
+        self.one_pool = one_pool
         self._lock = threading.Lock()
         self._programs: dict = {}        # key -> program or _PendingCompile
         self._pools: dict = {}           # padded batch -> GraphPool (card)
@@ -298,8 +304,9 @@ class ProgramCache:
         (None, None) on the CPU."""
         if self.device.type != "cuda":
             return None, None
-        b = next((a.shape[0] for a in args
-                  if not any(a is c for c in consts)), None)
+        b = None if self.one_pool else next(
+            (a.shape[0] for a in args if not any(a is c for c in consts)),
+            None)
         with self._lock:
             pool = self._pools.get(b)
             if pool is None:
@@ -308,6 +315,16 @@ class ProgramCache:
         if side is None:
             side = self._sides.stream = torch.cuda.Stream(self.device)
         return pool, side
+
+    def clear(self) -> None:
+        """Drop every program built and its graph pool, so the caching
+        allocator can hand their memory back (``empty_cache``).  A later
+        call at a key builds its program again: ``built()`` counts every
+        build, ``built(name)`` the programs held."""
+        with self._lock:
+            self._programs = {k: p for k, p in self._programs.items()
+                              if isinstance(p, _PendingCompile)}
+            self._pools.clear()
 
     def built(self, name: str | None = None) -> int:
         """Programs built: all of them, or those of stage ``name``."""
@@ -325,9 +342,10 @@ class ProgramCache:
                     if not isinstance(p, _PendingCompile)]
 
     def pool_sizes(self) -> list:
-        """The padded batch sizes that have a graph pool (a card)."""
+        """The padded batch sizes that have a graph pool (a card; None
+        names the one pool of a ``one_pool`` cache)."""
         with self._lock:
-            return sorted(self._pools)
+            return sorted(self._pools, key=lambda b: -1 if b is None else b)
 
     def stats(self) -> dict:
         """Programs built, CUDA graphs among them, their replays and the

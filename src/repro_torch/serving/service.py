@@ -343,9 +343,10 @@ class FunnelBackend:
         return results, timings
 
     def warmup_shape(self, padded_size: int) -> int:
-        """Run every cutoff class once at ``padded_size`` (one execute per
-        cutoff: the shared pool width is the batch's largest k).  Returns
-        the cutoffs run, 0 when the shape was already warm."""
+        """Build the funnel's programs of every cutoff at ``padded_size``
+        (one execute per cutoff: a program is keyed on the batch's
+        largest k as well), as the JAX backend warms them.  Returns the
+        cutoffs run, 0 when the shape was already warm here."""
         if padded_size in self._warm_shapes:
             return 0
         cfg = self.funnel.cfg
@@ -360,7 +361,8 @@ class FunnelBackend:
 
     @property
     def n_compiles(self) -> int | None:
-        return None                    # the funnel runs eagerly: no cache
+        return None    # the reference's: its jit cache is jax's (the
+        #                programs built are Funnel.n_compiles)
 
 
 # --------------------------------------------------------------- warmup --

@@ -113,6 +113,9 @@ def test_hostsync_tracks_host_names_and_folds_cpu_numpy():
     ("src/repro_torch/models/layers.py", "rope", True),
     ("src/repro_torch/models/layers.py", "chunked_softmax_xent", False),
     ("src/repro_torch/core/cascade.py", "predict", False),
+    ("src/repro_torch/serving/funnel.py", "execute", True),
+    ("src/repro_torch/serving/funnel.py", "_stage_funnel", True),
+    ("src/repro_torch/serving/funnel.py", "funnel_gold_runs", False),
 ])
 def test_hostsync_hot_scopes_and_exemptions(path, scope, hot):
     src = f"""
@@ -443,6 +446,57 @@ def test_recompile_finds_the_servers_predict_scopes(monkeypatch):
                         "predict_margin", "_operands", "swap_predictor",
                         "predict_batched", "train_mlp"}
     assert analysis_main(["src/repro_torch", "--select", "recompile"]) == 0
+
+
+def test_recompile_finds_the_funnels_scopes(monkeypatch):
+    """The stage the funnel hands to its program cache, and its callees
+    (the towers, the exact top-k, BST, the attention it reaches, flash's
+    launch), are captured; the funnel's host methods, the labelling
+    path and flash's DTensor arm are not.  The pass holds them green
+    with the committed baseline, which has no entry for the top-k."""
+    import ast
+    import json
+    from repro_torch.analysis import astutil
+    monkeypatch.chdir(REPO_ROOT)
+    names = set()
+    for f in ("serving/funnel.py", "models/recsys/retrieval_tower.py",
+              "models/recsys/bst.py", "models/attention.py",
+              "kernels/flash_attention/ops.py",
+              "kernels/flash_attention/kernel.py"):
+        path = "src/repro_torch/" + f
+        with open(path) as fh:
+            tree = ast.parse(fh.read())
+        names |= {getattr(n, "name", None) for n in
+                  astutil.find_captured_scopes(tree, path)}
+    assert {"_stage_funnel", "retrieve_topk", "score_candidates",
+            "top_k", "_first_set", "_bst_scores", "_rank", "bst_logits",
+            "flash_attention_bshd", "_launch"} <= names
+    assert not names & {"execute", "serve", "predict", "funnel_gold_runs",
+                        "label_requests", "_sharded", "_layout"}
+    with open("src/repro_torch/analysis/baseline.json") as fh:
+        entries = json.load(fh)["entries"]
+    assert not [e for e in entries if "retrieval_tower" in e["file"]]
+    assert analysis_main(["src/repro_torch", "--select", "recompile"]) == 0
+
+
+def test_loops_over_parameter_tree_entries_unroll():
+    """A loop whose element is read by string key (a list of layers'
+    parameter dicts) is a static unroll; a loop over a tensor is still
+    flagged, a tensor leaf of the parameter tree too."""
+    src = CAPTURE_HEAD + """
+def _stage(x, params):
+    for lyr in params["mlp"]:
+        x = x @ lyr["w"]
+    for row in x:
+        x = x + row
+    for row in params["w"]:
+        x = x + row
+    return x
+"""
+    found = [(f.invariant, f.code) for f in analysis.analyze_source(
+        src, ENGINE, passes={"recompile"})]
+    assert sorted(found) == [("recompile/captured-iteration", "params['w']"),
+                             ("recompile/captured-iteration", "x")]
 
 
 def test_taint_keeps_the_enumerate_index_a_host_int():

@@ -6,7 +6,8 @@ shape, dtype, spec and ``NamedSharding.shard_shape``; the port's
 bundles must give the same trees, the same donated arguments, the same
 ``meta`` (less the reference's ``l1_bundle``) and the same per-device
 argument and alias bytes, for every runnable cell on the smoke, single
-and multi meshes, and with ``REPRO_MOE_EP2D`` / ``REPRO_MOE_TPF`` set.
+and multi meshes, and with ``REPRO_MOE_EP2D`` / ``REPRO_MOE_TPF`` (and MIND's
+``REPRO_SHARDED_TOPK``) set.
 A few full-width cells are traced on fake tensors (``launch.dryrun``,
 each in a process of its own, since the fake process group is global
 to its process) to ``status: "ok"`` with every record field; deepseek
@@ -90,15 +91,23 @@ _JAX_BUNDLES = textwrap.dedent("""
                 base.get(arch).dryrun_bundle("train_4k", meshes["single"],
                                              mode="mem"))
         del os.environ[var]
+    os.environ["REPRO_SHARDED_TOPK"] = "1"
+    out["single/mind/retrieval_cand/mem/REPRO_SHARDED_TOPK"] = emit(
+        base.get("mind").dryrun_bundle("retrieval_cand", meshes["single"],
+                                       mode="mem"))
+    del os.environ["REPRO_SHARDED_TOPK"]
     print(json.dumps(out))
 """)
 
-#: the full-width cells traced to ``ok``: (arch, shape, mesh)
+#: the full-width cells traced to ``ok``: (arch, shape, mesh), and a
+#: switch set to 1 where a fourth entry names it
 TRACED = [("tinyllama-1.1b", "train_4k", "single"),
           ("deepseek-v3-671b", "train_4k", "single"),
           ("mixtral-8x22b", "decode_32k", "multi"),
           ("wide-deep", "train_batch", "single"),
-          ("graphsage-reddit", "ogb_products", "single")]
+          ("graphsage-reddit", "ogb_products", "single"),
+          ("mind", "retrieval_cand", "single"),
+          ("mind", "retrieval_cand", "single", "REPRO_SHARDED_TOPK")]
 
 
 #: traced depth where it is cut: the reference's cost-probe depth
@@ -128,19 +137,26 @@ def jax_bundles():
 @pytest.fixture(scope="module")
 def traced(tmp_path_factory):
     """The TRACED cells' records, each traced by the CLI in a process of
-    its own, all started together."""
+    its own (with its switch set), into a directory of its own, all
+    started together."""
     out = tmp_path_factory.mktemp("dryrun")
-    env = dict(os.environ, PYTHONPATH=SRC)
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _TRACE.format(depth=_DEPTH.get(a, 0)), a, s,
-         m, str(out)],
-        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True) for a, s, m in TRACED]
+    procs = []
+    for cell in TRACED:
+        a, s, m = cell[:3]
+        env = dict(os.environ, PYTHONPATH=SRC,
+                   **{v: "1" for v in cell[3:]})
+        d = out / "__".join(cell)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _TRACE.format(depth=_DEPTH.get(a, 0)), a,
+             s, m, str(d)],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
     logs = [p.communicate(timeout=900) for p in procs]
     for p, (so, se) in zip(procs, logs):
         assert p.returncode == 0, so + se[-3000:]
-    return {(a, s, m): json.load(open(out / f"{a}__{s}__{m}.json"))
-            for a, s, m in TRACED}
+    return {cell: json.load(open(out / "__".join(cell)
+                                 / ("__".join(cell[:3]) + ".json")))
+            for cell in TRACED}
 
 
 def _emit(bundle) -> dict:
@@ -182,6 +198,14 @@ def test_bundles_equal_the_reference(jax_bundles, arch):
                     == jax_bundles[key], key
                 n += 1
     assert n == 3 * 2 * (len(mod.SHAPES) - len(mod.SKIPS))
+
+
+def test_sharded_topk_switch_equals_the_reference(jax_bundles, monkeypatch):
+    monkeypatch.setenv("REPRO_SHARDED_TOPK", "1")
+    got = _emit(t_base.get("mind").dryrun_bundle(
+        "retrieval_cand", _MESHES["single"], mode="mem"))
+    assert got == jax_bundles[
+        "single/mind/retrieval_cand/mem/REPRO_SHARDED_TOPK"]
 
 
 @pytest.mark.parametrize("var", ["REPRO_MOE_EP2D", "REPRO_MOE_TPF"])
@@ -241,7 +265,8 @@ def test_full_width_cell_traces_ok(traced, cell):
 
 
 def test_traced_argument_bytes_equal_the_shard_shapes(traced, monkeypatch):
-    for (arch, shape, mesh), rec in traced.items():
+    for cell, rec in traced.items():
+        arch, shape, mesh = cell[:3]
         mod = t_base.get(arch)
         if arch in _DEPTH:
             full = mod.model_config()
@@ -250,6 +275,28 @@ def test_traced_argument_bytes_equal_the_shard_shapes(traced, monkeypatch):
         bundle = mod.dryrun_bundle(shape, _MESHES[mesh], mode="mem")
         assert rec["memory"]["argument_bytes"] == \
             dryrun.argument_bytes(bundle)[0], (arch, shape, mesh)
+
+
+def test_sharded_topk_gathers_the_survivors_alone(traced):
+    """MIND's retrieval on the 16 x 16 mesh: the top-k gathers the
+    (B, N) float32 scores whole, or with ``REPRO_SHARDED_TOPK=1`` each
+    ``model`` shard's (B, k) values and int32 ids alone; every other
+    collective (the history's table lookup among them) is the same."""
+    from repro_torch.configs import recsys_common as RC
+    sh = RC.RECSYS_SHAPES["retrieval_cand"]
+    b, k = sh["batch"], sh["k"]
+    n = t_base.get("mind").model_config().item_vocab
+    shards = _MESHES["single"].shape["model"]
+    base = traced[("mind", "retrieval_cand", "single")]
+    sw = traced[("mind", "retrieval_cand", "single", "REPRO_SHARDED_TOPK")]
+    assert base["status"] == sw["status"] == "ok"
+    scores, survivors = b * n * 4, shards * b * k * (4 + 4)
+    assert (b, n, k, shards) == (1, 1_000_000, 1000, 16)
+    got, want = sw["collectives"], base["collectives"]
+    assert got["all-gather"] == want["all-gather"] - scores + survivors
+    assert survivors == 128_000 < scores
+    assert {c: v for c, v in got.items() if c != "all-gather"} == {
+        c: v for c, v in want.items() if c != "all-gather"}
 
 
 def test_donated_outputs_alias_and_train_fits(traced):

@@ -69,6 +69,11 @@ Tolerances, with their reasons:
     the program built in the middle of the generation (the same kernels
     on the same inputs; the build's eager run writes the slot the replay
     writes again).
+  * the funnel's programs (CUDA graphs of ``_stage_funnel``): ranked
+    lists bit-equal to eager calls of the stage function (the same
+    kernels on the same inputs); flash_attention counted at a replay
+    only.  ``top_k`` at (128, 1 M) with planted boundary ties: ids equal
+    to the keyed selection's (a selection: exact).
 """
 
 import contextlib
@@ -618,6 +623,119 @@ def test_funnel_on_card_matches_cpu(cuda_device):
         gpu.execute(uf[64 + q:65 + q], hist[64 + q:65 + q],
                     classes[q:q + 1])["ranked"] for q in range(32)])}
     _assert_funnel_ranked(gpu, uf[64:], hist[64:], a, alone)
+
+
+def _card_funnel(cuda_device):
+    """A small funnel on the card (5000 items, a pool of 1000), with a
+    cascade that predicts class 0 for everything, and 64 requests."""
+    tcfg = retrieval_tower.TowerConfig(d_user_in=16, embed_dim=16,
+                                       hidden=(32,), n_candidates=5000)
+    bcfg = bst.BSTConfig(embed_dim=16, seq_len=8, n_heads=4, item_vocab=5000,
+                         n_profile=4, mlp=(64, 32))
+    cfg = funnel.FunnelConfig(tower=tcfg, bst=bcfg, pool_depth=1000,
+                              eval_depth=30)
+    r = np.random.default_rng(28)
+    uf = r.normal(size=(64, 16)).astype(np.float32)
+    hist = r.integers(0, 5000, (64, 8)).astype(np.int32)
+    hist[np.arange(8)[None, :] >= r.integers(1, 9, (64, 1))] = -1
+    feats = funnel.request_features(torch.from_numpy(uf),
+                                    torch.from_numpy(hist)).numpy()
+    casc = cascade.train_cascade(feats, np.zeros(64, np.int32),
+                                 n_cutoffs=len(cfg.cutoffs),
+                                 forest_kwargs=dict(n_trees=2, max_depth=2),
+                                 device="cpu")
+    gpu = funnel.Funnel(cfg, retrieval_tower.init_tower(tcfg, seed=0,
+                                                        device=cuda_device),
+                        bst.init_bst(bcfg, seed=1, device=cuda_device), casc,
+                        device=cuda_device)
+    return gpu, uf, hist
+
+
+def _eager_funnel(gpu, uf, hist, classes):
+    """The ranked lists of an eager call of the stage function, as
+    ``execute`` returns them."""
+    ks = gpu.params_of(classes)
+    _, args, kwargs = gpu.stage_call(uf, hist, ks,
+                                     np.full_like(ks, max(gpu.cfg.cutoffs)))
+    r = funnel._stage_funnel(*args, **kwargs).cpu().numpy()
+    out = np.full((len(ks), gpu.cfg.eval_depth), -1, np.int32)
+    out[:, :r.shape[1]] = r
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [8, 32])
+def test_replayed_funnel_equals_the_eager_stage_on_card(cuda_device, batch):
+    """Two padded sizes x three pool widths (k 10, 50, 1000): the build's
+    call and a replay give the eager stage function's lists bit for bit,
+    one program a width."""
+    gpu, uf, hist = _card_funnel(cuda_device)
+    for top in (0, 2, 6):
+        classes = (np.arange(batch) % (top + 1)).astype(np.int32)
+        want = _eager_funnel(gpu, uf[:batch], hist[:batch], classes)
+        for _ in range(2):
+            got = gpu.execute(uf[:batch], hist[:batch], classes)
+            np.testing.assert_array_equal(got["ranked"], want)
+    assert gpu.n_compiles == 3
+    stats = gpu.programs.stats()
+    assert stats["graphs"] == 3 and stats["replays"] == 6
+
+
+@pytest.mark.gpu
+def test_funnel_programs_share_one_pool_on_card(cuda_device):
+    """Programs at two padded sizes are captured into the cache's one
+    graph pool; ``clear`` drops them, and the next call builds again and
+    gives the same lists."""
+    gpu, uf, hist = _card_funnel(cuda_device)
+    classes = (np.arange(32) % 3).astype(np.int32)
+    want = {b: gpu.execute(uf[:b], hist[:b], classes[:b])["ranked"]
+            for b in (8, 32)}
+    assert gpu.n_compiles == 2 and gpu.programs.pool_sizes() == [None]
+    gpu.programs.clear()
+    assert gpu.programs.stats()["graphs"] == 0
+    assert gpu.programs.pool_sizes() == []
+    for b in (8, 32):
+        got = gpu.execute(uf[:b], hist[:b], classes[:b])["ranked"]
+        np.testing.assert_array_equal(got, want[b])
+    assert gpu.n_compiles == 4 and gpu.programs.stats()["graphs"] == 2
+
+
+@pytest.mark.gpu
+def test_funnel_counts_flash_launches_at_replay_only(cuda_device):
+    gpu, uf, hist = _card_funnel(cuda_device)
+    n_blocks = gpu.cfg.bst.n_blocks
+    ks = np.full(16, 50)
+    name, args, kwargs = gpu.stage_call(uf[:16], hist[:16], ks, ks)
+    n0 = fa_kernel.n_launches
+    prog = gpu.programs.compiled(name, funnel._stage_funnel, args, kwargs)
+    assert fa_kernel.n_launches == n0          # the build counts nothing
+    for i in (1, 2):
+        prog(*args)
+        assert fa_kernel.n_launches == n0 + i * n_blocks
+    funnel._stage_funnel(*args, **kwargs)        # an eager run counts
+    assert fa_kernel.n_launches == n0 + 3 * n_blocks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [50, 1000])
+def test_top_k_equals_the_keyed_selection_at_batch_128(cuda_device, k):
+    """(128, 1 M) scores with ties planted at each row's k-th value (a
+    few ids before and after the k-th's), and rows whose boundary falls
+    among mixed-sign zeros."""
+    r = np.random.default_rng(k)
+    scores = torch.from_numpy(r.normal(size=(128, 1_000_000)).astype(
+        np.float32)).to(cuda_device)
+    kth = torch.topk(scores, k, dim=1).values[:, -1:]
+    plant = torch.from_numpy(r.integers(0, 1_000_000, (128, 40))).to(
+        cuda_device)
+    scores.scatter_(1, plant, kth.expand(128, 40))
+    scores[:8] = torch.where(scores[:8] > 4.0, scores[:8], torch.where(
+        scores[:8] > 0, 0.0, -0.0))
+    got_i, got_v = retrieval_tower.top_k(scores, k)
+    want = retrieval_tower._top_k_keyed(scores, k)
+    assert torch.equal(got_i, want)
+    assert torch.equal(got_v.view(torch.int32),
+                       scores.gather(1, want).view(torch.int32))
 
 
 def _assert_funnel_ranked(gpu, uf, hist, a, b):
