@@ -375,7 +375,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      MIND's ``retrieval_cand`` (single pod) again with
      ``REPRO_SHARDED_TOPK=1`` into ``sharded_topk/``: status ``ok``, its
      all-gather bytes a device the default record's less the (1, 1 M)
-     float32 scores plus the 16 shards' (1, 1000) values and ids.  After
+     float32 scores plus the 16 shards' (1, 1000) values and ids; and
+     mixtral-8x22b's and deepseek-v3-671b's ``train_4k`` (single pod)
+     with ``REPRO_MOE_SHARDMAP=1``, traced beside the all-cells run in a
+     process of its own into ``shard_map/``: both ``ok``, deepseek's
+     (256 experts over the 256 positions: the shard_map dispatch) other
+     than its default (gspmd) record, with more all-to-all bytes, and
+     mixtral's equal to its default (8 experts do not divide over 256
+     positions, so the reference's condition keeps the gspmd dispatch);
+     one ``phase 17: dryrun hints`` line a record (each collective
+     kind's bytes a device and the temp bytes) for tinyllama-1.1b's
+     ``train_4k`` and both MoE cells under both dispatches.  After
      phase 16, on the card: (b) the dry run's peak estimate over fake
      CUDA tensors against ``torch.cuda.max_memory_allocated()`` (peak
      stats reset before the step, both above what was allocated before
@@ -5105,6 +5115,12 @@ def profile(targets, trace_dir: str) -> None:
 DRYRUN_JOBS = 4
 DRYRUN_DIR = os.path.join(HERE, "build", "phase17_dryrun")
 DRYRUN_CELLS, DRYRUN_SKIPS = 72, 8
+#: (a): the MoE cells traced again under ``REPRO_MOE_SHARDMAP=1``
+#: (single pod), and whether each one's dispatch differs from gspmd's
+#: (the reference's condition: the experts divide over every position)
+DRYRUN_SHARD_MAP = {"mixtral-8x22b": False, "deepseek-v3-671b": True}
+#: (a): the records whose collective kinds and temp bytes are printed
+DRYRUN_HINTED = ("tinyllama-1.1b", "mixtral-8x22b", "deepseek-v3-671b")
 #: (b): the estimate must be within this share of the measured peak
 MEM_RTOL = 0.10
 #: (b): tinyllama-1.1b's training step (phase 14's batch), its decode
@@ -5138,7 +5154,20 @@ def dryrun_start():
     proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=out,
                             stderr=subprocess.STDOUT, start_new_session=True)
     atexit.register(_stop_group, proc)
-    return proc, time.perf_counter(), out
+    # the switched MoE cells, one after the other in one process
+    sm_dir = os.path.join(DRYRUN_DIR, "shard_map")
+    sm_cmd = [sys.executable, "-c", (
+        "import sys; from repro_torch.launch import dryrun\n"
+        "for a in sys.argv[2:]:\n"
+        "    dryrun.main(['--arch', a, '--shape', 'train_4k', '--mesh',"
+        " 'single', '--out', sys.argv[1]])"), sm_dir, *DRYRUN_SHARD_MAP]
+    sm_out = open(os.path.join(DRYRUN_DIR, "shard_map_log.txt"), "w")
+    sm_proc = subprocess.Popen(sm_cmd, cwd=HERE, stdout=sm_out,
+                               stderr=subprocess.STDOUT,
+                               env=dict(env, REPRO_MOE_SHARDMAP="1"),
+                               start_new_session=True)
+    atexit.register(_stop_group, sm_proc)
+    return proc, time.perf_counter(), out, sm_proc, sm_out
 
 
 def _stop_group(proc) -> None:
@@ -5153,16 +5182,19 @@ def dryrun_finish(started) -> list[dict]:
     """Phase 17 (a)'s records: 80, none ``error``, no kernel launched in
     any trace (each record holds the launch counters' moves over it);
     one line a cell."""
-    proc, t0, out = started
+    proc, t0, out, sm_proc, sm_out = started
     try:
         proc.wait(timeout=900)
+        sm_proc.wait(timeout=600)
     finally:
-        _stop_group(proc)
-        out.close()
-    if proc.returncode != 0:
-        with open(out.name) as f:
-            raise AssertionError(f"phase 17: dry run exit {proc.returncode}: "
-                                 f"{f.read()[-3000:]}")
+        for p, f in ((proc, out), (sm_proc, sm_out)):
+            _stop_group(p)
+            f.close()
+    for p, f in ((proc, out), (sm_proc, sm_out)):
+        if p.returncode != 0:
+            with open(f.name) as fh:
+                raise AssertionError(f"phase 17: dry run exit "
+                                     f"{p.returncode}: {fh.read()[-3000:]}")
     recs = [json.load(open(os.path.join(DRYRUN_DIR, f)))
             for f in sorted(os.listdir(DRYRUN_DIR)) if f.endswith(".json")]
     status = [r["status"] for r in recs]
@@ -5196,7 +5228,44 @@ def dryrun_finish(started) -> list[dict]:
     sharded_topk_record(next(r for r in recs if (
         r["arch"], r["shape"], r["mesh"]) == ("mind", "retrieval_cand",
                                               "single")))
+    shard_map_records(recs)
     return recs
+
+
+def shard_map_records(recs) -> None:
+    """Phase 17 (a): the MoE cells' ``REPRO_MOE_SHARDMAP=1`` records
+    against their default ones, and one line of collective kinds and
+    temp bytes a record for ``DRYRUN_HINTED``'s ``train_4k`` (single
+    pod) under each dispatch."""
+    def cell(rec, dispatch):
+        return dict(cell=f"{rec['arch']} train_4k single", dispatch=dispatch,
+                    status=rec["status"],
+                    collectives=rec.get("collectives"),
+                    temp_bytes=rec.get("memory", {}).get("temp_bytes"),
+                    peak_gib=rec.get("memory", {}).get(
+                        "peak_estimate_bytes", 0) / 2 ** 30,
+                    replicated_ops=rec.get("replicated_ops"),
+                    trace_s=rec.get("mem_probe_s"))
+    default = {r["arch"]: r for r in recs if r["shape"] == "train_4k"
+               and r["mesh"] == "single"}
+    for arch in DRYRUN_HINTED:
+        log("phase 17: dryrun hints " + json.dumps(cell(
+            default[arch], "gspmd" if arch in DRYRUN_SHARD_MAP else "-")))
+    bad = []
+    for arch, differs in DRYRUN_SHARD_MAP.items():
+        rec = json.load(open(os.path.join(
+            DRYRUN_DIR, "shard_map", f"{arch}__train_4k__single.json")))
+        log("phase 17: dryrun hints " + json.dumps(cell(rec, "shard_map")))
+        got, want = rec.get("collectives"), default[arch]["collectives"]
+        if rec["status"] != "ok" or (got != want) != differs:
+            bad.append(arch)
+        if differs and got.get("all-to-all", 0) <= want.get("all-to-all", 0):
+            bad.append(arch + " all-to-all")
+        if rec.get("kernel_launches") and any(
+                rec["kernel_launches"].values()):
+            bad.append(arch + " launched")
+    if bad:
+        raise AssertionError(f"phase 17: the shard_map records: {bad}")
 
 
 def sharded_topk_record(base) -> None:

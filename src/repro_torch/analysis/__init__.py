@@ -16,10 +16,13 @@ Passes:
 * ``recompile`` -- graph-capture hazards in the scopes the engine's
   program cache captures (``repro_torch.analysis.recompile``, the
   counterpart of the reference's pass of that name)
-
-The JAX package's ``pallas`` pass has no counterpart: the port's kernels
-are CUDA C++, which a Python AST cannot read, and ``chip_smoke.py``'s
-phase 1 holds them against their plain versions.
+* ``kernels`` -- the launch discipline of the kernel wrappers: every
+  launch checked and counted, no fallback around a launch, the plain
+  version only on a CPU tensor (``repro_torch.analysis.kernels``, the
+  counterpart of the reference's ``pallas`` pass: the kernels are CUDA
+  C++, which a Python AST cannot read, so the pass reads the wrappers
+  that launch them, and ``chip_smoke.py``'s phase 1 holds the kernels
+  against their plain versions)
 
 Runtime sanitizers (import separately -- they import torch):
 ``repro_torch.analysis.sanitizers`` -- ``no_syncs`` (torch's sync debug
@@ -37,7 +40,7 @@ from __future__ import annotations
 import ast
 import os
 
-from repro_torch.analysis import hostsync, locks, recompile
+from repro_torch.analysis import hostsync, kernels, locks, recompile
 from repro_torch.analysis.findings import Finding
 
 __all__ = ["ALL_PASSES", "DEFAULT_BASELINE", "analyze_paths",
@@ -47,6 +50,7 @@ ALL_PASSES = {
     locks.PASS_NAME: locks,
     hostsync.PASS_NAME: hostsync,
     recompile.PASS_NAME: recompile,
+    kernels.PASS_NAME: kernels,
 }
 
 #: the port's committed allowlist

@@ -19,7 +19,11 @@ full-depth scan form (query block 512, loss block 4096).  The port's
 dry run traces the ``"mem"`` bundle at full depth on fake tensors, one
 trace a cell: a fake-tensor trace runs every layer, so it needs no
 extrapolation.  ``REPRO_LM_REMAT``, ``REPRO_MOE_SHARDMAP`` and
-``REPRO_MOMENT_DTYPE`` are read as the reference reads them.
+``REPRO_MOMENT_DTYPE`` are read as the reference reads them.  The
+bundle's hints are the reference's (``lm_activations``, ``attn_q``,
+``moe_buffer`` and the ``mesh``), and the model code applies each where
+the reference does (``models/transformer.py``, ``attention``'s
+``ops._layout``, ``models/moe.py``).
 """
 
 from __future__ import annotations

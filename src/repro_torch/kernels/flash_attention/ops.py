@@ -24,7 +24,8 @@ checkpointed, so the probabilities are recomputed by block there too.
 
 On DTensors (the dry run's) ``flash_attention`` runs the same route on
 each device's shards (``_sharded``): sequence-parallel queries against
-whole keys, as the reference lays its attention over a mesh.
+whole keys, as the reference lays its attention over a mesh, with the
+queries placed by the ``attn_q`` hint where it is installed.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import is_dtensor
+from repro_torch.distrib import hints as H
 from repro_torch.kernels.flash_attention import kernel as _kernel_mod
 from repro_torch.kernels.flash_attention.ref import (NEG_INF,
                                                      attention_ref_bshd)
@@ -231,12 +233,22 @@ class FlashAttention(torch.autograd.Function):
 
 
 def _layout(q, k, mesh):
-    """q's placements for the sharded attention: a batch shard stays; on
-    every other mesh dim the heads split where both head counts divide
-    (MLA's 128 over 16), else the query rows where the sequence divides
-    (the reference's sequence-parallel attention, GQA's 4 or 8 key/value
-    heads over 16), else the dim is whole."""
+    """q's placements for the sharded attention.  Where the ``attn_q``
+    hint is installed (prefill and training on a mesh whose ``model``
+    dim divides the sequence), the hint's: the reference pins its
+    grouped queries (B, Hkv, G, S, hd) to ``P(batch, None, None, seq,
+    None)``, which in the port's (B, S, Hq, hd) layout is the batch dim
+    and the query rows.  Without it (decode, the smoke mesh), a batch
+    shard stays; on every other mesh dim the heads split where both head
+    counts divide, else the query rows where the sequence divides (GQA's
+    4 or 8 key/value heads over 16), else the dim is whole."""
     from torch.distributed.tensor import Replicate, Shard
+    pinned = H.get("attn_q")
+    if pinned is not None:
+        # (B, Hkv, G, S, hd) dims -> (B, S, Hq, hd) dims
+        dims = {0: 0, 3: 1}
+        return tuple(Shard(dims[p.dim]) if isinstance(p, Shard)
+                     else Replicate() for p in pinned.placements)
     out, used = [], set()
     for i, p in enumerate(q.placements):
         n = mesh.size(i)

@@ -9,7 +9,16 @@ arguments are ``torch.distributed.tensor`` DTensors placed by the
 bundle's ``NamedSharding``s over the production mesh, on a fake process
 group of 256 or 512 ranks, and DTensor's sharding propagation decides
 the per-device computation and its collectives, as GSPMD does for the
-reference.  ``Tracker``, a ``TorchDispatchMode`` under DTensor, sees
+reference.  The bundle's activation hints are installed around the
+step (``distrib.hints.hints_ctx``), as the reference installs them
+around its compile, and the model code applies them where the
+reference does: ``lm_activations`` pins an LM's residual stream
+(sequence over ``model``; each product in a pinned layer runs on the
+device's blocks, ``layers.linear``), ``attn_q`` its attention's
+queries, ``moe_buffer`` the gspmd MoE dispatch's expert buffer, and
+the ``mesh`` decides the shard_map dispatch under
+``REPRO_MOE_SHARDMAP=1``.  ``Tracker``, a ``TorchDispatchMode`` under
+DTensor, sees
 the ops one device (rank 0) runs on its shards and gives the record:
 
   * memory — the bytes of the storages alive at each op: arguments,

@@ -34,7 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import is_dtensor, is_fake
 
-__all__ = ["layer_norm", "rms_norm", "rope", "dense", "swiglu",
+__all__ = ["layer_norm", "rms_norm", "rope", "dense", "linear", "swiglu",
            "init_linear", "init_norm", "draw_linear", "full_fp32_matmul",
            "check_full_fp32_matmul", "to_device", "torch_dtype",
            "chunked_softmax_xent", "gather_rows", "scatter_rows",
@@ -123,9 +123,77 @@ def dense(w: torch.Tensor, x: torch.Tensor,
     return y if b is None else y + b
 
 
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for x (..., K) and w (K, N); on the dry run's DTensors,
+    each device's product of its blocks (``_linear_sharded``)."""
+    if is_dtensor(x):
+        return _linear_sharded(x, w)
+    return x @ w
+
+
+def _linear_sharded(x, w):
+    """``x @ w`` on DTensors, as a device computes it on its blocks, so
+    that DTensor's propagation never chooses a layout for it (its
+    choices for an FSDP weight against sharded rows move with the torch
+    version).  Each mesh dim, by x's placement there:
+
+    * x's rows split (evenly or strided, as a reshape leaves them): w
+      whole there (its FSDP shard gathered), the output's rows split
+      alike; w's gradient a partial sum;
+    * x's K split: w split on its K (a row-parallel product), the output
+      a partial sum;
+    * x whole: w split on its N where it is placed so (a column-parallel
+      product, the output's N split), else whole.
+
+    A partial x is summed first, and a K split other than ``Shard``
+    gathered.  The collectives are the weight's gathers, and in backward
+    their reduce-scatters and the partial sums' reductions, all DTensor
+    redistributions the dry run counts."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = x.device_mesh
+    last = x.ndim - 1
+
+    def rows(p):            # a split of a leading dim (strided too)
+        return getattr(p, "dim", None) not in (None, last)
+
+    # x's K whole where it is summed or split other than evenly
+    pl = [p if rows(p) or p == Shard(last) or p.is_replicate()
+          else Replicate() for p in x.placements]
+    if pl != list(x.placements):
+        x = x.redistribute(mesh, pl)
+    w_pl, out_pl, w_grad, x_grad = [], [], [], []
+    for px, pw in zip(x.placements, w.placements):
+        if rows(px):
+            w_pl.append(Replicate())
+            out_pl.append(px)
+            w_grad.append(Partial())
+            x_grad.append(px)
+        elif isinstance(px, Shard):                         # K
+            w_pl.append(Shard(0))
+            out_pl.append(Partial())
+            w_grad.append(Shard(0))
+            x_grad.append(px)
+        elif pw == Shard(1):                                # N
+            w_pl.append(pw)
+            out_pl.append(Shard(last))
+            w_grad.append(pw)
+            x_grad.append(Partial())
+        else:
+            w_pl.append(Replicate())
+            out_pl.append(Replicate())
+            w_grad.append(Replicate())
+            x_grad.append(Replicate())
+    out = x.to_local(grad_placements=x_grad) @ w.redistribute(
+        mesh, w_pl).to_local(grad_placements=w_grad)
+    shape = (*x.shape[:-1], w.shape[-1])
+    stride = tuple(int(np.prod(shape[i + 1:])) for i in range(len(shape)))
+    return DTensor.from_local(out, mesh, out_pl, run_check=False,
+                              shape=shape, stride=stride)
+
+
 def swiglu(w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
            x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    return linear(F.silu(linear(x, w_gate)) * linear(x, w_up), w_down)
 
 
 def layer_norm(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
@@ -185,13 +253,17 @@ def _sharded_xent(hidden, lm_head, targets, mask, block):
     w_grad = [Shard(1) if i in vocab else Partial()
               for i in range(mesh.ndim)]
     w = lm_head.redistribute(mesh, w_pl).to_local(grad_placements=w_grad)
-    # rows as the hidden state holds them, each row whole
-    row_pl = [Replicate() if p.is_partial() or p == Shard(1) else p
+    # rows as the hidden state holds them, each row whole; a device's
+    # rows flattened locally (the loss is a sum, in any order of rows),
+    # so a (B, S) split of them needs no collective
+    last = hidden.ndim - 1
+    row_pl = [p if getattr(p, "dim", last) < last else Replicate()
               for p in hidden.placements]
     hl = hidden.redistribute(mesh, row_pl).to_local()
+    hl = hl.reshape(-1, hl.shape[-1])
     rows = hl.shape[0]
-    tl = targets.redistribute(mesh, row_pl).to_local().long()
-    ml = mask.redistribute(mesh, row_pl).to_local()
+    tl = targets.redistribute(mesh, row_pl).to_local().reshape(-1).long()
+    ml = mask.redistribute(mesh, row_pl).to_local().reshape(-1)
     nblk = max(rows // block, 1)
     bl = rows // nblk
     grad = torch.is_grad_enabled()
@@ -212,18 +284,21 @@ def chunked_softmax_xent(hidden: torch.Tensor, lm_head: torch.Tensor,
                          block: int = 1024) -> torch.Tensor:
     """Cross-entropy without materialising (T, V) logits.
 
-    hidden: (T, D), lm_head: (D, V), targets: (T,), mask: (T,) float32.
-    Runs over T in ``block`` rows, adding each block's sum in order, so
-    the live logits are (block, V); under autograd each block is
-    checkpointed, so its logits are recomputed in backward.  Returns the
-    sum over T divided by max(sum(mask), 1)."""
-    t, _ = hidden.shape
+    hidden: (T, D), lm_head: (D, V), targets: (T,), mask: (T,) float32;
+    or hidden (..., D) with targets and mask of its leading shape,
+    flattened to T rows.  Runs over T in ``block`` rows, adding each
+    block's sum in order, so the live logits are (block, V); under
+    autograd each block is checkpointed, so its logits are recomputed
+    in backward.  Returns the sum over T divided by max(sum(mask), 1)."""
+    t = hidden.numel() // hidden.shape[-1]
     nblk = t // block
     if nblk * block != t:
         raise ValueError(f"T={t} not divisible by block={block}")
     if is_dtensor(hidden):
         return _sharded_xent(hidden, lm_head, targets, mask, block)
-    targets = targets.long()
+    hidden = hidden.reshape(t, hidden.shape[-1])
+    targets = targets.reshape(t).long()
+    mask = mask.reshape(t)
     grad = torch.is_grad_enabled()
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(nblk):

@@ -23,13 +23,20 @@ Where the token count does not divide over the mesh (decode), or
 without a mesh, the local path runs whatever ``dispatch`` says, as in
 the reference.
 
-On DTensors (the dry run's) ``moe_ffn`` runs ``_moe_sharded``: each
-device's own program over its tokens and its block of the experts, the
-layout the shard_map dispatch gives (experts over the mesh dims that
-shard the expert weights' expert dim, the expert width over the dims
-that shard it, tokens over the rest), with the all-to-alls and the
-reduction of a split expert width issued as collectives the dry run
-counts.  ``REPRO_MOE_SHARDMAP`` has no separate trace there.
+On DTensors (the dry run's) ``moe_ffn`` takes the reference's branch,
+on the reference's condition: the shard_map dispatch runs
+``_moe_sharded``, each device's own program over its tokens and its
+block of the experts, the layout the shard_map dispatch gives (experts
+over the mesh dims that shard the expert weights' expert dim, the
+expert width over the dims that shard it, tokens over the rest), with
+the all-to-alls and the reduction of a split expert width issued as
+collectives the dry run counts; every other call (the default
+``"gspmd"`` dispatch, and shard_map's too few or indivisible tokens)
+runs ``_moe_gspmd_sharded``, the single-program dispatch with its
+(E, C, D) buffer placed by the ``moe_buffer`` hint.  So
+``REPRO_MOE_SHARDMAP=1`` traces a program of its own.  Both return the
+tokens to the caller's layout as a partial sum over the mesh dims the
+dispatch split them over (``_tokens_back``).
 """
 
 from __future__ import annotations
@@ -92,46 +99,64 @@ def _capacity(n_tokens: int, cfg: MoEConfig) -> int:
     return max(8, -(-c // 8) * 8)  # round up to a multiple of 8
 
 
-def _route(router: torch.Tensor, x: torch.Tensor, cfg: MoEConfig):
-    """Router + top-k + Switch aux loss (shared by both dispatch paths):
-    (gates (T, K), expert ids (T, K), aux)."""
-    t = x.shape[0]
-    e, k = cfg.n_experts, cfg.top_k
+def _top_k_gates(router: torch.Tensor, x: torch.Tensor, cfg: MoEConfig):
+    """Router softmax then top-k with renormalised gates: (gates (T, K),
+    expert ids (T, K), the router's probabilities (T, E))."""
+    k = cfg.top_k
     logits = x.to(torch.float32) @ router                    # (T, E)
     probs = torch.softmax(logits, dim=-1)
     srt = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, eidx = srt.values[:, :k], srt.indices[:, :k]       # (T, K)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return gates, eidx, probs
+
+
+def _expert_counts(eidx: torch.Tensor, e: int) -> torch.Tensor:
+    """The (E,) float32 count of the (token, slot)s routed to each
+    expert."""
+    n = eidx.numel()
+    return torch.zeros((e,), dtype=torch.float32,
+                       device=eidx.device).index_add_(
+        0, eidx.reshape(-1), torch.ones((n,), dtype=torch.float32,
+                                        device=eidx.device))
+
+
+def _route(router: torch.Tensor, x: torch.Tensor, cfg: MoEConfig):
+    """Router + top-k + Switch aux loss (shared by both dispatch paths):
+    (gates (T, K), expert ids (T, K), aux)."""
+    t = x.shape[0]
+    e = cfg.n_experts
+    gates, eidx, probs = _top_k_gates(router, x, cfg)
     # Switch aux loss: E * sum_e f_e * p_e, f_e from the routed counts
     me = probs.mean(dim=0)
-    counts = torch.zeros((e,), dtype=torch.float32,
-                         device=x.device).index_add_(
-        0, eidx.reshape(-1), torch.ones((t * k,), dtype=torch.float32,
-                                        device=x.device))
+    counts = _expert_counts(eidx, e)
     aux = cfg.aux_loss_weight * e * torch.sum(me * (counts / t))
     return gates, eidx, aux
 
 
-def _local_dispatch(x: torch.Tensor, eidx: torch.Tensor, e: int, cap: int):
-    """Sort-based capacity dispatch of local tokens x (T, D): (buf (E,
-    cap, D), flat expert ids, safe ranks, keep)."""
-    t, d = x.shape
-    k = eidx.shape[-1]
-    dev = x.device
-    # rank of each (token, slot) within its expert, via a stable sort
-    flat_e = eidx.reshape(-1)                                 # (T*K,)
+def _expert_ranks(flat_e: torch.Tensor, e: int) -> torch.Tensor:
+    """The rank of each (token, slot) of ``flat_e`` (T*K,) within its
+    expert, in token order (a stable sort)."""
+    dev = flat_e.device
     sidx = torch.sort(flat_e, stable=True).indices
     sorted_e = flat_e[sidx]
     start = torch.searchsorted(sorted_e, torch.arange(e, device=dev))
-    rank_sorted = torch.arange(t * k, device=dev) - start[sorted_e]
+    rank_sorted = torch.arange(flat_e.numel(), device=dev) - start[sorted_e]
     rank = torch.empty_like(rank_sorted)
     rank[sidx] = rank_sorted
+    return rank
+
+
+def _scatter(x: torch.Tensor, flat_e, rank, e: int, cap: int, k: int):
+    """Tokens x (T, D), each repeated for its k slots, into an (E, cap,
+    D) buffer at (expert, rank): (buf, safe ranks, keep)."""
+    t, d = x.shape
+    dev = x.device
     keep = rank < cap
     safe_rank = torch.where(keep, rank, 0)
-    # dispatch into the (E, C, D) buffer.  The kept (expert, rank) pairs
-    # are unique, and a dropped token adds an exact zero to its expert's
-    # slot 0, so the accumulating scatter gives the reference's values in
-    # any order of its adds.
+    # The kept (expert, rank) pairs are unique, and a dropped token adds
+    # an exact zero to its expert's slot 0, so the accumulating scatter
+    # gives the reference's values in any order of its adds.
     # each token repeated for its k slots; the backward of an expand is
     # a sum over the slots, in a fixed order (``repeat_interleave``'s
     # is an atomic ``index_add_`` on the card)
@@ -140,6 +165,16 @@ def _local_dispatch(x: torch.Tensor, eidx: torch.Tensor, e: int, cap: int):
                                                           device=dev))
     buf = torch.zeros((e, cap, d), dtype=x.dtype, device=dev)
     buf.index_put_((flat_e, safe_rank), x_rep, accumulate=True)
+    return buf, safe_rank, keep
+
+
+def _local_dispatch(x: torch.Tensor, eidx: torch.Tensor, e: int, cap: int):
+    """Sort-based capacity dispatch of local tokens x (T, D): (buf (E,
+    cap, D), flat expert ids, safe ranks, keep)."""
+    # rank of each (token, slot) within its expert, via a stable sort
+    flat_e = eidx.reshape(-1)                                 # (T*K,)
+    rank = _expert_ranks(flat_e, e)
+    buf, safe_rank, keep = _scatter(x, flat_e, rank, e, cap, eidx.shape[-1])
     return buf, flat_e, safe_rank, keep
 
 
@@ -293,27 +328,182 @@ def _moe_sharded(params: dict, x, cfg: MoEConfig):
             e, cap, d)
     out = _combine(y, flat_e, rank, keep, gates, t, k, d)
     # back to the tokens' own layout (the rows return to their sources)
-    out = DTensor.from_local(out, mesh, x_pl, run_check=False,
-                             shape=xg.shape, stride=xg.stride()).redistribute(
-        mesh, [Replicate() if p.is_partial() else p for p in x.placements])
+    out = _tokens_back(out, x, x_pl, [
+        i for i, p in enumerate(x_pl)
+        if p == Shard(0) and x.placements[i] != Shard(0)])
     aux = DTensor.from_local(aux, mesh, [Partial("avg")] * nd,
                              run_check=False, shape=(), stride=())
     return _shared(params, x, out, cfg), aux
 
 
+def _token_split(x):
+    """The dry run's gspmd body: placements of x (T, D) that split its
+    tokens over every mesh dim they divide over, each token whole, and
+    the dims added to x's own token split.  x's own ``Shard(0)`` dims
+    stay; a dim after the last of them is added where the tokens divide
+    (so a device's tokens are a block of its rows of x); any other
+    placement is gathered."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    own = [i for i, p in enumerate(x.placements) if p == Shard(0)]
+    n = math.prod(mesh.size(i) for i in own)
+    out, extra = [], []
+    for i, p in enumerate(x.placements):
+        if i in own:
+            out.append(p)
+        elif (i > max(own, default=-1)
+              and x.shape[0] % (n * mesh.size(i)) == 0
+              and x.shape[0] >= n * mesh.size(i)):
+            out.append(Shard(0))
+            extra.append(i)
+            n *= mesh.size(i)
+        else:
+            out.append(Replicate())
+    return out, extra
+
+
+def _moe_gspmd_sharded(params: dict, x, cfg: MoEConfig):
+    """``moe_ffn``'s ``"gspmd"`` body on DTensors (the dry run's): the
+    reference's single-program dispatch, its buffer placed by the
+    ``moe_buffer`` hint.
+
+    Each device routes its own tokens (``_token_split``; tokens a mesh
+    dim does not split are routed alike on each of its devices).  The
+    capacity is the global one, ``_capacity(T)``.  Each (token, slot)'s
+    rank within its expert comes from a stable sort of all T*K expert
+    ids, gathered (as GSPMD gathers them).  Each device scatters its
+    tokens into a whole (E, C, D) buffer, a partial sum over the dims
+    that split the tokens, and the hint takes it to its own layout (a
+    reduce-scatter; the reference's ``P(experts over model, capacity
+    over data, None)``).  The batched SwiGLU runs on the buffer's block
+    with the expert weights laid out to match (experts where the buffer
+    splits them, the expert width split where the weights split it and
+    the buffer does not: a partial sum the hint reduces), and its
+    output takes the hint again.  The combine gathers the output buffer
+    whole and fetches each token's rows; the tokens return to x's
+    layout as a partial sum over the dims the split added, so the
+    layer's return to its own hint is the reduce-scatter it makes of
+    the shared experts' row-parallel product.  Without the hint the
+    buffer is replicated (an all-reduce).  The aux loss takes the
+    global routed counts and mean probabilities (all-reduces)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = x.device_mesh
+    nd = mesh.ndim
+    t, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cap = _capacity(t, cfg)
+    tok, extra = _token_split(x)
+    split = [i for i, p in enumerate(tok) if p == Shard(0)]
+    # a value each device holds a share of: summed over the token split
+    sums = [Partial() if i in split else Replicate() for i in range(nd)]
+    xl = x.redistribute(mesh, tok).to_local(grad_placements=tok)
+    t_loc = xl.shape[0]
+    router = params["router"]
+    if is_dtensor(router):
+        router = router.redistribute(mesh, [Replicate()] * nd).to_local(
+            grad_placements=sums)
+    gates, eidx, probs = _top_k_gates(router, xl, cfg)
+
+    def summed(v):
+        return DTensor.from_local(v, mesh, sums, run_check=False,
+                                  shape=v.shape, stride=v.stride()
+                                  ).redistribute(mesh, [Replicate()] * nd)
+
+    me = summed(probs.sum(dim=0) / t)
+    counts = summed(_expert_counts(eidx, e))
+    aux = cfg.aux_loss_weight * e * torch.sum(me * (counts / t))
+    # each (token, slot)'s rank within its expert, from all the ids
+    flat_e = eidx.reshape(-1)                                 # (T_loc*K,)
+    ids = DTensor.from_local(flat_e, mesh, tok, run_check=False,
+                             shape=(t * k,), stride=(1,))
+    rank = DTensor.from_local(
+        _expert_ranks(ids.full_tensor(), e), mesh, [Replicate()] * nd,
+        run_check=False).redistribute(mesh, tok).to_local()
+    buf, safe_rank, keep = _scatter(xl, flat_e, rank, e, cap, k)
+    buf = DTensor.from_local(buf, mesh, sums, run_check=False,
+                             shape=buf.shape, stride=buf.stride())
+    buf = H.hint(buf, "moe_buffer")
+    if any(p.is_partial() for p in buf.placements):
+        buf = buf.redistribute(mesh, [Replicate()] * nd)
+    bp = list(buf.placements)
+    wg = params["w_gate"]
+    tp = [i for i, p in enumerate(wg.placements)
+          if p == Shard(2) and bp[i] == Replicate()]
+
+    def local_w(w, f_dim):
+        pl = [Shard(0) if bp[i] == Shard(0) else Shard(f_dim) if i in tp
+              else Replicate() for i in range(nd)]
+        grad = [Partial() if bp[i] == Shard(1) else p
+                for i, p in enumerate(pl)]
+        return w.redistribute(mesh, pl).to_local(grad_placements=grad)
+
+    y = _experts(buf.to_local(grad_placements=[
+        Partial() if i in tp else p for i, p in enumerate(bp)]),
+        local_w(wg, 2), local_w(params["w_up"], 2),
+        local_w(params["w_down"], 1))
+    y = DTensor.from_local(y, mesh, [Partial() if i in tp else p
+                                     for i, p in enumerate(bp)],
+                           run_check=False, shape=buf.shape,
+                           stride=buf.stride())
+    y = H.hint(y, "moe_buffer")
+    # the combine: the output buffer whole, each token's rows fetched
+    y = y.redistribute(mesh, [Replicate()] * nd).to_local(
+        grad_placements=sums)
+    out = _combine(y, flat_e, safe_rank, keep, gates, t_loc, k, d)
+    return _shared(params, x, _tokens_back(out, x, tok, extra), cfg), aux
+
+
+def _tokens_back(out, x, tok, extra):
+    """The local rows ``out`` of tokens placed by ``tok`` as a DTensor
+    of x's shape: on the dims ``_token_split`` added, a partial sum of
+    x's block of rows with this device's rows in place (zeros
+    elsewhere), so that no collective runs until the caller's layout
+    asks for one; on the others, ``tok``'s placements."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+    mesh = x.device_mesh
+    pl = list(tok)
+    own = [i for i, p in enumerate(x.placements) if p == Shard(0)]
+    if extra and min(extra) < max(own, default=-1):
+        raise ValueError(f"tokens split over {tok} are not blocks of the "
+                         f"rows x holds under {x.placements}")
+    if extra:
+        n = math.prod(mesh.size(i) for i in extra)
+        pos = 0
+        for i in extra:
+            pos = pos * mesh.size(i) + mesh.get_local_rank(i)
+        t_loc = out.shape[0]
+        out = F.pad(out, (0, 0, pos * t_loc, (n - 1 - pos) * t_loc))
+        for i in extra:
+            pl[i] = Partial()
+    return DTensor.from_local(out, mesh, pl, run_check=False,
+                              shape=x.shape, stride=(x.shape[1], 1))
+
+
+def _shard_map_mesh(n_tokens: int, cfg: MoEConfig):
+    """The hints' mesh where the reference runs its shard_map dispatch
+    (``dispatch="shard_map"``, a global token count that divides over
+    every device and is at least their count, the experts dividing over
+    the expert-parallel axes), else None."""
+    mesh = H.get("mesh") if cfg.dispatch == "shard_map" else None
+    if mesh is None:
+        return None
+    n_dev = mesh.devices.size
+    n_ep = math.prod(mesh.shape[a] for a in _ep_axes(mesh))
+    if (n_tokens % n_dev == 0 and n_tokens >= n_dev
+            and cfg.n_experts % n_ep == 0):
+        return mesh
+    return None     # too few tokens (decode) or indivisible: gspmd
+
+
 def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig):
     """x: (T, D) -> (y: (T, D), aux_loss: float32 scalar)."""
+    mesh = _shard_map_mesh(x.shape[0], cfg)
     if is_dtensor(x):
-        return _moe_sharded(params, x, cfg)
-    if cfg.dispatch == "shard_map":
-        mesh = H.get("mesh")
         if mesh is not None:
-            n_dev = mesh.devices.size
-            n_ep = math.prod(mesh.shape[a] for a in _ep_axes(mesh))
-            if (x.shape[0] % n_dev == 0 and x.shape[0] >= n_dev
-                    and cfg.n_experts % n_ep == 0):
-                return moe_ffn_shard_map(params, x, cfg, mesh)
-            # else: too few tokens (decode) or indivisible: the local path
+            return _moe_sharded(params, x, cfg)
+        return _moe_gspmd_sharded(params, x, cfg)
+    if mesh is not None:
+        return moe_ffn_shard_map(params, x, cfg, mesh)
     t, d = x.shape
     cap = _capacity(t, cfg)
     gates, eidx, aux = _route(params["router"], x, cfg)

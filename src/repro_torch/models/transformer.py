@@ -42,12 +42,17 @@ functional copy of the whole cache on every step would not fit beside
 it on the card at the decode_32k shape (the reference's decode bundle
 donates the cache for the same reason).
 
-The reference's ``hint(...)`` calls are left out: on one device they
-are no-ops, and in the dry run DTensor's sharding propagation places
-the activations (pinning the reference's sequence-parallel
-``lm_activations`` there made the q/k/v reshapes unshardable over 16
-positions and tripled the trace's all-gathers; PERF.md §6).
-``block_q`` is the
+The reference's sharding hints (``distrib.hints``) are applied where
+it applies them, and on one device or a plain tensor each is a no-op.
+``backbone`` pins the embedding to ``lm_activations`` (batch over the
+data axes, sequence over ``model``), and, since the layers are a Python
+loop where the reference's scan carry keeps the layout, pins the
+residual stream again at every layer boundary; a pinned layer keeps it
+there as GSPMD does (``_layer_body``), with every product on each
+device's blocks (``layers.linear``), so that DTensor's propagation picks
+no layout inside it.  ``attn_q`` places the attention's queries
+(``ops._layout``) and ``moe_buffer`` the MoE's expert buffer
+(``moe._moe_gspmd_sharded``).  ``block_q`` is the
 query block of flash's backward and of the plain MLA path,
 ``loss_block`` the loss's row block, ``remat`` steers training only;
 ``unroll`` (the reference's dry-run) is ignored, and so is ``remat ==
@@ -70,6 +75,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import is_dtensor, resolve_device
+from repro_torch.distrib import hints as H
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -266,22 +272,23 @@ def _project_qkv(lp: dict, cfg: LMConfig, x: torch.Tensor,
     if cfg.attn_type == "mla":
         m = cfg.mla
         h = cfg.n_heads
-        cq = L.rms_norm(lp["q_norm"], x @ lp["wdq"])
-        q = (cq @ lp["wuq"]).reshape(b, s, h, m.qk_nope_dim + m.qk_rope_dim)
+        cq = L.rms_norm(lp["q_norm"], L.linear(x, lp["wdq"]))
+        q = L.linear(cq, lp["wuq"]).reshape(b, s, h,
+                                            m.qk_nope_dim + m.qk_rope_dim)
         q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
         q_rope = L.rope(q_rope, positions, cfg.rope_theta)
-        dkv = x @ lp["wdkv"]
+        dkv = L.linear(x, lp["wdkv"])
         c_kv = L.rms_norm(lp["kv_norm"], dkv[..., :m.kv_lora_rank])
         k_rope = L.rope(dkv[..., None, m.kv_lora_rank:], positions,
                         cfg.rope_theta)                      # (B, S, 1, rope)
-        k_nope = (c_kv @ lp["wuk"]).reshape(b, s, h, m.qk_nope_dim)
-        v = (c_kv @ lp["wuv"]).reshape(b, s, h, m.v_dim)
+        k_nope = L.linear(c_kv, lp["wuk"]).reshape(b, s, h, m.qk_nope_dim)
+        v = L.linear(c_kv, lp["wuv"]).reshape(b, s, h, m.v_dim)
         q = torch.cat([q_nope, q_rope], dim=-1)
         k = torch.cat([k_nope, k_rope.expand(b, s, h, m.qk_rope_dim)],
                       dim=-1)
         return q, k, v, (c_kv, k_rope[:, :, 0])
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, k, v = x @ lp["wq"], x @ lp["wk"], x @ lp["wv"]
+    q, k, v = (L.linear(x, lp[w]) for w in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     q = q.reshape(b, s, hq, hd)
@@ -305,24 +312,52 @@ def _ffn(lp: dict, hn: torch.Tensor, moe_cfg):
     return y.reshape(hn.shape), aux
 
 
+def _seq_whole(x: torch.Tensor, pinned: bool) -> torch.Tensor:
+    """x (B, S, D) of the pinned residual stream with its sequence
+    gathered (an all-gather over each mesh dim that splits it): the
+    FFN's entry.  Anything else as it is."""
+    if not (pinned and is_dtensor(x)):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    pl = [Replicate() if p == Shard(1) else p for p in x.placements]
+    return x.redistribute(x.device_mesh, pl)
+
+
 def _layer_body(cfg: LMConfig, moe_cfg, use_kernel: bool, lp: dict,
-                x: torch.Tensor, positions: torch.Tensor):
+                x: torch.Tensor, positions: torch.Tensor,
+                pinned: bool = False):
     """One layer over x (B, S, D): (its output, its MoE aux loss or
-    None, what the cache keeps: (k, v), or MLA's (c_kv, k_rope))."""
+    None, what the cache keeps: (k, v), or MLA's (c_kv, k_rope)).
+
+    ``pinned``: x is the residual stream in the ``lm_activations``
+    hint's layout (the sequence split over ``model``), and the layer
+    keeps it there, as GSPMD keeps the reference's sequence
+    parallelism.  The norms and the residual adds stay on the sequence
+    shards.  Attention runs sequence-parallel, as the reference's
+    projections are placed (replicated over ``model``): q, k and v are
+    projected on each device's own rows (``layers.linear``), q stays
+    there (the ``attn_q`` hint), and the attention gathers k and v.
+    The FFN reads its input with the sequence gathered
+    (``_seq_whole``), and its column- then row-parallel product's
+    partial sum returns to the hint (a reduce-scatter).  On one device,
+    or without the hint, every step is the plain one."""
     b, s, _ = x.shape
     q, k, v, lat = _project_qkv(lp["attn"], cfg, L.rms_norm(lp["ln1"], x),
                                 positions)
     o = A.chunked_attention(q, k, v, causal=True, window=cfg.window,
                             block_q=cfg.block_q, use_kernel=use_kernel)
-    h = x + o.reshape(b, s, -1) @ lp["attn"]["wo"]
-    y, aux = _ffn(lp, L.rms_norm(lp["ln2"], h), moe_cfg)
+    o = L.linear(o.reshape(b, s, -1), lp["attn"]["wo"])
+    h = x + (H.hint(o, "lm_activations") if pinned else o)
+    y, aux = _ffn(lp, _seq_whole(L.rms_norm(lp["ln2"], h), pinned), moe_cfg)
+    y = H.hint(y, "lm_activations") if pinned else y
     return h + y, aux, (lat if lat is not None else (k, v))
 
 
-def _layer_train(cfg: LMConfig, moe_cfg, use_kernel: bool, lp: dict,
-                 x: torch.Tensor, positions: torch.Tensor):
+def _layer_train(cfg: LMConfig, moe_cfg, use_kernel: bool, pinned: bool,
+                 lp: dict, x: torch.Tensor, positions: torch.Tensor):
     """``_layer_body`` for training: (output, aux as a 0-d float32)."""
-    y, aux, _ = _layer_body(cfg, moe_cfg, use_kernel, lp, x, positions)
+    y, aux, _ = _layer_body(cfg, moe_cfg, use_kernel, lp, x, positions,
+                            pinned)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return y, aux
@@ -334,12 +369,15 @@ def _cache_names(cfg: LMConfig) -> tuple[str, str]:
 
 def _run_layers(cfg: LMConfig, stacked: dict, x: torch.Tensor,
                 positions: torch.Tensor, moe_cfg, clen: int | None,
-                use_kernel: bool):
+                use_kernel: bool, pinned: bool = False):
     """The group's layers over x (B, S, D): (x, the sum of the MoE aux
     losses, and with ``clen`` the last ``clen`` positions of each
     layer's cache entries stacked: {"k", "v"} (L, B, clen, Hkv, hd), or
     MLA's {"c_kv", "k_rope"} (L, B, clen, rank)).  Under autograd with
-    ``remat == "full"`` each layer is checkpointed."""
+    ``remat == "full"`` each layer is checkpointed.  ``pinned``: the
+    residual stream is pinned to the ``lm_activations`` hint at every
+    layer boundary (the reference's scan carry keeps it there; a
+    checkpointed layer's recompute pins its input the same way)."""
     s = x.shape[1]
     remat = (clen is None and cfg.remat == "full"
              and torch.is_grad_enabled())
@@ -347,12 +385,14 @@ def _run_layers(cfg: LMConfig, stacked: dict, x: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(_n_layers(stacked)):
         lp = _layer(stacked, i)
+        if pinned:
+            x = H.hint(x, "lm_activations")
         if remat:
-            x, a = checkpoint(_layer_train, cfg, moe_cfg, use_kernel, lp, x,
-                              positions, use_reentrant=False)
+            x, a = checkpoint(_layer_train, cfg, moe_cfg, use_kernel, pinned,
+                              lp, x, positions, use_reentrant=False)
         else:
             x, a, kv = _layer_body(cfg, moe_cfg, use_kernel, lp, x,
-                                   positions)
+                                   positions, pinned)
             if clen is not None:
                 for out, t in zip(kept, kv):
                     out.append(t[:, s - clen:])
@@ -384,12 +424,13 @@ def _embed(params: dict, cfg: LMConfig, tokens: torch.Tensor):
 def backbone(params: dict, cfg: LMConfig, tokens: torch.Tensor,
              positions: torch.Tensor, *, use_kernel: bool = True):
     """tokens: (B, S) -> final hidden (B, S, D), aux loss (the sum of
-    the MoE layers')."""
-    x = _embed(params, cfg, tokens)
+    the MoE layers').  The embedding is pinned to the ``lm_activations``
+    hint, and so is the residual stream at every layer boundary."""
+    x = H.hint(_embed(params, cfg, tokens), "lm_activations")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g, moe_cfg in _groups(cfg):
         x, a, _ = _run_layers(cfg, params[g], x, positions, moe_cfg, None,
-                              use_kernel)
+                              use_kernel, pinned=True)
         aux = aux + a
     return L.rms_norm(params["final_norm"], x), aux
 
@@ -405,19 +446,23 @@ def train_loss(params: dict, cfg: LMConfig, tokens: torch.Tensor,
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
     h, aux = backbone(params, cfg, tokens, positions, use_kernel=use_kernel)
-    loss = L.chunked_softmax_xent(
-        h.reshape(b * s, -1), params["lm_head"], targets.reshape(-1),
-        mask.reshape(-1).to(torch.float32), block=cfg.loss_block)
+    loss = L.chunked_softmax_xent(h, params["lm_head"], targets,
+                                  mask.to(torch.float32),
+                                  block=cfg.loss_block)
     if cfg.mtp:
         mp = _layer(params["mtp"], 0)
         nxt = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
-        hm = torch.cat([h, _embed(params, cfg, nxt)], dim=-1) @ mp["proj"]
-        hm, _, _ = _layer_body(cfg, None, use_kernel, mp, hm, positions)
+        # the next tokens' embedding in the stream's layout (pinned), so
+        # the MTP block continues the pinned stream
+        e2 = H.hint(_embed(params, cfg, nxt), "lm_activations")
+        hm = L.linear(torch.cat([h, e2], dim=-1), mp["proj"])
+        hm, _, _ = _layer_body(cfg, None, use_kernel, mp, hm, positions,
+                               pinned=True)
         t2 = torch.cat([targets[:, 1:], targets[:, -1:]], dim=1)
         m2 = torch.cat([mask[:, 1:], torch.zeros_like(mask[:, -1:])], dim=1)
-        mtp_loss = L.chunked_softmax_xent(
-            hm.reshape(b * s, -1), params["lm_head"], t2.reshape(-1),
-            m2.reshape(-1).to(torch.float32), block=cfg.loss_block)
+        mtp_loss = L.chunked_softmax_xent(hm, params["lm_head"], t2,
+                                          m2.to(torch.float32),
+                                          block=cfg.loss_block)
         loss = loss + cfg.mtp_weight * mtp_loss
     return loss + aux
 

@@ -531,6 +531,160 @@ def test_hot_path_holds_the_servers_predict():
         assert bool(_hostsync(src, pipeline)) is hot, scope
 
 
+# ------------------------------------------------------------- kernels --
+
+KERNEL_HEAD = """
+import torch
+from repro_torch.kernels import _build
+
+n_launches = 0
+
+
+def op_plain(x):
+    return x + 1
+"""
+
+#: a wrapper that keeps every rule, the base of each case below
+KERNEL_CLEAN = KERNEL_HEAD + """
+
+def op(x):
+    global n_launches
+    if x.device.type == "cpu":
+        return op_plain(x)
+    out = torch.empty_like(x)
+    launch = _build.library("op")
+    err = launch(x.data_ptr(), out.data_ptr(), _build.stream(x.device))
+    _build.check(err, "op")
+    if not _build.counted_in_capture(__name__):
+        n_launches += 1
+    return out
+"""
+
+#: (rule, the clean wrapper's text, what replaces it in the bad twin,
+#: what replaces it in the clean twin): each twin differs from
+#: ``KERNEL_CLEAN`` in one place
+KERNEL_CASES = [
+    ("launch-unchecked",
+     '    _build.check(err, "op")\n', "", '    _build.check(err, "op")\n'),
+    ("launch-unchecked",
+     "    err = launch(", "    launch(", "    err = launch("),
+    ("launch-uncounted",
+     "    if not _build.counted_in_capture(__name__):\n"
+     "        n_launches += 1\n",
+     "    n_launches += 1\n",
+     "    if not _build.counted_in_capture(__name__):\n"
+     "        n_launches += 1\n"),
+    ("fallback-around-launch",
+     '    err = launch(x.data_ptr(), out.data_ptr(), '
+     '_build.stream(x.device))\n    _build.check(err, "op")\n',
+     '    try:\n'
+     '        err = launch(x.data_ptr(), out.data_ptr(), '
+     '_build.stream(x.device))\n'
+     '        _build.check(err, "op")\n'
+     '    except RuntimeError:\n'
+     '        pass\n',
+     '    try:\n'
+     '        err = launch(x.data_ptr(), out.data_ptr(), '
+     '_build.stream(x.device))\n'
+     '        _build.check(err, "op")\n'
+     '    except RuntimeError as e:\n'
+     '        raise RuntimeError("op failed on the card") from e\n'),
+    ("fallback-around-launch",
+     '    launch = _build.library("op")\n',
+     '    try:\n'
+     '        launch = _build.library("op")\n'
+     '    except OSError:\n'
+     '        return x\n',
+     '    try:\n'
+     '        launch = _build.library("op")\n'
+     '    finally:\n'
+     '        pass\n'),
+    ("plain-off-cpu",
+     '    if x.device.type == "cpu":\n',
+     '    if x.device.type != "cuda":\n',
+     '    if x.device.type == "cpu" and not x.is_cuda:\n'),
+]
+
+
+def _kernels(src, path="src/repro_torch/kernels/op/kernel.py"):
+    return [(f.invariant, f.scope, f.code) for f in analysis.analyze_source(
+        textwrap.dedent(src), path, passes={"kernels"})]
+
+
+def test_kernels_pass_spares_a_wrapper_that_keeps_every_rule():
+    assert _kernels(KERNEL_CLEAN) == []
+
+
+@pytest.mark.parametrize("bad", [True, False], ids=["bad", "clean"])
+@pytest.mark.parametrize("rule,old,bad_text,clean_text", [
+    pytest.param(*case, id=f"{case[0]}-{i}")
+    for i, case in enumerate(KERNEL_CASES)])
+def test_kernels_rule_flags_its_case_and_spares_the_clean_twin(
+        rule, old, bad_text, clean_text, bad):
+    """Each ``kernels/*`` rule on a wrapper that breaks it in one place
+    (only that rule's findings, in the launching function) and on its
+    clean twin (none)."""
+    assert KERNEL_CLEAN.count(old) == 1
+    found = _kernels(KERNEL_CLEAN.replace(old, bad_text if bad
+                                          else clean_text))
+    if bad:
+        assert found and {(f[0], f[1]) for f in found} == {
+            ("kernels/" + rule, "op")}
+    else:
+        assert found == []
+
+
+def test_kernels_plain_off_cpu_follows_a_module_helper():
+    """A wrapper that launches through a helper of its module is a
+    launching function: its plain version must sit in the CPU arm, as
+    ``flash_attention_bshd``'s does around ``_launch``."""
+    src = KERNEL_HEAD + """
+
+def _launch(x, out):
+    global n_launches
+    err = _build.library("op")(x.data_ptr(), out.data_ptr(), 0)
+    _build.check(err, "op")
+    if not _build.counted_in_capture(__name__):
+        n_launches += 1
+    return out
+
+
+def op(x):
+    if x.is_cuda:
+        return _launch(x, torch.empty_like(x))
+    return op_plain(x)
+
+
+def op_shard(x):
+    if not x.is_cuda and x.device.type == "cpu":
+        return op_plain(x)
+    return op(x)
+"""
+    assert _kernels(src) == [("kernels/plain-off-cpu", "op", "op_plain(x)")]
+
+
+def test_kernels_pass_reads_the_ports_four_wrappers(monkeypatch):
+    """The pass finds every launching function of the four kernel
+    modules (``flash_attention_bshd`` and ``flash_attention_shard``
+    through ``_launch``), and nothing to flag in the port's tree, with
+    or without the baseline."""
+    import ast
+    from repro_torch.analysis import kernels as K
+    monkeypatch.chdir(REPO_ROOT)
+    found = set()
+    for name in ("impact_scan", "topk", "flash_attention", "embedding_bag"):
+        path = f"src/repro_torch/kernels/{name}/kernel.py"
+        with open(path) as fh:
+            found |= K._launching(ast.parse(fh.read()))[1]
+    assert {"impact_scan", "block_topk", "embedding_bag_kernel", "_launch",
+            "flash_attention_bshd", "flash_attention_shard"} <= found
+    assert analysis.analyze_paths(["src/repro_torch"],
+                                  passes={"kernels"}) == []
+    assert analysis_main(["src/repro_torch", "--select", "kernels",
+                          "--no-baseline"]) == 0
+    assert "kernels" in analysis.ALL_PASSES and len(analysis.ALL_PASSES) == 4
+
+
 # ------------------------------------------------------------ baseline --
 
 def test_committed_port_baseline_keeps_the_port_green(monkeypatch, capsys):
@@ -584,7 +738,7 @@ def test_analyzer_modules_import_neither_torch_nor_port_code():
     import ast
     pkg = os.path.join(REPO_ROOT, "src", "repro_torch", "analysis")
     for name in ("__init__.py", "__main__.py", "astutil.py", "findings.py",
-                 "hostsync.py", "locks.py", "recompile.py"):
+                 "hostsync.py", "locks.py", "recompile.py", "kernels.py"):
         tree = ast.parse(open(os.path.join(pkg, name)).read())
         roots = {a.name.split(".")[0] for n in ast.walk(tree)
                  if isinstance(n, ast.Import) for a in n.names}
