@@ -34,7 +34,8 @@ when a shape is first served), the server's predict (``predict_classes``,
 ``execute`` (its inputs' copies, its program and the ranked-list
 boundary), the service's ``_exec_loop`` and ``_run_batch``, the scheduler's ``_chunk_step``,
 ``kernels/``, ``obs/trace.py`` and ``obs/metrics.py`` (the reference's),
-plus the LM decode path: ``decode_step`` and its decode-only helpers in
+``obs/device.py`` (the spans' device intervals: never a wait for the
+card), plus the LM decode path: ``decode_step`` and its decode-only helpers in
 ``models/transformer.py``, ``decode_attention``, and the per-token
 layers of ``models/layers.py`` that a decode step calls.
 """
@@ -63,6 +64,7 @@ HOT_PATHS: tuple[tuple[str, tuple[str, ...] | None, tuple[str, ...]], ...] = (
     ("kernels/", None, ()),
     ("obs/trace.py", None, ()),
     ("obs/metrics.py", None, ()),
+    ("obs/device.py", None, ()),
     ("models/transformer.py",
      ("decode_step", "_decode_layers", "_decode_attn_gqa",
       "_decode_attn_mla", "_slot_positions"), ()),

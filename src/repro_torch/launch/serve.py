@@ -69,7 +69,12 @@ def main(argv=None) -> None:
                     help="new shadow labels between cascade refits")
     ap.add_argument("--trace-out", default="",
                     help="write a Chrome-trace/Perfetto JSON of the run "
-                         "here (atomic tmp+rename; '' disables)")
+                         "here (atomic tmp+rename; '' disables): a host "
+                         "lane a thread, its spans with the thread's "
+                         "cpu_ms/wait_ms and the collector's gc spans; "
+                         "a device lane a stream with each program's "
+                         "interval (predict.program, engine.*) on the "
+                         "same clock")
     ap.add_argument("--metrics-snapshot", default="",
                     help="append one JSONL metrics snapshot here on exit "
                          "('' disables)")

@@ -11,6 +11,21 @@ timings keep working) but nothing is stored and no lock is touched.
 A copy of ``repro.obs`` (numpy-free, torch-free): the same span
 taxonomy, metric names and lock-order position as the JAX package's, so
 traces and counters of the two packages compare name for name.
+
+What the port adds (``obs/trace.py`` says how, ``obs/device.py`` holds
+the part that needs torch and is imported by the classes that time the
+card): with the recorder enabled, every ``span()`` carries the thread's
+``cpu_ms`` and ``wait_ms``; while a service runs (``start()`` to
+``stop()``, the recorder's ``watch()``), each collection of the
+interpreter is a ``gc`` span (attrs ``gen``, ``collected``), the server's
+predict program runs in a ``predict.program`` span, and that span and
+every ``engine.<stage>`` span carry their program's device interval on
+the recorder's clock (``dev_t0``, ``dev_t1``, ``dev_ms``,
+``dev_stream``; the counter ``trace.dev_dropped`` counts spans left
+without one).  ``predict.program`` and ``gc`` are names of the port
+only, not of the JAX package's taxonomy.  Tracing off (``NULL_OBS``)
+reads no thread clock, records no event, hooks no collection and
+opens no request span.
 """
 
 from __future__ import annotations

@@ -6,8 +6,14 @@ Three surfaces, one source of truth (`TraceRecorder` + `MetricsRegistry`):
   consumed by Perfetto and ``chrome://tracing``: one ``"X"`` (complete)
   event per span with microsecond ``ts``/``dur``, lanes (``tid``) from
   the recorder's thread table, join keys and deterministic attrs under
-  ``args``.  Writes are atomic (tmp + ``os.replace``, the census
-  pattern) so a reader never sees a torn file.
+  ``args`` (with the port's ``cpu_ms``/``wait_ms`` and ``dev_*``), the
+  ``gc`` spans on the lane of the thread that collected.  A span with a
+  resolved device interval (``obs/device.py``) is drawn a second time
+  on the device's lanes (process 2, one lane a stream, named by the
+  span's ``dev_stream``) from ``dev_t0`` to ``dev_t1``: host work and
+  the card's work on one timeline.  Writes are atomic (tmp +
+  ``os.replace``, the census pattern) so a reader never sees a torn
+  file.
 - ``prometheus_text`` / ``write_metrics_snapshot`` — text exposition
   (``repro_``-prefixed, dots → underscores) and an append-only JSONL
   snapshot stream for offline diffing.
@@ -37,12 +43,16 @@ import time
 # -- Chrome trace / Perfetto ---------------------------------------------
 
 def chrome_trace(trace) -> dict:
-    """Trace Event Format payload from a recorder's completed spans."""
+    """Trace Event Format payload from a recorder's completed spans
+    (host lanes in process 1, device lanes in process 2)."""
     events = []
+    spans = trace.spans()
     for lane, name in sorted(trace.thread_names().items()):
         events.append({"ph": "M", "pid": 1, "tid": lane,
                        "name": "thread_name", "args": {"name": name}})
-    for h in trace.spans():
+    streams: dict = {}              # dev_stream -> device lane
+    device = []
+    for h in spans:
         args = {}
         if h.qid >= 0:
             args["qid"] = int(h.qid)
@@ -58,6 +68,20 @@ def chrome_trace(trace) -> dict:
             "ts": h.t0 * 1e6, "dur": max(0.0, (h.t1 - h.t0) * 1e6),
             "args": args,
         })
+        if "dev_t0" in args:
+            lane = streams.setdefault(args["dev_stream"], len(streams))
+            device.append({
+                "ph": "X", "pid": 2, "tid": lane, "name": h.name,
+                "cat": "device", "ts": args["dev_t0"] * 1e6,
+                "dur": max(0.0, (args["dev_t1"] - args["dev_t0"]) * 1e6),
+                "args": args})
+    if streams:
+        events.append({"ph": "M", "pid": 2, "tid": 0,
+                       "name": "process_name", "args": {"name": "device"}})
+        for name, lane in streams.items():
+            events.append({"ph": "M", "pid": 2, "tid": lane,
+                           "name": "thread_name", "args": {"name": name}})
+        events += device
     counts = trace.counts()
     return {"traceEvents": events, "displayTimeUnit": "ms",
             "otherData": {"recorder": counts}}

@@ -45,10 +45,43 @@ Spans wrap stage boundaries on the host.  A span that times device work
 holds the device fence inside it (the engine waits for its thread's
 current CUDA stream before the span ends), so ``dur_ms`` covers the
 stage's device time and not just its launches.
+
+What the port adds to the reference's recorder, all of it with the
+recorder enabled only (``NULL_TRACE`` reads no thread clock, records no
+event and hooks nothing):
+
+- **Thread CPU time.**  A ``span()`` also reads ``time.thread_time()``
+  just after it begins and just before it ends, and its attrs get
+  ``cpu_ms`` (the calling thread on a CPU) and ``wait_ms = dur_ms -
+  cpu_ms`` (the thread off a CPU: waiting for the interpreter lock, a
+  Python lock, a blocking wait for the card, or the operating system).
+  Only on a wall clock (``time.perf_counter``, the default): on an
+  injected clock the two are not comparable and neither is recorded.
+  The thread clock's step is the host's: where it advances in 10 ms
+  ticks (as under a gVisor sandbox) one span's ``cpu_ms`` is a whole
+  number of ticks and ``wait_ms`` may read below 0; means over many
+  spans stay right.
+- **Watching** (``watch()`` / ``unwatch()``, counted; a
+  ``RetrievalService`` watches its enabled recorder from ``start()`` to
+  ``stop()``).  While watched, a ``gc.callbacks`` hook records one
+  ``gc`` span a collection on the collecting thread's lane, attrs
+  ``gen`` and ``collected``, and the device timers of ``devices``
+  (``obs/device.py``, one a device, keyed by its name) put an interval
+  on each captured program's span: attrs ``dev_t0``/``dev_t1`` (recorder
+  clock seconds), ``dev_ms`` and ``dev_stream`` (the lane).  The server
+  opens a ``predict.program`` span around its predict program for it.
+  Inline serving records the reference's taxonomy alone.
+  ``predict.program`` and ``gc`` are names of the port only.  A
+  collection's callback takes no lock (a collection may start while
+  its thread holds ``_lock``): it queues the span, and ``spans()``
+  moves the queue into the ring and resolves the device intervals whose
+  events have completed.
 """
 
 from __future__ import annotations
 
+import collections
+import gc
 import threading
 import time
 from contextlib import contextmanager
@@ -102,6 +135,14 @@ class TraceRecorder:
         self.n_ended = 0
         self.n_dropped = 0
         self._local = threading.local()
+        # a span's thread CPU time is comparable to its duration on the
+        # wall clock only
+        self._cpu = self.enabled and clock is time.perf_counter
+        #: device timers (``obs/device.py``), by device name
+        self.devices: dict = {}
+        self._watchers = 0
+        self._gc_t0 = 0.0
+        self._gc_done = collections.deque()   # collections not yet spans
 
     # -- thread-local join-key context ----------------------------------
 
@@ -173,10 +214,20 @@ class TraceRecorder:
     def span(self, name: str, *, qid: int = -1, slot: int = -1,
              tick: int = -1, **attrs):
         h = self.begin(name, qid=qid, slot=slot, tick=tick, **attrs)
+        if not self._cpu:
+            try:
+                yield h
+            finally:
+                self.end(h)
+            return
+        c0 = time.thread_time()
         try:
             yield h
         finally:
-            self.end(h)
+            cpu_ms = (time.thread_time() - c0) * 1e3
+            self.end(h, cpu_ms=cpu_ms)
+            if h.attrs is not None:
+                h.attrs["wait_ms"] = h.dur_ms - cpu_ms
 
     def record(self, name: str, t0: float, t1: float, *, qid: int = -1,
                slot: int = -1, tick: int = -1, **attrs) -> SpanHandle | None:
@@ -206,6 +257,61 @@ class TraceRecorder:
         t = self.clock()
         return self.record(name, t, t, **kw)
 
+    # -- watching: collections and device intervals --------------------
+
+    @property
+    def watching(self) -> bool:
+        return self._watchers > 0
+
+    def watch(self) -> None:
+        """Record collections and device intervals until the matching
+        ``unwatch()`` (calls nest; a disabled recorder ignores both)."""
+        if not self.enabled:
+            return
+        with self._lock:
+            self._watchers += 1
+            first = self._watchers == 1
+        if first:
+            gc.callbacks.append(self._gc_callback)
+
+    def unwatch(self) -> None:
+        if not self.enabled:
+            return
+        with self._lock:
+            if self._watchers == 0:
+                return
+            self._watchers -= 1
+            last = self._watchers == 0
+        if last:
+            gc.callbacks.remove(self._gc_callback)
+
+    def _gc_callback(self, phase, info):
+        # runs inside a collection, on the collecting thread, maybe
+        # while it holds self._lock: queue, never lock
+        if phase == "start":
+            self._gc_t0 = self.clock()
+            return
+        th = threading.current_thread()
+        self._gc_done.append((self._gc_t0, self.clock(), info["generation"],
+                              info["collected"], th.ident, th.name))
+
+    def _flush_gc(self) -> None:
+        """Move the queued collections into the ring as ``gc`` spans."""
+        done = self._gc_done
+        with self._lock:
+            while done:
+                t0, t1, gen, collected, ident, tname = done.popleft()
+                ent = self._tids.get(ident)
+                if ent is None:
+                    ent = (len(self._tids), tname)
+                    self._tids[ident] = ent
+                h = SpanHandle("gc", -1, -1, -1, t0, ent[0],
+                               {"gen": gen, "collected": collected})
+                h.t1 = t1
+                self.n_begun += 1
+                self.n_ended += 1
+                self._append(h)
+
     def _append(self, h):
         # caller holds self._lock
         if len(self._ring) < self.capacity:
@@ -218,7 +324,12 @@ class TraceRecorder:
     # -- inspection -----------------------------------------------------
 
     def spans(self) -> list:
-        """Completed spans, oldest first (a snapshot copy)."""
+        """Completed spans, oldest first (a snapshot copy), with the
+        queued collections moved in and the device intervals that have
+        completed resolved."""
+        self._flush_gc()
+        for timer in list(self.devices.values()):
+            timer.resolve()
         with self._lock:
             ring = list(self._ring)
             head = self._head
@@ -243,6 +354,7 @@ class TraceRecorder:
             self._ring.clear()
             self._head = 0
             self._open.clear()
+            self._gc_done.clear()
             self.n_begun = self.n_ended = self.n_dropped = 0
 
 

@@ -59,8 +59,9 @@ class Request:
     t_submit: float
     seq: int                       # FIFO tie-break within a deadline
     future: Future
-    span: object = None            # open "request" span; seq is the
-    #                                trace_id joining spans to telemetry
+    span: object = None            # open "request" span (None with
+    #                                tracing off); seq is the trace_id
+    #                                joining spans to telemetry
 
     def sort_key(self):
         return (self.deadline, self.seq)
@@ -111,7 +112,8 @@ class AdmissionQueue:
         fut: Future = Future()
         req = Request(payload=payload, deadline=now + deadline_ms / 1e3,
                       t_submit=now, seq=next(self._seq), future=fut)
-        req.span = self.obs.trace.begin("request", qid=req.seq)
+        if self.obs.trace.enabled:
+            req.span = self.obs.trace.begin("request", qid=req.seq)
         self._m_submitted.inc()
         with self._lock:
             heapq.heappush(self._heap, (req.sort_key(), req))

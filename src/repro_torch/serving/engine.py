@@ -68,6 +68,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs as obs_lib
+from repro_torch.obs import device as obs_device
 from repro_torch.device import device_scope, fence, resolve_device
 from repro_torch.distrib import collectives
 from repro_torch.distrib.sharding import MeshInfo
@@ -285,13 +286,17 @@ class ServingEngine:
         # observability: spans around stage boundaries + deterministic
         # dispatch/compile counters (NULL until bind_obs)
         self.trace = obs_lib.NULL_TRACE
+        self._dev = None               # the recorder's device timer
         self._m_dispatch = obs_lib.NULL_METRIC
         self._m_compile = obs_lib.NULL_METRIC
 
     def bind_obs(self, obs) -> None:
-        """Attach an observability handle: per-stage spans in ``serve``,
-        plus the dispatch and compile counters."""
+        """Attach an observability handle: per-stage spans in ``serve``
+        (each with its program's device interval while the recorder is
+        watched: ``obs/device.py``), plus the dispatch and compile
+        counters."""
         self.trace = obs.trace
+        self._dev = obs_device.timer(obs, self.device)
         self._m_dispatch = obs.metrics.counter("engine.dispatches")
         self._m_compile = obs.metrics.counter("engine.compiles")
         self._programs.metric = self._m_compile
@@ -331,7 +336,10 @@ class ServingEngine:
         self._fence()
         self._m_dispatch.inc()
         with self.trace.span("engine." + name) as sp:
-            out = fn(*args, **kwargs)
+            if self._dev is None:
+                out = fn(*args, **kwargs)
+            else:
+                out = self._dev.call(sp, fn, *args, **kwargs)
             self._fence()
         timings[label] = sp.dur_ms
         return out
@@ -390,6 +398,8 @@ class ServingEngine:
                                  _stage_rerank_dyn, stage2, pool, dv,
                                  depth=self.cfg.rerank_depth)
         ranked = ranked[:n].cpu().numpy()
+        if self._dev is not None:      # the stream is idle after the copy
+            self._dev.anchor()
         return _pad_ranked(ranked, self.cfg.rerank_depth), timings
 
     def warmup_shape(self, batch_size: int, query_len: int, *,

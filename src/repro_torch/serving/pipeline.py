@@ -36,6 +36,8 @@ from repro_torch.core import cascade as cascade_lib
 from repro_torch.core import features as feat_lib
 from repro_torch.core import knobs as knobs_lib
 from repro_torch.device import fence, resolve_device
+from repro_torch.obs import NULL_TRACE
+from repro_torch.obs import device as obs_device
 from repro_torch.retrieval import gold, jass
 from repro_torch.serving import bucketing
 from repro_torch.serving.engine import (ServingEngine, ShardedServingEngine,
@@ -180,6 +182,8 @@ class RetrievalServer:
         self._live = {}                # knob -> (node_params, thresholds)
         self._swap_lock = threading.Lock()
         self.predictor_version = 0
+        self.trace = NULL_TRACE
+        self._dev = None               # the recorder's device timer
         self.fallback = False          # serve every knob at its reference
         if casc is not None:
             self._boot_knob(cfg.knob, casc)
@@ -214,6 +218,15 @@ class RetrievalServer:
                              map_tree(lambda _: None, node_params))
         with self._swap_lock:
             self._live = {**self._live, knob: (node_params, thresholds)}
+
+    def bind_obs(self, obs) -> None:
+        """Attach an observability handle, here and in the engine: while
+        its recorder is watched, each predict program's call runs in a
+        ``predict.program`` span with its device interval
+        (``obs/device.py``)."""
+        self.trace = obs.trace
+        self._dev = obs_device.timer(obs, self.device)
+        self.engine.bind_obs(obs)
 
     @property
     def has_depth_knob(self) -> bool:
@@ -259,7 +272,16 @@ class RetrievalServer:
                            self.knobs[knob].n_cutoffs, np.int32)
         prog = self.predict_programs.compiled(f"predict:{knob}",
                                               _stage_predict, *call)
-        return self._host(prog(*call[0]), query_terms.shape[0])
+        dev = self._dev
+        if dev is None or not self.trace.watching:
+            out = prog(*call[0])
+        else:
+            with self.trace.span("predict.program") as sp:
+                out = dev.call(sp, prog, *call[0])
+        classes = self._host(out, query_terms.shape[0])
+        if dev is not None:            # the stream is idle after the copy
+            dev.anchor()
+        return classes
 
     def predict_versioned(self, query_terms: np.ndarray,
                           knob: str | None = None):

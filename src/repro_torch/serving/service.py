@@ -173,9 +173,10 @@ class EngineBackend:
         return self.server.engine.n_compiles
 
     def bind_obs(self, obs) -> None:
-        """Forward the service's observability handle to the engine
-        (per-stage spans + dispatch/compile counters)."""
-        self.server.engine.bind_obs(obs)
+        """Forward the service's observability handle to the server and
+        its engine (the predict program's span, per-stage spans,
+        dispatch/compile counters)."""
+        self.server.bind_obs(obs)
 
     @property
     def predictor_version(self) -> int:
@@ -899,6 +900,9 @@ class RetrievalService:
                 threading.Thread(target=self._warmup_loop,
                                  name="svc-warmup", daemon=True),
             ]
+        # collections and device intervals: recorded while the workers
+        # run (a disabled recorder ignores this)
+        self.obs.trace.watch()
         for t in self._threads:
             t.start()
         return self
@@ -948,6 +952,8 @@ class RetrievalService:
             # the warmup thread may be mid-run; wait it out (bounded by
             # one shape's warmup)
             t.join(timeout=60.0 if t.name == "svc-warmup" else 5.0)
+        if self._threads:
+            self.obs.trace.unwatch()
         self._threads = []
         if not drain:                  # abort path: resolve, don't strand
             if self._sched is not None:

@@ -106,6 +106,7 @@ def test_hostsync_tracks_host_names_and_folds_cpu_numpy():
     ("src/repro_torch/serving/sched/scheduler.py", "_refill_step", False),
     ("src/repro_torch/kernels/topk/ops.py", "anything", True),
     ("src/repro_torch/obs/trace.py", "record", True),
+    ("src/repro_torch/obs/device.py", "resolve", True),
     ("src/repro_torch/obs/export.py", "write", False),
     ("src/repro_torch/models/transformer.py", "decode_step", True),
     ("src/repro_torch/models/transformer.py", "prefill", False),

@@ -315,6 +315,85 @@ def test_service_threaded_equals_inline_on_card(cuda_device, knob):
 
 
 @pytest.mark.gpu
+def test_device_intervals_sit_inside_their_spans_on_card(cuda_device):
+    """A running traced service on the card: each batch's predict
+    program and engine stages carry their CUDA event pair's interval on
+    the recorder's clock.  A stage's interval ends inside its span (the
+    fence is in it), the predict program's inside the batch's predict
+    span (its readback waits for it); each starts after its span began.
+    Slack 0.5 ms: the anchor's clock reading may be late by the
+    interpreter lock's hand-over (the benchmark's clock check measures
+    the tie itself)."""
+    server, qt = _card_server(cuda_device, "rho")
+    o = obs.Observability.create()
+    svc = service.RetrievalService(
+        service.EngineBackend(server, query_len=qt.shape[1]),
+        admission.AdmissionConfig(max_batch=16, pad_multiple=8),
+        service.WarmupPolicy(census_path=None), obs=o)
+    svc.warmup_now([8, 16])
+    futs = svc.submit_many(list(qt), deadline_ms=1e6)
+    with svc:
+        for f in futs:
+            f.result(timeout=120.0)
+    spans = o.trace.spans()
+    slack = 5e-4
+    for p in (h for h in spans if h.name == "predict"):
+        b = p.attrs["batch"]
+        mine = [h for h in spans if (h.attrs or {}).get("batch") == b]
+        (prog,) = [h for h in mine if h.name == "predict.program"]
+        stages = [h for h in mine if h.name.startswith("engine.")]
+        assert len(stages) == 4
+        assert prog.t0 - slack <= prog.attrs["dev_t0"] \
+            <= prog.attrs["dev_t1"] <= p.t1 + slack
+        for h in stages:
+            a = h.attrs
+            assert h.t0 - slack <= a["dev_t0"] <= a["dev_t1"] <= h.t1 + slack
+            assert a["dev_ms"] > 0.0 and a["dev_stream"].startswith("cuda:")
+    assert prog.attrs["dev_stream"] != stages[0].attrs["dev_stream"]
+    assert o.trace.counts()["n_open"] == 0
+    assert o.metrics.counters().get("trace.dev_dropped", 0) == 0
+
+
+@pytest.mark.gpu
+def test_device_timer_waits_for_nothing_on_card(cuda_device):
+    """The timer's records, anchor and resolution make no call that waits
+    for the card; back-to-back sleeps on one stream read as abutting
+    intervals of one length, the first starting as its call began (the
+    stream was idle)."""
+    from repro_torch.analysis.sanitizers import no_syncs
+    from repro_torch.obs import device as obs_device
+
+    o = obs.Observability.create()
+    timer = obs_device.timer(o, cuda_device)
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    o.trace.watch()
+    try:
+        with no_syncs() as rec:
+            timer.anchor()
+            spans = []
+            for _ in range(8):
+                with o.trace.span("engine.stage1") as sp:
+                    timer.call(sp, torch.cuda._sleep, int(2e6))
+                spans.append(sp)
+            o.trace.spans()
+        assert rec.syncs == []
+        torch.cuda.synchronize()
+        t_done = o.trace.clock()
+        o.trace.spans()
+    finally:
+        o.trace.unwatch()
+    a = [h.attrs for h in spans]
+    assert all("dev_t0" in x for x in a)
+    assert spans[0].t0 - 1e-4 <= a[0]["dev_t0"] <= spans[0].t1 + 1e-4
+    assert a[-1]["dev_t1"] <= t_done
+    ms = [x["dev_ms"] for x in a]
+    assert max(ms) <= 1.1 * min(ms) and min(ms) > 0.1
+    for x, y in zip(a, a[1:]):
+        assert abs(y["dev_t0"] - x["dev_t1"]) <= 5e-5
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("bh,s,hd,causal,window,dtype", [
     (4096, 21, 4, False, None, torch.float32),    # the funnel's attention
     (8, 64, 32, True, None, torch.float32),
