@@ -39,6 +39,12 @@
   background thread: warming a shape builds the engine's programs for it
   (on a card, a CUDA graph per stage, captured on a side stream in the
   warmup thread while the execution thread serves beside it).
+* **The collector**: while a service runs threaded, the objects that
+  exist when it starts (the imports', the index's, the built programs')
+  are frozen out of the collector (``gc.freeze()``, after one
+  ``gc.collect()`` so no set-up garbage is kept), so a full collection
+  walks only what serving allocated.  The freeze is the process's and
+  counted: two services share it, and the last ``stop()`` unfreezes.
 
 ``step()`` runs one admission+dispatch cycle inline (no threads, the
 caller's stream) -- the deterministic mode tests and synchronous callers
@@ -49,6 +55,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -72,6 +79,34 @@ __all__ = ["Backend", "EngineBackend", "ShardedEngineBackend",
 
 # predicted batches the admission thread may run ahead of execution
 _HANDOFF_DEPTH = 2
+
+# services running threaded, which hold the process's collector freeze
+_freeze_lock = threading.Lock()
+_freeze_holders = 0
+
+
+def _hold_freeze() -> int:
+    """Take a hold on the collector freeze; the first holder collects
+    what is garbage now and freezes the rest.  Returns the objects this
+    hold froze (0 when the heap was already frozen by another hold)."""
+    global _freeze_holders
+    with _freeze_lock:
+        _freeze_holders += 1
+        if _freeze_holders > 1:
+            return 0
+        gc.collect()
+        gc.freeze()
+        return gc.get_freeze_count()
+
+
+def _release_freeze() -> None:
+    """Drop a hold; the last one unfreezes, and the frozen objects go
+    back into the eldest generation."""
+    global _freeze_holders
+    with _freeze_lock:
+        _freeze_holders -= 1
+        if _freeze_holders == 0:
+            gc.unfreeze()
 
 
 # ------------------------------------------------------------- backends --
@@ -531,7 +566,10 @@ class RetrievalService:
     drains the warmup policy.  On a card the admission thread runs on a
     CUDA stream of its own; execution and warmup share the default
     stream, whose allocator blocks the warmup fills, so a batch's stage
-    spans include any warmup running beside it.
+    spans include any warmup running beside it.  From ``start`` to
+    ``stop`` the heap that existed at ``start`` is frozen out of the
+    collector; the ``service.gc_frozen`` gauge reads the objects this
+    service froze.
 
     Inline mode: ``step()`` performs one poll->predict->execute cycle on
     the calling thread (deterministic; used by tests and ``serve_all``
@@ -599,6 +637,7 @@ class RetrievalService:
         self._m_missed = self.obs.metrics.counter(
             "service.deadline_missed")
         self._m_cancelled = self.obs.metrics.counter("service.cancelled")
+        self._m_frozen = self.obs.metrics.gauge("service.gc_frozen")
 
     # ------------------------------------------------------------ submit --
     def submit(self, payload, deadline_ms: float | None = None):
@@ -900,6 +939,9 @@ class RetrievalService:
                 threading.Thread(target=self._warmup_loop,
                                  name="svc-warmup", daemon=True),
             ]
+        # the set-up heap leaves the collector's walks while the workers
+        # run; the collection this takes is set-up, not a served one
+        self._m_frozen.set(_hold_freeze())
         # collections and device intervals: recorded while the workers
         # run (a disabled recorder ignores this)
         self.obs.trace.watch()
@@ -954,6 +996,7 @@ class RetrievalService:
             t.join(timeout=60.0 if t.name == "svc-warmup" else 5.0)
         if self._threads:
             self.obs.trace.unwatch()
+            _release_freeze()
         self._threads = []
         if not drain:                  # abort path: resolve, don't strand
             if self._sched is not None:

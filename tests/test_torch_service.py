@@ -17,7 +17,11 @@ batch it rode in).  Tolerances, with their reasons:
     another order than XLA's), as ``tests/test_torch_recsys.py`` allows.
 """
 
+import gc
 import math
+import sys
+import threading
+import weakref
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +38,7 @@ from repro.serving import service as j_service
 from repro_torch import convert
 from repro_torch.models.recsys import bst as t_bst
 from repro_torch.models.recsys import retrieval_tower as t_rt
+from repro_torch.obs import NULL_TRACE, MetricsRegistry, Observability
 from repro_torch.serving import admission as t_admission
 from repro_torch.serving import funnel as t_funnel
 from repro_torch.serving import server as t_server
@@ -328,6 +333,152 @@ def test_compile_count_stays_zero_within_the_warmed_grid(servers):
         assert service.warmup.run(backend) == 0
         counts.append(warm)
     assert counts[0] == counts[1] > 0
+
+
+# ------------------------------------------- the collector's freeze --
+
+def _rho_service(servers, obs=None):
+    (_, ts), terms = servers[0]["rho"], servers[1]
+    return t_service.RetrievalService(
+        t_service.EngineBackend(ts, query_len=terms.shape[1]),
+        t_admission.AdmissionConfig(max_batch=16, pad_multiple=8),
+        obs=obs), terms
+
+
+def _base_freeze() -> int:
+    """The frozen count with no service running: the interpreter keeps
+    its immortal objects in the frozen generation, and a full collection
+    puts back those that an unfreeze let out."""
+    gc.collect()
+    return gc.get_freeze_count()
+
+
+@pytest.mark.parametrize("drain", [True, False])
+def test_started_service_freezes_the_heap_until_stop(servers, drain):
+    """A started service serves with the set-up heap frozen out of the
+    collector; ``stop()`` gives it back on the drain and the abort path."""
+    service, terms = _rho_service(servers)
+    before = _base_freeze()
+    service.start()
+    try:
+        assert gc.get_freeze_count() > before
+        futs = service.submit_many(list(terms[:5]), deadline_ms=1e6)
+        service.flush()
+        assert all(f.result(timeout=60.0)["ranked"].size for f in futs)
+    finally:
+        service.stop(drain=drain)
+    assert _base_freeze() == before
+    service.stop()                       # a second stop holds nothing
+    assert _base_freeze() == before
+
+
+def test_the_freeze_is_held_until_the_last_service_stops(servers):
+    a, _ = _rho_service(servers)
+    b, _ = _rho_service(servers)
+    before = _base_freeze()
+    try:
+        a.start()
+        assert gc.get_freeze_count() > before
+        b.start()
+        a.stop()
+        assert _base_freeze() > before
+    finally:
+        a.stop()
+        b.stop()
+    assert _base_freeze() == before
+
+
+def test_a_restarted_service_freezes_again(servers):
+    service, _ = _rho_service(servers)
+    before = _base_freeze()
+    for _ in range(2):
+        service.start()
+        try:
+            assert gc.get_freeze_count() > before
+        finally:
+            service.stop()
+        assert _base_freeze() == before
+
+
+def test_inline_serving_does_not_freeze(servers):
+    service, terms = _rho_service(servers)
+    before = _base_freeze()
+    assert len(service.serve_all(list(terms[:5]))) == 5
+    service.stop()
+    assert gc.get_freeze_count() == before
+
+
+class _Cycle:
+    pass
+
+
+def test_start_collects_set_up_garbage_before_it_freezes(servers):
+    """A cycle dropped before ``start()`` is freed by its collection, not
+    kept for good in the frozen heap."""
+    service, _ = _rho_service(servers)
+    node = _Cycle()
+    node.self = node
+    ref = weakref.ref(node)
+    gc.collect()                 # the cycle now waits in the eldest gen
+    del node
+    assert ref() is not None
+    service.start()
+    try:
+        assert ref() is None
+    finally:
+        service.stop()
+
+
+def test_gc_frozen_gauge_reads_what_the_service_froze(servers):
+    obs = [Observability(trace=NULL_TRACE, metrics=MetricsRegistry())
+           for _ in range(2)]
+    a, _ = _rho_service(servers, obs[0])
+    b, _ = _rho_service(servers, obs[1])
+    before = _base_freeze()
+    try:
+        a.start()
+        # frozen objects only leave (freed) until the unfreeze
+        frozen = gc.get_freeze_count()
+        b.start()
+        got = [o.metrics.snapshot()["gauges"]["service.gc_frozen"]
+               for o in obs]
+    finally:
+        a.stop()
+        b.stop()
+    assert got[0] >= frozen > before and got[1] == 0
+
+
+def test_freeze_holds_from_many_threads_balance():
+    """Holds taken and dropped from more threads than cores, switching
+    often: the heap is frozen while a hold is held, and no hold is left
+    behind."""
+    before = _base_freeze()
+    n_threads, rounds = 16, 8
+    gate = threading.Barrier(n_threads)
+    unfrozen_while_held = []
+
+    def churn():
+        gate.wait(timeout=60.0)
+        for _ in range(rounds):
+            t_service._hold_freeze()
+            if gc.get_freeze_count() <= before:
+                unfrozen_while_held.append(threading.get_ident())
+            t_service._release_freeze()
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=churn) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120.0)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not unfrozen_while_held
+    assert t_service._freeze_holders == 0
+    assert _base_freeze() == before
 
 
 # ------------------------------------------------------ funnel backend --
